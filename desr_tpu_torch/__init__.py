@@ -4,15 +4,19 @@ The JAX package ``desr_tpu`` stays the reference; this package keeps its module
 layout so each counterpart is found under the same path:
 
 - ``desr_tpu_torch.ops``     — the hand-written Hopper kernels (``ops/conv3x3.py``
-                               over ``csrc/conv3x3.cu``) beside their plain
-                               PyTorch versions, and the depth mask ops.
+                               over ``csrc/conv3x3.cu``, ``ops/masked_loss.py``
+                               over ``csrc/masked_loss.cu``) beside their plain
+                               PyTorch versions; depth masks, normals, losses,
+                               Adam and the LR schedule.
 - ``desr_tpu_torch.models``  — ``nn.Module`` layers and nets whose
                                ``state_dict`` keys and shapes equal the JAX
                                ``Net.init`` param dicts, and ``MainModel``'s
-                               serving forward.
-- ``desr_tpu_torch.data``    — host I/O for serving: a stdlib PNG codec,
-                               frame loaders and normalisers.
+                               serving forward and train step.
+- ``desr_tpu_torch.data``    — host I/O: a stdlib PNG codec, frame loaders,
+                               the main dataset and its loader.
+- ``desr_tpu_torch.options`` — the train CLI's flags (the JAX names and defaults).
 - ``desr_tpu_torch.predict`` — ``python -m desr_tpu_torch.predict``.
+- ``desr_tpu_torch.train``   — ``python -m desr_tpu_torch.train``.
 
 The package imports nothing of ``desr_tpu`` and nothing of JAX. Entry points
 run on the card unless the caller passes ``device="cpu"``; without a card they

@@ -1,8 +1,41 @@
-"""Input normalisers for serving (counterpart of ``desr_tpu/data/transforms.py:136-148``)."""
+"""Host-side geometry and normalisers (counterpart of ``desr_tpu/data/transforms.py``).
+
+The JAX package calls cv2 with albumentations 0.4.6 semantics; the card's
+machine has no cv2, so the port writes the branches it runs in numpy:
+PadIfNeeded (centred, border REFLECT_101, which is numpy's "reflect") and the
+horizontal flip. Resizing to another size (INTER_AREA) and rotation wait for
+the port of ``ops/resize.py`` and of the augmentation.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def resize(img, height, width, interpolation=3):
+    """The identity at the frame's own size; any other size is not yet ported."""
+    if img.shape[0] == height and img.shape[1] == width:
+        return img
+    raise NotImplementedError(
+        f"resizing {img.shape[0]}x{img.shape[1]} frames to {height}x{width} "
+        "(cv2 INTER_AREA, transforms.py:44-47): not yet ported")
+
+
+def pad_if_needed(img, min_h, min_w):
+    """Centred reflect-101 pad up to (min_h, min_w) (transforms.py:58-67)."""
+    h, w = img.shape[:2]
+    pt = max((min_h - h) // 2, 0)
+    pb = max(min_h - h - pt, 0)
+    pl = max((min_w - w) // 2, 0)
+    pr = max(min_w - w - pl, 0)
+    if pt == pb == pl == pr == 0:
+        return img
+    pads = [(pt, pb), (pl, pr)] + [(0, 0)] * (img.ndim - 2)
+    return np.pad(img, pads, mode="reflect")
+
+
+def hflip(img):
+    return np.ascontiguousarray(img[:, ::-1])
 
 
 def normalize_image_np(img):

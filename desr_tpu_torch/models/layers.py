@@ -79,15 +79,45 @@ class InstanceNorm2d(nn.Module):
         return (x - mean.to(x.dtype)[:, :, None, None]) * scale
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm, eps 1e-5 (layers.py:1203-1248); the translation lineage's
+    is GroupNorm(8, affine=True) with keys ``weight`` and ``bias``.
+
+    One-pass moments per (batch, group) in f32 as in the JAX layer, the
+    normalisation and the affine in the input's dtype.
+    """
+
+    def __init__(self, num_groups, num_channels, affine=True, eps=1e-5):
+        super().__init__()
+        self.g, self.c, self.affine, self.eps = num_groups, num_channels, affine, eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_channels))
+            self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        xg = x.reshape(b, self.g, c // self.g, h, w)
+        n = xg[0, 0].numel()
+        x32 = xg.float()
+        mean = x32.sum(dim=(2, 3, 4), keepdim=True) / n
+        meansq = x32.square().sum(dim=(2, 3, 4), keepdim=True) / n
+        var = torch.clamp(meansq - mean.square(), min=0.0)
+        scale = torch.rsqrt(var + self.eps).to(x.dtype)
+        out = ((xg - mean.to(x.dtype)) * scale).reshape(b, c, h, w)
+        if self.affine:
+            out = out * self.weight.to(x.dtype)[:, None, None] + self.bias.to(x.dtype)[:, None, None]
+        return out
+
+
 def norm_vectors(norm, s, s2, n, bias=None):
     """Per-(batch, channel) f32 (scale, shift) with norm(x + bias) == x * scale + shift.
 
     ``s``/``s2`` are the one-pass moments of the BIAS-LESS x over n pixels, as
     the fused conv kernel emits them; folding the bias here is exact
-    (layers.py:1164-1200). InstanceNorm only: the GroupNorm branch comes with
-    the translator.
+    (layers.py:1164-1200). For GroupNorm the moments pool over each group's
+    channels, and an affine weight and bias fold into the vectors too.
     """
-    if not isinstance(norm, InstanceNorm2d):
+    if not isinstance(norm, (InstanceNorm2d, GroupNorm)):
         raise NotImplementedError(f"norm_vectors for {type(norm).__name__}: not yet ported")
     s, s2 = s.float(), s2.float()
     if bias is not None:
@@ -96,22 +126,36 @@ def norm_vectors(norm, s, s2, n, bias=None):
         s = s + n * b
     else:
         b = 0.0
-    mean = s / n
-    var = torch.clamp(s2 / n - mean.square(), min=0.0)
+    if isinstance(norm, GroupNorm):
+        bsz, c = s.shape
+        cs = c // norm.g
+        mean = (s.reshape(bsz, norm.g, cs).sum(-1) / (n * cs)).repeat_interleave(cs, dim=1)
+        meansq = (s2.reshape(bsz, norm.g, cs).sum(-1) / (n * cs)).repeat_interleave(cs, dim=1)
+    else:
+        mean, meansq = s / n, s2 / n
+    var = torch.clamp(meansq - mean.square(), min=0.0)
     inv = torch.rsqrt(var + norm.eps)
-    return inv, (b - mean) * inv
+    scale, shift = inv, (b - mean) * inv
+    if getattr(norm, "affine", False):
+        scale = scale * norm.weight.float()
+        shift = shift * norm.weight.float() + norm.bias.float()
+    return scale, shift
 
 
-def get_norm_layer(norm_type):
-    """(factory(ch) -> module, use_bias for convs), pix2pix lineage (layers.py:1393).
+def get_norm_layer(norm_type, lineage="pix2pix"):
+    """(factory(ch) -> module, use_bias for convs) (layers.py:1393).
 
-    Convs carry a bias only with instance norm (or none). BatchNorm and
-    GroupNorm come with later slices.
+    Convs carry a bias only with instance norm (or none). GroupNorm has 8
+    groups, affine in the translation lineage and not in the pix2pix one.
+    BatchNorm comes with a later slice.
     """
     if norm_type == "instance":
         return InstanceNorm2d, True
     if norm_type == "none":
         return (lambda ch: Identity()), True
-    if norm_type in ("batch", "group"):
+    if norm_type == "group":
+        affine = lineage == "translation"
+        return (lambda ch: GroupNorm(8, ch, affine=affine)), False
+    if norm_type == "batch":
         raise NotImplementedError(f"norm {norm_type!r}: not yet ported")
     raise NotImplementedError(f"norm layer {norm_type}")

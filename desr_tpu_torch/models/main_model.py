@@ -1,28 +1,34 @@
-"""Stage 3 — the main depth-enhancement network, serving forward only
-(counterpart of ``desr_tpu/models/main_model.py``).
+"""Stage 3 — the main depth-enhancement network (counterpart of
+``desr_tpu/models/main_model.py``): the serving forward and the train step.
 
-Serving keeps only ``pred_real_depth`` (predict.py:264-267), so only the real
-branch of the eval forward (main_model.py:177-238) is ported, with the four
-nets it runs: ``I2D_features`` and ``Image2Depth`` (the image guidance),
-``Depth_f`` and ``Task``. The translator ``G_A_d`` and the synthetic branch are
-dead code there and are not built. The train step comes with a later slice.
+Frozen nets from the earlier stages — the translator ``G_A_d`` and the image
+guidance ``I2D_features`` + ``Image2Depth`` — turn a synthetic depth into a
+realistically degraded one and predict a depth prior from each image; the
+trained ``Depth_f`` + ``Task`` fuse them to fill holes and denoise. Only
+``Depth_f`` and ``Task`` get Adam updates (main_model.py:142, :386-388).
+
+Serving (``is_train=False``) builds the four nets of the real branch only:
+``G_A_d`` and the synthetic branch are dead code there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
-import torch.nn as nn
 
-from desr_tpu_torch import checkpoints as ckpt
-from desr_tpu_torch import resolve_device
-from desr_tpu_torch.models import networks
+from desr_tpu_torch.models import networks, translation_networks
+from desr_tpu_torch.models.base_model import BaseModel
 from desr_tpu_torch.ops import depth as DPT
+from desr_tpu_torch.ops import losses as L
+from desr_tpu_torch.ops import normals as NRM
+from desr_tpu_torch.ops.masked_loss import fused_hole_means
 
 BORDER = -0.97  # main_model.py:44
-NET_NAMES = ("I2D_features", "Image2Depth", "Depth_f", "Task")
+NET_NAMES = ("I2D_features", "Image2Depth", "Depth_f", "Task")  # the serving nets
+INPUT_KEYS = ("A_i", "B_i", "A_d", "B_d", "K_A", "K_B", "crop_A", "crop_B")
 
 
 @dataclasses.dataclass
@@ -57,28 +63,38 @@ def _to_device(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-class MainModel(nn.Module):
-    """The four serving nets of MainModel (main_model.py:108-126) on one device.
+class MainModel(BaseModel):
+    """MainModel (main_model.py:59-463) on one device.
 
+    ``opt``: ``NetOptions`` for serving, or the parsed train options
+    (``desr_tpu_torch/options/train_options.py``) with ``is_train=True``.
     Parameters are float32; the forward runs in ``compute_dtype`` (bf16 by
-    default, as predict.py:152). ``generator`` seeds the initial weights,
-    which ``load_networks`` then replaces from ``.pth`` files.
+    default) with float32 losses and normals. ``generator`` seeds the initial
+    weights, which ``setup`` / ``load_networks`` then replace from ``.pth``
+    files; ``hole_generator`` draws the train-time hole masks (on the model's
+    device; seeded from ``--seed`` when None).
     """
 
-    def __init__(self, opt: NetOptions = None, device=None, compute_dtype=torch.bfloat16,
-                 use_masked=True, generator=None):
-        super().__init__()
+    model_names = ("G_A_d", "I2D_features", "Image2Depth", "Task", "Depth_f")
+    trainable_nets = ("Depth_f", "Task")
+
+    def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16,
+                 use_masked=True, generator=None, is_train=False, hole_generator=None):
         opt = opt or NetOptions()
-        self.opt = opt
-        self.device = resolve_device(device)
-        self.compute_dtype = compute_dtype
-        self.use_masked = use_masked
+        super().__init__(opt, device, compute_dtype)
+        self.is_train = is_train
+        self.use_masked = getattr(opt, "use_masked", use_masked)
+        if is_train:
+            self._refuse_as_shipped(opt)
+            self.loss_names = self._loss_names(opt)
+        else:
+            self.model_names = NET_NAMES
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = torch.Generator().manual_seed(getattr(opt, "seed", 0))
         common = dict(norm=opt.norm, use_dropout=False, init_type=opt.init_type,
                       init_gain=opt.init_gain, replace_transpose=opt.replace_transpose,
                       generator=generator, fused=not opt.pallas_conv)
-        self.nets = nn.ModuleDict({
+        nets = {
             "I2D_features": networks.define_G(3, opt.ImageDepthf_outf, opt.ImageDepthf_basef,
                                               opt.ImageDepthf_type, **common),
             "Image2Depth": networks.define_G(opt.ImageDepthf_outf, 1, opt.I2D_base,
@@ -88,17 +104,61 @@ class MainModel(nn.Module):
             "Task": networks.define_G(opt.ImageDepthf_outf + 5 + opt.Depthf_outf, 1,
                                       opt.Task_basef, opt.Task_type, n_down=opt.Task_ndown,
                                       **common),
-        })
+        }
+        if is_train:
+            # frozen translator, hardcoded config (main_model.py:115-117)
+            nets["G_A_d"] = translation_networks.define_Gen(
+                translation_networks.default_translator_opt(), "img_depth", generator=generator)
+        self.nets = torch.nn.ModuleDict(nets)
         self.to(self.device)
-        self.eval()
-        self.requires_grad_(False)  # serving only: no autograd graph
+        self.eval()  # no layer of these nets behaves differently in training
+        self.requires_grad_(False)
+        if is_train:
+            self.split_trainable()
+            if hole_generator is None:
+                hole_generator = torch.Generator(device=self.device)
+                hole_generator.manual_seed(getattr(opt, "seed", 0) + 17)
+        self.hole_generator = hole_generator
+        self._batch = None
+        self._paths = {}
 
-    def load_networks(self, checkpoints_dir, name, epoch="latest", verbose=True):
-        """Tolerant load of ``<epoch>_net_<Net>.pth`` for each serving net."""
-        for net_name in NET_NAMES:
-            ckpt.load_net(self.nets[net_name],
-                          ckpt.net_ckpt_path(checkpoints_dir, name, epoch, net_name),
-                          verbose=verbose)
+    @staticmethod
+    def _refuse_as_shipped(opt):
+        """The reference's crashing flags, refused clearly (main_model.py:79-140)."""
+        if opt.use_edge:
+            raise NotImplementedError(
+                "--use_edge references an undefined CannyFilter in the reference "
+                "(main_model.py:374-379) and is not supported")
+        if not opt.use_image_for_trans:
+            raise NotImplementedError(
+                "the reference's non-image translation path requires netG_B_d, "
+                "which MainModel never defines (main_model.py:241-249); pass "
+                "--use_image_for_trans")
+        if getattr(opt, "use_rec_as_real_input", False):
+            raise NotImplementedError(
+                "--use_rec_as_real_input crashes the reference main stage "
+                "(undefined netG_B_d, main_model.py:236-239); it is only "
+                "supported with --SR")
+
+    @staticmethod
+    def _loss_names(opt):
+        """main_model.py:83-98."""
+        names = ["task_syn", "holes_syn", "holes_syn_l2", "task_real_by_depth",
+                 "task_real_by_image", "syn_mean_diff", "real_mean_diff",
+                 "tv_syn_norm", "tv_real_norm", "syn_norms_holes",
+                 "tv_syn_norm_old", "tv_real_norm_old", "syn_norms_old"]
+        if opt.norm_loss:
+            names += ["syn_norms"]
+        if opt.use_smooth_loss:
+            names += ["smooth"]
+        if opt.use_masked:
+            names += ["holes_real", "holes_real_l2"]
+        if opt.print_mean:
+            names = ["syn_mean_diff", "real_mean_diff", "mean_of_abs_diff_syn",
+                     "mean_of_abs_diff_real", "L1_syn", "L1_real"]
+        return names
+
+    # ------------------------------------------------------------------
 
     @torch.no_grad()
     def serve_forward(self, batch):
@@ -127,3 +187,193 @@ class MainModel(nn.Module):
         # channel order of main_model.py:237 (apply_parts is the same function)
         task_in = torch.cat([feats_real, feat_real_d, real_pair, real_image], dim=1)
         return nets["Task"](task_in)[:, 0].float()
+
+    def forward_all(self, batch, train):
+        """The full forward (main_model.py:163-249): every tensor the losses
+        and the visuals read, planar (B, H, W) for depth maps and masks.
+
+        The frozen nets run under ``no_grad``; real and synthetic branches
+        share one batch-2B call of each net unless ``--no_batched_branches``.
+        """
+        dt = self.compute_dtype
+        nets = self.nets
+        syn_image = batch["A_i"].to(dt).permute(0, 3, 1, 2)
+        real_image = batch["B_i"].to(dt).permute(0, 3, 1, 2)
+        syn_depth, real_depth = batch["A_d"][..., 0], batch["B_d"][..., 0]
+        real_hole_mask = DPT.hole_mask(real_depth, BORDER)
+        real_mask = DPT.valid_mask(real_depth, BORDER)
+        syn_mask = DPT.valid_mask(syn_depth, BORDER)
+        batched = not getattr(self.opt, "no_batched_branches", False)
+        bsz = real_image.shape[0]
+        with torch.no_grad():
+            syn2real = nets["G_A_d"](batch["A_d"].to(dt).permute(0, 3, 1, 2),
+                                     syn_image)[:, 0].float()
+            if batched:
+                both_images = torch.cat([syn_image, real_image], 0)
+                feats_both = nets["I2D_features"](both_images)
+                dbi_both = nets["Image2Depth"](feats_both)[:, 0].float()
+                feats_syn, feats_real = feats_both[:bsz], feats_both[bsz:]
+                syn_dbi, real_dbi = dbi_both[:bsz], dbi_both[bsz:]
+            else:
+                feats_syn = nets["I2D_features"](syn_image)
+                feats_real = nets["I2D_features"](real_image)
+                syn_dbi = nets["Image2Depth"](feats_syn)[:, 0].float()
+                real_dbi = nets["Image2Depth"](feats_real)[:, 0].float()
+
+        if self.use_masked:
+            n, p = (60, 0.90) if train else (11, 0.0)
+            gt_mask_real = DPT.random_rect_holes(real_mask, n_max=n, p=p,
+                                                 generator=self.hole_generator)
+            depth_masked = DPT.punch_holes(real_depth, gt_mask_real)
+            gt_mask_syn = DPT.random_rect_holes(syn_mask, n_max=n, p=p,
+                                                generator=self.hole_generator)
+            syn2real_masked = DPT.punch_holes(syn2real, gt_mask_syn)
+        else:
+            gt_mask_real, gt_mask_syn = torch.ones_like(real_mask), torch.ones_like(syn_mask)
+            depth_masked, syn2real_masked = real_depth, syn2real
+
+        syn_pair = torch.stack([syn2real_masked, syn_dbi], dim=1).to(dt)
+        real_pair = torch.stack([depth_masked, real_dbi], dim=1).to(dt)
+        if batched:
+            pair_both = torch.cat([syn_pair, real_pair], 0)
+            feat_both_d = nets["Depth_f"](pair_both)
+            task_in = torch.cat([feats_both, feat_both_d, pair_both, both_images], 1)
+            pred_both = nets["Task"](task_in)[:, 0].float()
+            pred_syn, pred_real = pred_both[:bsz], pred_both[bsz:]
+        else:
+            pred_syn = nets["Task"](torch.cat(
+                [feats_syn, nets["Depth_f"](syn_pair), syn_pair, syn_image], 1))[:, 0].float()
+            pred_real = nets["Task"](torch.cat(
+                [feats_real, nets["Depth_f"](real_pair), real_pair, real_image], 1))[:, 0].float()
+
+        return dict(
+            syn_image=batch["A_i"], real_image=batch["B_i"],
+            syn_depth=syn_depth, real_depth=real_depth,
+            real_hole_mask=real_hole_mask, real_mask=real_mask, syn_mask=syn_mask,
+            syn2real_depth=syn2real, syn_depth_by_image=syn_dbi,
+            real_depth_by_image=real_dbi, gt_mask_real=gt_mask_real,
+            gt_mask_syn=gt_mask_syn, depth_masked=depth_masked,
+            syn2real_depth_masked=syn2real_masked,
+            pred_syn_depth=pred_syn, pred_real_depth=pred_real,
+        )
+
+    def losses(self, f, batch):
+        """(loss_G, metrics) of main_model.py:253-357; the (task, holes,
+        holes_l2) triplets run on K3 (``fused_hole_means``)."""
+        opt = self.opt
+        m = {}
+        syn_depth, real_depth = f["syn_depth"], f["real_depth"]
+        pred_syn, pred_real = f["pred_syn_depth"], f["pred_real_depth"]
+        syn_mask, real_mask = f["syn_mask"], f["real_mask"]
+        # translator holes + synthetic rectangles (main_model.py:268-270)
+        mask_syn_add_holes = ((f["syn2real_depth_masked"] < BORDER)
+                              | (f["gt_mask_syn"] < 0.1)).float()
+
+        zero = torch.zeros((), device=pred_syn.device)
+        for k in ("tv_syn_norm", "tv_real_norm", "tv_syn_norm_old", "tv_real_norm_old",
+                  "syn_norms_old", "syn_norms_holes", "syn_norms"):
+            m[k] = zero
+        if opt.norm_loss:
+            mask1 = syn_mask[:, None]
+            # legacy image-space normals, x100 (main_model.py:278-285)
+            norm_syn_o = NRM.surface_normals_planar(syn_depth) * 100
+            norm_syn_pred_o = NRM.surface_normals_planar(pred_syn) * 100
+            norm_real_pred_o = NRM.surface_normals_planar(pred_real) * 100
+            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o) * 1e-7
+            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_o) * 1e-7
+            m["syn_norms_old"] = L.mse_loss(norm_syn_o * mask1, norm_syn_pred_o * mask1)
+            # intrinsics-based normals (main_model.py:286-296)
+            norm_syn = NRM.surface_normals_from_K_planar(syn_depth, batch["K_A"], batch["crop_A"])
+            norm_syn_pred = NRM.surface_normals_from_K_planar(pred_syn, batch["K_A"],
+                                                              batch["crop_A"])
+            norm_real_pred = NRM.surface_normals_from_K_planar(pred_real, batch["K_B"],
+                                                               batch["crop_B"])
+            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred) * 1e-7
+            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred) * 1e-7
+            m["syn_norms"] = L.l1_loss(norm_syn * mask1, norm_syn_pred * mask1)
+            mask2 = (syn_mask * mask_syn_add_holes)[:, None]
+            m["syn_norms_holes"] = L.l1_loss(norm_syn * mask2, norm_syn_pred * mask2)
+
+        m["task_syn"], m["holes_syn"], m["holes_syn_l2"] = fused_hole_means(
+            pred_syn, syn_depth, syn_mask, mask_syn_add_holes)
+        m["task_real_by_depth"] = L.l1_loss(real_depth * real_mask, pred_real * real_mask)
+        m["task_real_by_image"] = L.l1_loss(f["real_depth_by_image"] * f["real_hole_mask"],
+                                            pred_real * f["real_hole_mask"])
+
+        # weighted sum, main_model.py:314-322
+        loss_g = (m["task_syn"] * opt.w_syn_l1
+                  + m["holes_syn"] * opt.w_syn_holes
+                  + m["holes_syn_l2"] * opt.w_syn_holes
+                  + m["task_real_by_depth"] * opt.w_real_l1_d
+                  + m["task_real_by_image"] * opt.w_real_l1_i
+                  + m["tv_syn_norm"] * 1 + m["syn_norms_holes"] * opt.w_syn_norm * 5
+                  + m["tv_real_norm"] * 1 + m["syn_norms_old"] * opt.w_syn_norm
+                  + m["tv_real_norm_old"] * 1 + m["tv_syn_norm_old"] * 1)
+        if self.use_masked:
+            mask_real_add_holes = (f["gt_mask_real"] <= 0.1).float()
+            m["holes_real"], _, m["holes_real_l2"] = fused_hole_means(
+                pred_real, real_depth, mask_real_add_holes, torch.ones_like(mask_real_add_holes))
+            loss_g = loss_g + (m["holes_real"] + m["holes_real_l2"]) * opt.w_real_holes
+        if opt.norm_loss:
+            loss_g = loss_g + m["syn_norms"] * opt.w_syn_norm
+        if opt.use_smooth_loss:
+            img_planar = f["real_image"].float().permute(0, 3, 1, 2)
+            m["smooth"] = L.smooth_weight_loss_planar(pred_real, img_planar, 3)
+            loss_g = loss_g + m["smooth"] * opt.w_smooth
+        loss_g = loss_g * opt.scale_G
+        m["G"] = loss_g
+
+        # diagnostics (main_model.py:347-353)
+        m["syn_mean_diff"] = (syn_depth * syn_mask).mean() - (pred_syn * syn_mask).mean()
+        m["real_mean_diff"] = (real_depth * real_mask).mean() - (pred_real * real_mask).mean()
+        m["mean_of_abs_diff_syn"] = (syn_depth * syn_mask - pred_syn * syn_mask).abs().mean()
+        m["mean_of_abs_diff_real"] = (real_depth * real_mask - pred_real * real_mask).abs().mean()
+        m["L1_syn"] = m["mean_of_abs_diff_syn"]
+        m["L1_real"] = m["mean_of_abs_diff_real"]
+        return loss_g, m
+
+    # ------------------------------------------------------------------
+
+    def set_input(self, batch):
+        """Stage a host batch on the device (``--direction BtoA`` swaps the
+        image and depth tensors only, base_model.py:161-176)."""
+        if getattr(self.opt, "direction", "AtoB") != "AtoB":
+            batch = dict(batch, A_i=batch["B_i"], B_i=batch["A_i"],
+                         A_d=batch["B_d"], B_d=batch["A_d"])
+        self._batch = {k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}
+        self._paths = {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")}
+
+    def compute_grads(self, batch=None):
+        """Forward, losses and backward of one train step; the gradients are
+        left on the trainable nets' parameters. Returns the metrics."""
+        batch = self._batch if batch is None else batch
+        self.optimizer.zero_grad(set_to_none=True)
+        loss_g, m = self.losses(self.forward_all(batch, train=True), batch)
+        loss_g.backward()
+        return {k: v.detach() for k, v in m.items()}
+
+    def optimize_parameters(self, iters=None, fr=1):
+        """One train step: forward, loss_G backward, Adam on Depth_f and Task."""
+        self.metrics = self.compute_grads()
+        self.optimizer.step()
+
+    @torch.no_grad()
+    def calculate(self, stage="test"):
+        """The eval forward and its metrics (no holes drawn); with
+        ``--save_all`` the test predictions are written as uint16 PNGs."""
+        f = self.forward_all(self._batch, train=False)
+        _, m = self.losses(f, self._batch)
+        self.metrics = m
+        if getattr(self.opt, "save_all", False) and stage == "test":
+            self._dump_predictions(f["pred_real_depth"])
+
+    def _dump_predictions(self, pred):
+        """uint16 PNG dump, rows [16:-16], x5100 (main_model.py:453-462)."""
+        from desr_tpu_torch.utils.util import save_uint16_png
+
+        os.makedirs(self.opt.save_image_folder, exist_ok=True)
+        pred = pred.float().cpu().numpy()
+        for i, path in enumerate(self._paths.get("B_paths") or []):
+            stem = str(path).split("/")[-1].split(".")[0]
+            out = np.clip((pred[i, 16:-16, :] + 1) / 2, 0, 1)
+            save_uint16_png(out, os.path.join(self.opt.save_image_folder, f"{stem}.png"))

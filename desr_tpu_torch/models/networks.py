@@ -16,6 +16,7 @@ from desr_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
     Dropout,
+    GroupNorm,
     InstanceNorm2d,
     LeakyReLU,
     ReflectionPad2d,
@@ -31,18 +32,36 @@ from desr_tpu_torch.ops import conv3x3 as K
 _PAD_MODE = {"reflect": "reflect", "replicate": "replicate", "zero": "zeros"}
 
 
+def fused_resnet_chain(x, convs, norms, pad_mode):
+    """x + norm2(conv2(relu(norm1(conv1(x))))) as the fused chain of
+    ``Sequential._run_fused_chain`` (layers.py:271-337), NCHW in and out.
+
+    conv1 emits its output's moments, ``norm_vectors`` folds conv1's bias and
+    the norm (InstanceNorm, or GroupNorm with its affine) into per-(b, c)
+    scale/shift, conv2 applies them (+ReLU) as it loads its input and emits
+    its own moments, and the last norm is one multiply-add before the skip.
+    Both convs are ``conv3x3_fused``: the kernel on the card, its plain
+    version on the CPU; differentiable either way.
+    """
+    x = x.contiguous(memory_format=torch.channels_last)
+    xh = x.permute(0, 2, 3, 1)  # NHWC view, contiguous
+    (c1, c2), (n1, n2) = convs, norms
+    n = xh.shape[1] * xh.shape[2]
+    y, s, s2 = K.conv3x3_fused(xh, c1.weight, pad_mode=pad_mode, stats=True)
+    sc, sh = norm_vectors(n1, s, s2, n, c1.bias)
+    z, s, s2 = K.conv3x3_fused(y, c2.weight, sc, sh, pad_mode, relu=True, stats=True)
+    sc, sh = norm_vectors(n2, s, s2, n, c2.bias)
+    out = xh + (z.float() * sc[:, None, None, :] + sh[:, None, None, :]).to(x.dtype)
+    return out.permute(0, 3, 1, 2)
+
+
 class ResnetBlock(nn.Module):
     """[pad, conv3x3, IN, ReLU, (Dropout), pad, conv3x3, IN] + skip
     (networks.py:69-96); keys under ``conv_block.``.
 
-    The forward is the fused chain of ``Sequential._run_fused_chain``
-    (layers.py:271-337) on every device: conv1 emits its output's moments,
-    ``norm_vectors`` folds conv1's bias and the InstanceNorm into per-(b, c)
-    scale/shift, conv2 applies them (+ReLU) as it loads its input and emits
-    its own moments, and the last norm is one multiply-add before the skip.
-    On the card both convs are the ``conv3x3_fused`` kernel, on the CPU its
-    plain version. With ``fused=False`` each conv is the ``conv3x3`` kernel
-    and the norms run as layers (the JAX ``--pallas_conv`` route).
+    The forward is ``fused_resnet_chain`` on every device. With
+    ``fused=False`` each conv is the ``conv3x3`` kernel and the norms run as
+    layers (the JAX ``--pallas_conv`` route).
     """
 
     def __init__(self, dim, padding_type, norm_layer, use_dropout, use_bias,
@@ -70,30 +89,22 @@ class ResnetBlock(nn.Module):
         self.fused = fused
         self.use_dropout = use_dropout
         convs = [m for m in blocks if isinstance(m, Conv2d)]
-        norms = [m for m in blocks if isinstance(m, InstanceNorm2d)]
+        norms = [m for m in blocks if isinstance(m, (InstanceNorm2d, GroupNorm))]
         if len(norms) != 2:
-            raise NotImplementedError("ResnetBlock with a norm other than instance: not yet ported")
+            raise NotImplementedError("ResnetBlock without a norm: not yet ported")
         self._convs, self._norms = convs, norms
 
     def forward(self, x):
         if self.training and self.use_dropout:
             raise NotImplementedError("ResnetBlock dropout in training: not yet ported")
-        x = x.contiguous(memory_format=torch.channels_last)
-        xh = x.permute(0, 2, 3, 1)  # NHWC view, contiguous
-        (c1, c2), (n1, n2) = self._convs, self._norms
         if not self.fused:
-            y = self._conv_norm(xh, c1, n1)
+            x = x.contiguous(memory_format=torch.channels_last)
+            (c1, c2), (n1, n2) = self._convs, self._norms
+            y = self._conv_norm(x.permute(0, 2, 3, 1), c1, n1)
             y = torch.relu(y).contiguous(memory_format=torch.channels_last)
             y = self._conv_norm(y.permute(0, 2, 3, 1), c2, n2)
             return x + y
-        n = xh.shape[1] * xh.shape[2]
-        y, s, s2 = K.conv3x3_fused(xh, c1.weight, pad_mode=self.pad_mode, stats=True)
-        sc, sh = norm_vectors(n1, s, s2, n, c1.bias)
-        z, s, s2 = K.conv3x3_fused(y, c2.weight, sc, sh, self.pad_mode, relu=True,
-                                   stats=True)
-        sc, sh = norm_vectors(n2, s, s2, n, c2.bias)
-        out = xh + (z.float() * sc[:, None, None, :] + sh[:, None, None, :]).to(x.dtype)
-        return out.permute(0, 3, 1, 2)
+        return fused_resnet_chain(x, self._convs, self._norms, self.pad_mode)
 
     def _conv_norm(self, xh, conv, norm):
         y = K.conv3x3(xh, conv.weight, self.pad_mode).permute(0, 3, 1, 2)
@@ -192,7 +203,12 @@ class UnetGenerator(nn.Module):
 
 @torch.no_grad()
 def init_weights(net, init_type="normal", init_gain=0.02, generator=None):
-    """Conv/convT weights ~ N(0, init_gain), biases 0 (layers.py:170-196, "normal")."""
+    """Conv/convT weights ~ N(0, init_gain), biases 0 (layers.py:170-196,
+    "normal"); affine GroupNorm weights ~ N(1, 0.02), biases 0 (:1213-1220).
+
+    The translation lineage's "normal" init (``gain_from_nonlinearity``) is
+    the same with init_gain 0.02.
+    """
     if init_type != "normal":
         raise NotImplementedError(f"init {init_type!r}: not yet ported")
     for m in net.modules():
@@ -200,6 +216,9 @@ def init_weights(net, init_type="normal", init_gain=0.02, generator=None):
             m.weight.normal_(0.0, init_gain, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, GroupNorm) and m.affine:
+            m.weight.normal_(1.0, 0.02, generator=generator)
+            m.bias.zero_()
     return net
 
 

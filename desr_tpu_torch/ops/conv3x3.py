@@ -20,6 +20,14 @@ serving shape (B=8, 128x160, 128->128, bf16) a launch is 48.3 GFLOP against
 A CPU tensor takes the plain PyTorch version (``conv3x3_fused_plain``), which
 is also the kernel's oracle on the card. A CUDA tensor launches the kernel or
 raises: there is no fallback.
+
+Both wrappers are differentiable in x, w, scale and shift (``_Conv3x3``, the
+custom VJPs of pallas_conv.py:322-333 and :379-413). As in the JAX package the
+backward is no kernel of its own: the stats cotangents fold into the output's
+(``g_out + g_s + 2 out g_s2``), then one ``aten.convolution_backward`` on the
+normalised, padded input (recomputed from x, as ``_fused_bwd`` does) gives dx
+and dw without re-running the forward conv, and the adjoints of the pad and
+the prologue finish dx, dscale and dshift. The backward runs in x's dtype.
 """
 
 from __future__ import annotations
@@ -134,17 +142,69 @@ def _library():
     return lib
 
 
-def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
-                  stats=False):
-    """out = conv3x3(pad([relu](x * scale + shift))), NHWC x, OIHW w, no bias.
+def _prologue(x, scale, shift, relu):
+    """(input the conv reads, f32 pre-activation or None), both NHWC."""
+    if scale is None:
+        return x, None
+    v = x.float() * scale.float()[:, None, None, :] + shift.float()[:, None, None, :]
+    return (torch.relu(v) if relu else v).to(x.dtype), v
 
-    ``scale``/``shift``: per-(batch, C_in) f32 vectors (None: no prologue).
-    ``pad_mode``: "reflect" | "replicate" (the prologue applies to the border
-    values too) | "zeros" (the padding stays 0). Returns ``out`` in x's dtype,
-    or ``(out, s, s2)`` with the (B, C_out) f32 sum and sum of squares of the
-    f32 accumulator over H and W when ``stats``.
-    """
-    _check(x, w, scale, shift, pad_mode)
+
+class _Conv3x3(torch.autograd.Function):
+    """The forward of either wrapper (kernel or plain version, by device) with
+    the VJP of the plain composition prologue -> pad -> conv (-> moments)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, pad_mode, relu, stats, forward_fn):
+        res = forward_fn(x, w, scale, shift, pad_mode, relu, stats)
+        ctx.pad_mode, ctx.relu, ctx.stats = pad_mode, relu, stats
+        ctx.save_for_backward(x, w, scale, shift, res[0] if stats else None)
+        return res
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, w, scale, shift, out = ctx.saved_tensors
+        dt = x.dtype
+        if ctx.stats:
+            # s = sum(out32), s2 = sum(out32^2) fold into the output's
+            # cotangent (pallas_conv.py:390-397): no conv recompute for them
+            g_out, g_s, g_s2 = grads
+            g = (g_out.float() + g_s[:, None, None, :]
+                 + 2.0 * out.float() * g_s2[:, None, None, :]).to(dt)
+        else:
+            g = grads[0].to(dt)
+        xin, v = _prologue(x, scale, shift, ctx.relu)
+        xin = xin.permute(0, 3, 1, 2)
+        zeros = ctx.pad_mode == "zeros"
+        xp = xin if zeros else F.pad(xin, (1, 1, 1, 1), mode=ctx.pad_mode)
+        dxp, dw, _ = torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), xp, w.to(dt), None, [1, 1], [1, 1] if zeros else [0, 0],
+            [1, 1], False, [0, 0], 1,
+            [any(ctx.needs_input_grad[i] for i in (0, 2, 3)), ctx.needs_input_grad[1], False])
+        dx = dscale = dshift = None
+        if dxp is not None:
+            if zeros:
+                dxin = dxp
+            else:  # adjoint of the border pad
+                leaf = xin.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    (dxin,) = torch.autograd.grad(
+                        F.pad(leaf, (1, 1, 1, 1), mode=ctx.pad_mode), leaf, dxp)
+            dxin = dxin.permute(0, 2, 3, 1)
+            if scale is None:
+                dx = dxin
+            else:  # adjoint of [relu](x * scale + shift), in f32
+                dv = dxin.float()
+                if ctx.relu:
+                    dv = dv * (v > 0)
+                dx = (dv * scale.float()[:, None, None, :]).to(dt)
+                dscale = (dv * x.float()).sum(dim=(1, 2)).to(scale.dtype)
+                dshift = dv.sum(dim=(1, 2)).to(shift.dtype)
+        return (dx, None if dw is None else dw.to(w.dtype), dscale, dshift,
+                None, None, None, None)
+
+
+def _fused_forward(x, w, scale, shift, pad_mode, relu, stats):
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, w, scale, shift, pad_mode, relu, stats)
     if x.device.type != "cuda":
@@ -154,9 +214,7 @@ def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
     return res
 
 
-def conv3x3(x, w, pad_mode="reflect"):
-    """Stride-1 3x3 conv of NHWC x with OIHW w and a 1-pixel border; no bias."""
-    _check(x, w, None, None, pad_mode)
+def _plain_conv_forward(x, w, scale, shift, pad_mode, relu, stats):
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, w, None, None, pad_mode)
     if x.device.type != "cuda":
@@ -164,6 +222,28 @@ def conv3x3(x, w, pad_mode="reflect"):
     res = _launch(x, w, None, None, pad_mode, False, False)
     conv3x3.launches += 1
     return res
+
+
+def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
+                  stats=False):
+    """out = conv3x3(pad([relu](x * scale + shift))), NHWC x, OIHW w, no bias.
+
+    ``scale``/``shift``: per-(batch, C_in) f32 vectors (None: no prologue).
+    ``pad_mode``: "reflect" | "replicate" (the prologue applies to the border
+    values too) | "zeros" (the padding stays 0). Returns ``out`` in x's dtype,
+    or ``(out, s, s2)`` with the (B, C_out) f32 sum and sum of squares of the
+    f32 accumulator over H and W when ``stats``. Differentiable in x, w,
+    scale and shift.
+    """
+    _check(x, w, scale, shift, pad_mode)
+    return _Conv3x3.apply(x, w, scale, shift, pad_mode, relu, stats, _fused_forward)
+
+
+def conv3x3(x, w, pad_mode="reflect"):
+    """Stride-1 3x3 conv of NHWC x with OIHW w and a 1-pixel border; no bias.
+    Differentiable in x and w."""
+    _check(x, w, None, None, pad_mode)
+    return _Conv3x3.apply(x, w, None, None, pad_mode, False, False, _plain_conv_forward)
 
 
 conv3x3_fused.launches = 0

@@ -1,4 +1,4 @@
-"""Depth hole masks for the serving forward (counterpart of
+"""Depth hole masks and the train-time hole sampler (counterpart of
 ``desr_tpu/ops/depth.py``). Depth maps are planar (B, H, W) tensors in [-1, 1].
 """
 
@@ -26,14 +26,46 @@ def valid_mask(depth, border=-0.97):
 
 def random_rect_holes(base_valid_mask, *, n_max=60, n_min=10, p=0.90,
                       min_frac=150, max_frac=8, generator=None):
-    """Random rectangle hole masks (depth.py:84-164); only p=0 is ported.
+    """Per-sample random rectangle hole masks (depth.py:84-164), planar (B, H, W).
 
-    With p=0 every rectangle has size 0, so the mask is all ones
-    (depth.py:117-126): the eval and serving case.
+    0 where a rectangle covers a pixel that ``base_valid_mask`` marks valid
+    (> 0.05), 1 elsewhere. Per sample: ``number`` ~ U{n_min..n_max-1}
+    rectangles, corners ~ U over the grid (with replacement, as the JAX
+    package), sizes ~ U{W//min_frac .. W//max_frac-1} (rows likewise), each
+    axis's sizes times ONE Bernoulli(p) draw shared by all rectangles of the
+    sample. With p=0 every rectangle has size 0 and the mask is all ones
+    (depth.py:117-126): the eval and serving case, which draws nothing.
+    ``generator``: a ``torch.Generator`` on the mask's device (its default
+    generator when None).
     """
-    if p != 0.0:
-        raise NotImplementedError("random_rect_holes with p > 0: not yet ported")
-    return torch.ones_like(base_valid_mask)
+    if p == 0.0:
+        return torch.ones_like(base_valid_mask)
+    b, h, w = base_valid_mask.shape
+    dev = base_valid_mask.device
+    n_rect = n_max - 1 if n_max > n_min else n_min
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=generator, device=dev)
+
+    number = randint(n_min, max(n_max, n_min + 1), (b, 1))
+    active = torch.arange(n_rect, device=dev)[None, :] < number  # (B, R)
+    xs = randint(0, w, (b, n_rect))
+    ys = randint(0, h, (b, n_rect))
+    sizes_x = randint(w // min_frac, max(w // max_frac, w // min_frac + 1), (b, n_rect))
+    sizes_y = randint(h // min_frac, max(h // max_frac, h // min_frac + 1), (b, n_rect))
+    bern = (torch.rand((b, 2), generator=generator, device=dev) < p).long()
+    sizes_x = sizes_x * bern[:, :1]
+    sizes_y = sizes_y * bern[:, 1:]
+    # covered[b, y, x] = OR_r (row_in[b, r, y] AND col_in[b, r, x]): one
+    # (H, R) x (R, W) product per sample, no (B, R, H, W) broadcast
+    yy = torch.arange(h, device=dev)[None, None, :]
+    xx = torch.arange(w, device=dev)[None, None, :]
+    row_in = ((yy >= ys[..., None]) & (yy < (ys + sizes_y)[..., None])
+              & active[..., None]).float()
+    col_in = ((xx >= xs[..., None]) & (xx < (xs + sizes_x)[..., None])).float()
+    covered = torch.einsum("brh,brw->bhw", row_in, col_in) > 0.5
+    punched = (base_valid_mask > 0.05) & covered
+    return torch.where(punched, 0.0, 1.0).to(base_valid_mask.dtype)
 
 
 def punch_holes(depth, gt_mask, fill=-1.0):

@@ -1,0 +1,146 @@
+"""Training options for ``python -m desr_tpu_torch.train`` (counterpart of
+``desr_tpu/options/{base,train}_options.py`` with the main stage's own flags,
+main_model.py:67-75).
+
+Every flag of the JAX parser is known here, under its JAX name. Those the
+port honours keep the JAX defaults (several are read by no part of the main
+stage in either package, as in the reference). The rest stop the run with a
+clear error: ``NOT_PORTED`` ("not yet ported") and ``XLA_ONLY``, the JAX
+package's XLA-lowering switches, which compute the same math and have no
+counterpart in the port. An unknown flag gets argparse's own error. The port
+adds ``--device`` (default ``cuda``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+# flags of the JAX parser that change what its main stage does, not ported yet
+NOT_PORTED = ("SR", "use_wandb", "profile_dir", "steps_per_call", "device_aug", "remat",
+              "remat_tails", "no_remat_tails", "remat_blocks", "spatial_devices",
+              "num_devices", "compiler_option", "no_donate", "compile_cache_dir")
+# XLA-lowering switches of the JAX package (layers.py Ctx): same math there
+XLA_ONLY = ("pallas_fuse", "no_pallas_fuse", "pallas_fuse_frozen", "fused_pad",
+            "no_split_conv", "row_tap", "phase_convt", "no_ring_pad", "no_tap_conv",
+            "fold_norm", "bf16_tail", "bf16_normals", "no_onepass_stats")
+COMPUTE_DTYPES = ("bfloat16", "bf16", "float32", "f32")
+
+# (name, type, default) of the valued flags the port accepts
+_VALUED = [
+    # base_options.py:25-76
+    ("dataroot", str, "./"), ("name", str, "experiment_name"), ("gpu_ids", str, "0"),
+    ("model_type", str, "I2D"), ("checkpoints_dir", str, "./checkpoints"),
+    ("model", str, "cycle_gan"), ("input_nc", int, 3), ("output_nc", int, 3), ("ngf", int, 64),
+    ("ndf", int, 64), ("netD", str, "basic"), ("netG", str, "resnet_9blocks"),
+    ("n_layers_D", int, 3), ("norm", str, "instance"), ("init_type", str, "normal"),
+    ("init_gain", float, 0.02), ("dataset_mode", str, "unaligned"), ("direction", str, "AtoB"),
+    ("num_threads", int, 4), ("batch_size", int, 1), ("batch_size_val", int, 1),
+    ("load_size", int, 286), ("crop_size", int, 256), ("max_dataset_size", int, 2 ** 31),
+    ("preprocess", str, "resize_and_crop"), ("display_winsize", int, 256),
+    ("epoch", str, "latest"), ("load_iter", int, 0), ("suffix", str, ""),
+    ("compute_dtype", str, "bfloat16"), ("seed", int, 0),
+    # train_options.py:12-136
+    ("display_freq", int, 400), ("display_ncols", int, 4), ("display_id", int, 1),
+    ("display_server", str, "http://localhost"), ("display_env", str, "main"),
+    ("display_port", int, 2346), ("update_html_freq", int, 1000), ("print_freq", int, 100),
+    ("save_latest_freq", int, 500), ("save_epoch_freq", int, 10), ("epoch_count", int, 1),
+    ("phase", str, "train"), ("start_iter", int, 0), ("n_epochs", int, 100),
+    ("n_epochs_decay", int, 100), ("beta1", float, 0.5), ("lr", float, 0.0002),
+    ("gan_mode", str, "lsgan"), ("pool_size", int, 50), ("lr_policy", str, "linear"),
+    ("lr_decay_iters", int, 50), ("max_distance", int, 10),
+    ("save_image_folder", str, "./predictions/"), ("update_ratio", int, 1), ("take", int, 0),
+    ("path_to_intr", str, ""), ("split_files", str, ""), ("path_A", str, ""),
+    ("path_B", str, ""), ("path_A_test", str, ""), ("path_B_test", str, ""),
+    ("A_add_paths", str, ""), ("B_add_paths", str, ""), ("A_add_paths_test", str, ""),
+    ("B_add_paths_test", str, ""), ("num_test", int, 5000), ("iou_error_weight", float, 0.5),
+    ("Imagef_ndown", int, 2), ("Depthf_ndown", int, 2), ("Task_ndown", int, 2),
+    ("Imagef_basef", int, 32), ("Depthf_basef", int, 32), ("Task_basef", int, 64),
+    ("Imagef_outf", int, 16), ("Depthf_outf", int, 128), ("Imagef_type", str, "resnet_6blocks"),
+    ("Depthf_type", str, "resnet_6blocks"), ("Task_type", str, "unet_128"),
+    ("w_syn_adv", float, 0.5), ("w_real_l1", float, 0.1), ("w_holles", float, 0.0),
+    ("w_syn_norm", float, 0.0), ("w_real_norm", float, 0.0), ("w_edge_s", float, 0.0),
+    ("w_edge_r", float, 0.0), ("w_rec_holles", float, 0.0), ("w_syn_l1", float, 1),
+    ("w_syn_holes", float, 2), ("w_real_holes", float, 5), ("w_real_l1_d", float, 1),
+    ("w_real_l1_i", float, 0.1), ("w_smooth", float, 0.1), ("w_tv", float, 0.1),
+    ("w_norm_idt", float, 0), ("w_norm_cycle", float, 0), ("w_loss_l1", float, 0.1),
+    ("w_edge_l1", float, 1), ("w_ssim", float, 1), ("ImageDepthf_outf", int, 128),
+    ("ImageDepthf_basef", int, 32), ("ImageDepthf_type", str, "resnet_6blocks"),
+    ("I2D_base", int, 64), ("I2D_type", str, "unet_128"), ("scale_G", float, 1.0),
+    ("notscannet", bool, True), ("load_size_h", int, 480), ("load_size_w", int, 640),
+    ("crop_size_h", int, 384), ("crop_size_w", int, 512),
+    # main_model.py:71-74
+    ("lambda_A", float, 10.0), ("lambda_B", float, 10.0), ("lambda_identity", float, 0.5),
+]
+# store_true flags the port accepts (no_dropout defaults True in the main stage)
+_SWITCHES = [
+    "use_spnorm", "serial_batches", "no_flip", "verbose", "i2d_train_features", "fused_iter",
+    "pallas_losses", "no_batched_branches", "no_html", "save_by_iter", "continue_train",
+    "replace_transpose", "uint16", "custom_pathes", "image_and_depth", "eval", "print_mean",
+    "cat", "use_rec_masks", "use_idt_masks", "save_all", "use_rec_iou_error",
+    "back_rec_iou_error", "use_rec_as_real_input", "use_image_for_trans", "norm_loss",
+    "use_smooth_loss", "use_D", "use_edge", "use_masked", "use_scannet", "use_tv", "do_train",
+    "do_test", "interiornet", "no_aug", "use_i2d_in_input",
+]
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="python -m desr_tpu_torch.train")
+    for name, typ, default in _VALUED:
+        p.add_argument(f"--{name}", type=typ, default=default)
+    for name in _SWITCHES:
+        p.add_argument(f"--{name}", action="store_true")
+    p.add_argument("--no_dropout", action="store_true", default=True)
+    # the K2 route of the ResnetBlocks (the JAX per-stage default: off)
+    p.add_argument("--pallas_conv", dest="pallas_conv", action="store_true", default=None)
+    p.add_argument("--no_pallas_conv", dest="pallas_conv", action="store_false")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; without a GPU, cpu must be asked for")
+    for name in NOT_PORTED + XLA_ONLY:
+        p.add_argument(f"--{name}", dest=f"_refused_{name}", nargs="?", const=True,
+                       default=None, help=argparse.SUPPRESS)
+    return p
+
+
+def parse(argv=None, print_options=True):
+    """Parsed options with ``isTrain``; exits (argparse error) on a flag the
+    port does not run."""
+    parser = build_parser()
+    opt = parser.parse_args(argv)
+    for name in NOT_PORTED + XLA_ONLY:
+        if getattr(opt, f"_refused_{name}") is not None:
+            parser.error(
+                f"--{name} is not yet ported to desr_tpu_torch (train with the JAX main.py)"
+                if name in NOT_PORTED else
+                f"--{name} steers XLA in desr_tpu and has no counterpart in desr_tpu_torch")
+        delattr(opt, f"_refused_{name}")
+    if opt.model_type != "main":
+        parser.error(f"--model_type {opt.model_type} is not yet ported to desr_tpu_torch "
+                     "(it trains --model_type main)")
+    if opt.compute_dtype not in COMPUTE_DTYPES:
+        parser.error(f"--compute_dtype must be one of {COMPUTE_DTYPES}")
+    if opt.lr_policy not in ("linear", "step", "cosine"):
+        parser.error(f"--lr_policy {opt.lr_policy} is not yet ported to desr_tpu_torch")
+    opt.pallas_conv = bool(opt.pallas_conv)
+    opt.isTrain = True
+    if opt.suffix:
+        opt.name = opt.name + "_" + opt.suffix.format(**vars(opt))
+    if print_options:
+        _print_options(parser, opt)
+    return opt
+
+
+def _print_options(parser, opt):
+    """The options block, non-defaults marked, also written to
+    <checkpoints_dir>/<name>/<phase>_opt.txt (base_options.py:257-271)."""
+    message = "----------------- Options ---------------\n"
+    for k, v in sorted(vars(opt).items()):
+        default = parser.get_default(k)
+        comment = f"\t[default: {default}]" if v != default and k != "isTrain" else ""
+        message += "{:>25}: {:<30}{}\n".format(str(k), str(v), comment)
+    message += "----------------- End -------------------"
+    print(message)
+    expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    os.makedirs(expr_dir, exist_ok=True)
+    with open(os.path.join(expr_dir, f"{opt.phase}_opt.txt"), "wt") as f:
+        f.write(message + "\n")

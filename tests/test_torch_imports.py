@@ -28,7 +28,8 @@ def test_no_jax_or_desr_tpu_import_lines():
 
 
 def test_importing_the_port_loads_neither_jax_nor_desr_tpu():
-    code = ("import sys, desr_tpu_torch.predict, desr_tpu_torch.models.main_model; "
+    code = ("import sys, desr_tpu_torch.predict, desr_tpu_torch.train, "
+            "desr_tpu_torch.models.main_model; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'desr_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

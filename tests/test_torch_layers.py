@@ -80,13 +80,20 @@ def test_norm_vectors_match_jax(with_bias):
 def test_get_norm_layer_bias_rule():
     for norm in ("instance", "none", "batch", "group"):
         _, jax_bias = JL.get_norm_layer(norm)
-        if norm in ("batch", "group"):
+        if norm == "batch":
             with pytest.raises(NotImplementedError, match="not yet ported"):
                 TL.get_norm_layer(norm)
             continue
         factory, bias = TL.get_norm_layer(norm)
         assert bias == jax_bias
-        assert isinstance(factory(4), TL.InstanceNorm2d if norm == "instance" else TL.Identity)
+        want = {"instance": TL.InstanceNorm2d, "none": TL.Identity, "group": TL.GroupNorm}[norm]
+        assert isinstance(factory(8), want)
+    # GroupNorm(8): affine in the translation lineage only, as in the JAX package
+    for lineage in ("pix2pix", "translation"):
+        factory, _ = TL.get_norm_layer("group", lineage)
+        jfactory, _ = JL.get_norm_layer("group", lineage)
+        assert factory(16).affine == jfactory(16).affine == (lineage == "translation")
+        assert factory(16).g == jfactory(16).g == 8
 
 
 def test_layers_cast_f32_params_to_the_input_dtype():
