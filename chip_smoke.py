@@ -15,7 +15,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     variants (stats only, normalise+ReLU+stats; replicate borders) at its train
     step shape (B=6, 128x160x256), held against the plain PyTorch version on
     the card with TF32 off (torch.backends.cudnn.allow_tf32 and
-    torch.backends.cuda.matmul.allow_tf32 are set False for the whole run).
+    torch.backends.cuda.matmul.allow_tf32 are set False for the whole run);
+    then the bf16 body at the edges of its tiling (C_in and C_out off its
+    64-channel chunk and N tile, 16 -> 16, W off its 16-pixel tile, H = W = 2
+    with reflect, C_out = 300 over two N tiles), every K1 variant and K2 in
+    all three borders; two launches of K1 must give the same bits.
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -37,8 +41,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     then times the bf16 step (CUDA events) and profiles it.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths, error, time, the plain version's and the library
-    call's times and its bound on this card; K1 has a row at the serving shape
-    and one at the translator's.
+    call's times, its bound on this card and the share of it reached
+    (bound_share), and for K1/K2 the rate (tflops); K1 has a row at the
+    serving shape and one at the translator's.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -152,13 +157,18 @@ def phase_card_and_build():
 
 # ------------------------------------------------------------------ (b)
 
-def _inputs(dtype, seed=0, shape=SERVE_SHAPE):
+# the bf16 body's tile edges: (NHWC shape, C_out)
+EDGE_CASES = (((2, 21, 37, 72), 80), ((2, 30, 37, 16), 16), ((2, 2, 2, 64), 64),
+              ((2, 17, 40, 128), 128), ((1, 9, 20, 256), 300))
+
+
+def _inputs(dtype, seed=0, shape=SERVE_SHAPE, cout=None):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, w, c = shape
     x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-    wt = 0.03 * torch.randn((c, c, 3, 3), generator=g, device="cuda")
+    wt = 0.03 * torch.randn((cout or c, c, 3, 3), generator=g, device="cuda")
     scale = 0.5 + 1.5 * torch.rand((b, c), generator=g, device="cuda")
     shift = torch.randn((b, c), generator=g, device="cuda")
     return x, wt, scale, shift
@@ -200,7 +210,8 @@ K1_VARIANTS = (("stats", False, False, True),  # name, prologue, relu, stats
 
 def phase_kernels():
     """K1/K2 against the plain version; returns the worst bf16 max |d| of
-    each kernel at the serving shape and of K1 at the translator's."""
+    each kernel at the serving shape and of K1 at the translator's (the edge
+    cases are checked, not reported)."""
     import torch
 
     from desr_tpu_torch.ops import conv3x3 as K
@@ -231,8 +242,30 @@ def phase_kernels():
                 e = _compare(f"K2 {mode} {dt}", (got,), (want,), dtype, n_pix)
                 if dtype == torch.bfloat16:
                     worst["K2"] = max(worst["K2"], e)
+            if dtype == torch.bfloat16:
+                a = K.conv3x3_fused(x, w, scale, shift, modes[0], True, True)
+                again = K.conv3x3_fused(x, w, scale, shift, modes[0], True, True)
+                check(all(torch.equal(u, v) for u, v in zip(a, again)),
+                      f"K1{tag} bf16: two launches differ")
+                print(f"[b] K1{tag} bf16 norm+relu+stats {modes[0]}: two launches bit-equal")
             del x, w, scale, shift
             torch.cuda.synchronize()
+    for shape, cout in EDGE_CASES:
+        x, w, scale, shift = _inputs(torch.bfloat16, seed=3, shape=shape, cout=cout)
+        n_pix = shape[1] * shape[2]
+        name = f"{'x'.join(map(str, shape))}->{cout}"
+        for mode in ("reflect", "replicate", "zeros"):
+            for variant, prologue, relu, stats in K1_VARIANTS:
+                sc, sh = (scale, shift) if prologue else (None, None)
+                got = K.conv3x3_fused(x, w, sc, sh, mode, relu, stats)
+                want = K.conv3x3_fused_plain(x, w, sc, sh, mode, relu, stats)
+                got, want = (got, want) if stats else ((got,), (want,))
+                _compare(f"K1 edge {name} {variant} {mode} bfloat16", got, want,
+                         torch.bfloat16, n_pix)
+            _compare(f"K2 edge {name} {mode} bfloat16", (K.conv3x3(x, w, mode),),
+                     (K.conv3x3_fused_plain(x, w, pad_mode=mode),), torch.bfloat16, n_pix)
+        del x, w, scale, shift
+    torch.cuda.synchronize()
     return worst
 
 
@@ -742,7 +775,7 @@ def phase_report(serve_launches, train_launches, worst, k3_err):
             plain = lambda: K.conv3x3_fused_plain(x, wt, pad_mode=mode)  # noqa: E731
             extra_bytes = 0
         flops = 2.0 * 9 * c * c * b * h * w
-        io = 2 * b * h * w * c * 2 + 9 * c * c * 4  # bf16 x read and out written, f32 w read
+        io = 2 * b * h * w * c * 2 + 9 * c * c * 2  # bf16 x read and out written, bf16 w read
         xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode)
         xp = xp.contiguous(memory_format=torch.channels_last)
         wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -761,6 +794,7 @@ def phase_report(serve_launches, train_launches, worst, k3_err):
             "library_ms": cuda_ms(lambda: F.conv2d(xp, wb)),
             "shape": f"B={b} {h}x{w} {c}->{c} bf16 {mode}"
                      + (" norm+relu+stats" if name == "conv3x3_fused" else ""),
+            "flops": flops,
         }
         if entry == "K1 translator":
             # the kernel's counter is one for both shapes: the launches above
@@ -795,6 +829,10 @@ def phase_report(serve_launches, train_launches, worst, k3_err):
         # wrapper's host time, which bounds a call as short as K3's
         r["ms"] = r["device_ms"] if r["device_ms"] is not None else r["event_ms"]
         r["ms_from"] = "torch.profiler" if r["device_ms"] is not None else "CUDA events"
+        # share of the roofline this call reached; K1/K2 also their rate
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        if "flops" in r:
+            r["tflops"] = r.pop("flops") / (r["ms"] * 1e-3) / 1e12
         if r["device_ms"] is not None and r["device_ms_min"] < r["bound_ms"]:
             print(f"[d] {r['name']} ({r['shape']}): a call took {r['device_ms_min']:.4g} ms, "
                   f"under its {r['bound_ms']:.4g} ms bound")

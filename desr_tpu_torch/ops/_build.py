@@ -59,7 +59,12 @@ def build(name: str, verbose: bool = False) -> str:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
         if verbose and res.stderr:
-            print(res.stderr)
+            # ptxas -v: registers, shared memory and spills per kernel, and
+            # its warnings; its info notes on injected warpgroup.arrive
+            # (C7519) are counted, not listed
+            lines = res.stderr.splitlines()
+            print("\n".join(ln for ln in lines if "(C7519)" not in ln))
+            print(f"ptxas: {sum('(C7519)' in ln for ln in lines)} C7519 notes for {name}.cu")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

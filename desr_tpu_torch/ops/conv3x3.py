@@ -12,10 +12,15 @@ Replaces the Pallas TPU kernel of ``desr_tpu/ops/pallas_conv.py``:
 The kernel is ``desr_tpu_torch/csrc/conv3x3.cu`` (built with nvcc for sm_90a
 on the first CUDA call, loaded with ctypes). Unlike the TPU kernel it reads
 reflect and replicate borders itself, so its output equals ``apply_ring``'s
-(layers.py:702) with no ring corrections. What bounds it on the H100: at the
-serving shape (B=8, 128x160, 128->128, bf16) a launch is 48.3 GFLOP against
-~84 MB moved, so the tensor cores (989 TFLOP/s bf16) set the floor at about
-0.049 ms, above the 0.025 ms that HBM (3.35 TB/s) needs.
+(layers.py:702) with no ring corrections. Its bf16 body is an implicit GEMM on
+Hopper's warpgroup MMA: one block covers all output channels of a tile (up to
+256; more take more blocks), the input halo is staged once per 64-channel
+chunk and read by all 9 taps, and the weights stream through a ring in the
+128-byte-swizzled layout ``pack_weights`` gives them. What bounds it on the
+H100: at the serving shape (B=8, 128x160, 128->128, bf16) a launch is 48.3
+GFLOP against ~84 MB moved, so the tensor cores (989 TFLOP/s bf16) set the
+floor at about 0.049 ms, above the 0.025 ms that HBM (3.35 TB/s) needs. The
+float32 body is an exact f32 path on the CUDA cores.
 
 A CPU tensor takes the plain PyTorch version (``conv3x3_fused_plain``), which
 is also the kernel's oracle on the card. A CUDA tensor launches the kernel or
@@ -40,6 +45,54 @@ import torch.nn.functional as F
 
 PAD_MODES = {"zeros": 0, "reflect": 1, "replicate": 2}
 DTYPES = (torch.float32, torch.bfloat16)
+# tile geometry of the two bodies in csrc/conv3x3.cu (its C entry points
+# refuse a bf16 (nt, th) they were not built for)
+F32_TILE = (8, 16)   # conv3x3_f32_kernel: rows, columns
+BF16_TW = 16         # bf16 body: tile columns (a warp's 16 A rows)
+BF16_KC = 64         # bf16 body: input channels per chunk (128 bytes a pixel)
+
+
+def bf16_tiling(cout):
+    """(nt, th) of the bf16 body for ``cout`` output channels: the output
+    channels one block covers (a wgmma N of 64, 128 or 256; wider layers
+    take ceil(cout / 256) blocks per tile) and the tile's rows."""
+    nt = 256 if cout > 128 else 128 if cout > 64 else 64
+    return nt, 16 if nt == 64 else 8
+
+
+def _swizzle(nt, device):
+    """Index of the 16-byte group stored in slot q of weight row n: the
+    128-byte swizzle (q ^ n % 8), its own inverse."""
+    n = torch.arange(nt, device=device)
+    return torch.arange(8, device=device)[None, :] ^ (n % 8)[:, None]
+
+
+@functools.lru_cache(maxsize=32)
+def _pack_index(o, i, nt, device):
+    """Where ``pack_weights`` takes each packed entry from: an index into
+    w.reshape(-1) with one 0 appended (index o * i * 9)."""
+    n = o * i * 9
+    tiles, chunks = -(-o // nt), -(-i // BF16_KC)
+    idx = torch.full((tiles * nt, chunks * BF16_KC, 3, 3), n, dtype=torch.long, device=device)
+    idx[:o, :i] = torch.arange(n, device=device).reshape(o, i, 3, 3)
+    idx = idx.reshape(tiles, nt, chunks, BF16_KC, 9).permute(0, 2, 4, 1, 3)
+    idx = idx.reshape(tiles, chunks, 9, nt, 8, 8)
+    # contiguous, so that the gather through it is too: the kernel reads the
+    # packed weights by address
+    return idx[:, :, :, torch.arange(nt, device=device)[:, None],
+               _swizzle(nt, device)].contiguous()
+
+
+def pack_weights(w, nt, dtype=torch.bfloat16):
+    """(O, I, 3, 3) weights -> the bf16 body's layout, ``[ceil(O / nt)][chunk]
+    [tap][nt][64]``: for N tile, 64-input-channel chunk and tap (dy * 3 + dx),
+    an nt x 64 K-major matrix (row n = output channel, 128 bytes of input
+    channels) whose 8-channel groups are XOR-swizzled by n % 8, as wgmma's
+    128-byte swizzle reads them. Channels past O and I are 0. One gather
+    through a cached index (``_pack_index``)."""
+    o, i = w.shape[:2]
+    flat = F.pad(w.detach().to(dtype).reshape(-1), (0, 1))
+    return flat[_pack_index(o, i, nt, w.device)]
 
 
 def conv3x3_fused_plain(x, w, scale=None, shift=None, pad_mode="reflect",
@@ -99,27 +152,35 @@ def _launch(x, w, scale, shift, pad_mode, relu, stats):
     lib = _library()
     b, h, wd, c = x.shape
     o = w.shape[0]
-    # (O, I, 3, 3) -> (9, I, O) tap-major matrix in the kernel's weight type
-    wt = w.detach().to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, o).contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        nt, th = bf16_tiling(o)
+        tw = BF16_TW
+        wt = pack_weights(w, nt)
+    else:  # (O, I, 3, 3) -> (9, I, O) tap-major matrix
+        th, tw = F32_TILE
+        wt = w.detach().float().permute(2, 3, 1, 0).reshape(9, c, o).contiguous()
     if scale is not None:
         scale = scale.detach().float().contiguous()
         shift = shift.detach().float().contiguous()
     out = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
     psum = psq = None
     if stats:
-        tiles = lib.desr_conv3x3_tiles(h, wd)
+        tiles = -(-h // th) * -(-wd // tw)
         psum = torch.empty((b, tiles, o), dtype=torch.float32, device=x.device)
         psq = torch.empty_like(psum)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    args = (ptr(x), ptr(wt), ptr(scale), ptr(shift), ptr(out), ptr(psum), ptr(psq),
+            b, h, wd, c, o, PAD_MODES[pad_mode], int(relu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.desr_conv3x3(ptr(x), ptr(wt), ptr(scale), ptr(shift), ptr(out),
-                               ptr(psum), ptr(psq), b, h, wd, c, o,
-                               PAD_MODES[pad_mode], int(relu),
-                               int(x.dtype == torch.bfloat16), stream)
+        if bf16:
+            err = lib.desr_conv3x3_bf16(*args, nt, th, stream)
+        else:
+            err = lib.desr_conv3x3_f32(*args, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
     if not stats:
@@ -135,10 +196,10 @@ def _library():
 
     lib = _build.load("conv3x3")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.desr_conv3x3.argtypes = [vp] * 7 + [ci] * 8 + [vp]
-    lib.desr_conv3x3.restype = ci
-    lib.desr_conv3x3_tiles.argtypes = [ci, ci]
-    lib.desr_conv3x3_tiles.restype = ci
+    lib.desr_conv3x3_bf16.argtypes = [vp] * 7 + [ci] * 9 + [vp]
+    lib.desr_conv3x3_bf16.restype = ci
+    lib.desr_conv3x3_f32.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+    lib.desr_conv3x3_f32.restype = ci
     return lib
 
 

@@ -134,3 +134,124 @@ def test_kernel_path_raises_instead_of_falling_back(case, err):
         w = w.to("meta")
     with pytest.raises(err):
         K._launch(x, w, None, None, "reflect", False, False)
+
+
+# ------------------------------------------------------- the bf16 body's layout
+
+def _unpack(wp, cout, cin):
+    """(cout, cin, 3, 3) weights from the packed layout: row n of a (tile,
+    chunk, tap) matrix keeps input-channel group g in 16-byte slot g ^ n % 8."""
+    tiles, chunks, _, nt = wp.shape[:4]
+    n = torch.arange(nt)[:, None]
+    w = wp[:, :, :, n, torch.arange(8)[None, :] ^ (n % 8)]
+    w = w.reshape(tiles, chunks, 9, nt, K.BF16_KC).permute(0, 3, 1, 4, 2)
+    return w.reshape(tiles * nt, chunks * K.BF16_KC, 3, 3)[:cout, :cin]
+
+
+@pytest.mark.parametrize("cout,cin", [(80, 72), (16, 16), (300, 16), (128, 128), (5, 3)])
+def test_packed_weights_unpack_exactly(cout, cin):
+    """The wrapper's tile-major, 128-byte-swizzled weight layout loses
+    nothing: unpacking it gives w back bit for bit (float32 and bf16), the
+    padding past C_out and C_in is 0, and it is laid out contiguously."""
+    w = torch.from_numpy(randn((cout, cin, 3, 3), cout + cin))
+    nt, _ = K.bf16_tiling(cout)
+    for dt in (torch.float32, torch.bfloat16):
+        wp = K.pack_weights(w, nt, dt)
+        assert tuple(wp.shape) == (-(-cout // nt), -(-cin // K.BF16_KC), 9, nt, 8, 8)
+        assert wp.is_contiguous()   # the kernel reads it by address
+        assert torch.equal(_unpack(wp, cout, cin), w.to(dt))
+        assert int((wp != 0).sum()) == int((w.to(dt) != 0).sum())
+
+
+def _border(i, n, mode):
+    """csrc/conv3x3.cu border_index, on an index tensor (-1: a zero)."""
+    inside = (i >= 0) & (i < n)
+    if mode == "reflect":
+        j = torch.where(i < 0, -i, 2 * n - 2 - i)
+    elif mode == "replicate":
+        j = torch.where(i < 0, torch.zeros_like(i), torch.full_like(i, n - 1))
+    else:
+        j = torch.full_like(i, -1)
+    j = torch.where((j >= 0) & (j < n), j, torch.full_like(j, -1))
+    return torch.where(inside, i, j)
+
+
+def _walk(x, w, scale, shift, mode, relu):
+    """The bf16 body's loop order and indexing, in float32 on the CPU.
+
+    Per (b, tile, N tile): for each 64-channel chunk the halo as the kernel's
+    transform writes it ((TH+2) x 18 pixels, prologue on the mapped value,
+    16-byte groups XOR-swizzled by pixel); for each tap the A rows read at the
+    kernel's ldmatrix offsets and the weight tile read at wgmma's 128-byte
+    swizzled offsets in the packed weights; the moments of each tile over
+    its in-image pixels, summed over tiles in tile order.
+    """
+    b, h, wd, c = x.shape
+    o = w.shape[0]
+    nt, th = K.bf16_tiling(o)
+    tw, kc = K.BF16_TW, K.BF16_KC
+    hwd, hp = tw + 2, (th + 2) * (tw + 2)
+    chunks, tiles_h, tiles_w = -(-c // kc), -(-h // th), -(-wd // tw)
+    wflat = K.pack_weights(w, nt, torch.float32).reshape(-1)
+    out = torch.zeros(b, h, wd, o)
+    s = torch.zeros(b, o)
+    s2 = torch.zeros(b, o)
+    k = torch.arange(kc)
+    n = torch.arange(nt)
+    b_idx = n[:, None] * kc + ((k[None, :] // 8) ^ (n[:, None] % 8)) * 8 + k[None, :] % 8
+    p_all = torch.arange(hp)
+    hr, hc = p_all // hwd, p_all % hwd
+    # output pixel m of the tile: tile row m // 16, column m % 16
+    m = torch.arange(th * tw)
+    for bi in range(b):
+        for tile in range(tiles_h * tiles_w):
+            oh0, ow0 = (tile // tiles_w) * th, (tile % tiles_w) * tw
+            sh, sw = _border(oh0 - 1 + hr, h, mode), _border(ow0 - 1 + hc, wd, mode)
+            ok = (sh >= 0) & (sw >= 0)
+            for nb in range(-(-o // nt)):
+                acc = torch.zeros(th * tw, nt)
+                for ch in range(chunks):
+                    ci0 = ch * kc
+                    v = torch.zeros(hp, kc)
+                    cn = min(kc, c - ci0)
+                    src = x[bi, sh.clamp(min=0), sw.clamp(min=0), ci0:ci0 + cn]
+                    if scale is not None:
+                        src = src * scale[bi, ci0:ci0 + cn] + shift[bi, ci0:ci0 + cn]
+                        src = torch.relu(src) if relu else src
+                    v[:, :cn] = torch.where(ok[:, None], src, torch.zeros(()))
+                    halo = torch.zeros(hp * kc)
+                    slot = ((k[None, :] // 8) ^ (p_all[:, None] % 8)) * 8 + k[None, :] % 8
+                    halo[(p_all[:, None] * kc + slot).reshape(-1)] = v.reshape(-1)
+                    for t in range(9):
+                        dy, dx = divmod(t, 3)
+                        p = (m // tw + dy) * hwd + m % tw + dx
+                        a = halo[p[:, None] * kc + ((k[None, :] // 8) ^ (p[:, None] % 8)) * 8
+                                 + k[None, :] % 8]
+                        off = ((nb * chunks + ch) * 9 + t) * nt * kc
+                        acc += a @ wflat[off + b_idx].T
+                oh, ow = oh0 + m // tw, ow0 + m % tw
+                inside = (oh < h) & (ow < wd)
+                cols = slice(nb * nt, min(o, (nb + 1) * nt))
+                ncol = cols.stop - cols.start
+                out[bi, oh[inside], ow[inside], cols] = acc[inside, :ncol]
+                s[bi, cols] += acc[inside, :ncol].sum(0)
+                s2[bi, cols] += acc[inside, :ncol].square().sum(0)
+    return out, s, s2
+
+
+@pytest.mark.parametrize("shape,cout,mode", [
+    ((2, 9, 13, 72), 80, "reflect"), ((2, 9, 13, 72), 80, "replicate"),
+    ((2, 9, 13, 72), 80, "zeros"), ((1, 11, 20, 16), 300, "replicate"),
+    ((1, 2, 2, 3), 5, "reflect"), ((1, 18, 17, 64), 16, "zeros"),
+])
+def test_kernel_walk_equals_plain(shape, cout, mode):
+    """The bf16 body's tiling, halo swizzle, chunk/tap order and packed-weight
+    indexing, walked in float32, equal conv3x3_fused_plain within f32
+    summation order: ragged tiles and channels, two N tiles (300 outputs),
+    a partial chunk (16 and 72 inputs) and a 2x2 reflect image."""
+    x, w, scale, shift = (torch.from_numpy(a) for a in _inputs(seed=91, shape=shape, cout=cout))
+    for sc, sh, relu in ((scale, shift, True), (None, None, False)):
+        got = _walk(x, w, sc, sh, mode, relu)
+        want = K.conv3x3_fused_plain(x, w, sc, sh, mode, relu, stats=True)
+        for g, v in zip(got, want):
+            _close(g, v)

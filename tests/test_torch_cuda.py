@@ -45,8 +45,8 @@ def _inputs(shape, cout, seed, dev):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["reflect", "replicate", "zeros"])
 def test_cuda_kernel_matches_plain(mode, dtype):
-    """Ragged tiles (21x37), C_in not a multiple of the 16-channel chunk (72)
-    and C_out not a multiple of the 64-channel block tile (80)."""
+    """Ragged tiles (21x37), C_in not a multiple of the bf16 body's
+    64-channel chunk (72) and C_out not a multiple of its N tile (80 of 128)."""
     dev = _cuda()
     dt = getattr(torch, dtype)
     x, w, scale, shift = _inputs((2, 21, 37, 72), 80, 51, dev)
@@ -75,6 +75,52 @@ def test_cuda_kernel_takes_tiny_shapes(shape, cout, mode):
         torch.testing.assert_close(got[0].float(), want[0].float(), **OUT_TOL[dt])
         for g, v in zip(got[1:], want[1:]):
             torch.testing.assert_close(g, v, **STATS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,mode", [
+    ((2, 30, 37, 16), 16, "reflect"),      # the --SR head's width; W not a multiple of 16
+    ((1, 2, 2, 64), 64, "reflect"),        # H = W = 2 with reflect
+    ((2, 17, 40, 128), 128, "replicate"),  # one row past a 16-row tile
+    ((1, 12, 19, 200), 160, "reflect"),    # N tile 256 with 96 channels masked
+    ((1, 9, 20, 256), 300, "zeros"),       # two N tiles
+    ((2, 8, 33, 256), 256, "replicate"),   # the translator's width, ragged columns
+])
+def test_cuda_bf16_body_at_its_tile_edges(shape, cout, mode):
+    """The bf16 body where its tiling can break, every variant, K2 included;
+    one K1 launch per call."""
+    dev = _cuda()
+    x, w, scale, shift = _inputs(shape, cout, 54, dev)
+    x = x.to(torch.bfloat16)
+    for sc, sh, relu, stats in ((None, None, False, True), (scale, shift, True, True),
+                                (scale, shift, False, False)):
+        before = K.conv3x3_fused.launches
+        got = K.conv3x3_fused(x, w, sc, sh, mode, relu, stats)
+        assert K.conv3x3_fused.launches == before + 1
+        want = K.conv3x3_fused_plain(x, w, sc, sh, mode, relu, stats)
+        got, want = (got, want) if stats else ((got,), (want,))
+        torch.testing.assert_close(got[0].float(), want[0].float(), **OUT_TOL[torch.bfloat16])
+        for g, v in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g, v, **STATS_TOL)
+    torch.testing.assert_close(K.conv3x3(x, w, mode).float(),
+                               K.conv3x3_fused_plain(x, w, pad_mode=mode).float(),
+                               **OUT_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_body_takes_a_misaligned_x():
+    """A contiguous x one element into its storage is not 16-byte aligned:
+    the body's scalar halo loads run instead of cp.async."""
+    dev = _cuda()
+    x, w, scale, shift = _inputs((2, 10, 21, 64), 64, 55, dev)
+    xm = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.is_contiguous() and xm.data_ptr() % 16 != 0
+    got = K.conv3x3_fused(xm, w, scale, shift, "reflect", True, True)
+    want = K.conv3x3_fused_plain(xm, w, scale, shift, "reflect", True, True)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **OUT_TOL[torch.bfloat16])
+    for g, v in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, v, **STATS_TOL)
 
 
 @pytest.mark.cuda
