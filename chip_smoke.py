@@ -16,19 +16,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     step shape (B=6, 128x160x256), held against the plain PyTorch version on
     the card with TF32 off (torch.backends.cudnn.allow_tf32 and
     torch.backends.cuda.matmul.allow_tf32 are set False for the whole run);
-    then the bf16 body at the edges of its tiling (C_in and C_out off its
-    64-channel chunk and N tile, 16 -> 16, W off its 16-pixel tile, H = W = 2
-    with reflect, C_out = 300 over two N tiles), every K1 variant and K2 in
-    all three borders; two launches of K1 must give the same bits.
+    then K1 (stats only, normalise+ReLU+stats) at the x2 SR stage's shapes:
+    the ResnetBlocks at LR (B=4, 128x160x128) and HR (B=4 and B=2,
+    256x320x128, reflect), the translators at HR (B=1, 256x320x256,
+    replicate and reflect); then the bf16 body at the edges of its tiling
+    (C_in and C_out off its 64-channel chunk and N tile, 16 -> 16, W off its
+    16-pixel tile, H = W = 2 with reflect, C_out = 300 over two N tiles),
+    every K1 variant and K2 in all three borders; two launches of K1 must
+    give the same bits.
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
     convs routed through K2 (``--net_args --pallas_conv``). Checks the PNGs,
     the launch counters (24 per batch), and one batch's ``serve_forward``
     against the same model with the kernel swapped for its plain version.
-(b') K3 = masked_loss_sums, at the train step's shape (6, 512, 640) and a
-    ragged (3, 37, 41), float32 and bf16 pred/target, binary masks, against
-    its plain version; two launches must give the same bits.
+(b') K3 = masked_loss_sums, at the train step's shape (6, 512, 640), the SR
+    step's (1, 1024, 1280) and (1, 512, 640) and a ragged (3, 37, 41),
+    float32 and bf16 pred/target, binary masks, against its plain version;
+    two launches must give the same bits.
 (e) training: 12 synthetic 480x640 RGB-D frames per domain with their
     intrinsics and seeded random .pth files for all five nets at full width;
     ``desr_tpu_torch.train.main`` trains on them with the README stage-3 flags
@@ -39,11 +44,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     through the kernels against the same step through their plain versions
     (loss terms, and gradients against the plain route's own sensitivity);
     then times the bf16 step (CUDA events) and profiles it.
+(f) SR serving: 8 synthetic 960x1280 RGB-D frames (ScanNet's 480x640 at x2)
+    and seeded random .pth files at full width; ``predict.main --SR`` serves
+    them in bf16 as two requests of 4 (padded to 1024x1280, guidance at LR
+    512x640). Checks the 960x1280 PNGs, K1 at 24 launches per batch, and one
+    batch's ``serve_forward`` against the same model with K1 swapped for its
+    plain version (phase (c)'s bounds); times the batch and each net.
+(g) SR training: 4 synthetic 480x640 frames per domain through
+    NaiveSRDataset (INTER_AREA x2, pad to 1024x1280, the whole canvas as the
+    crop); ``train.main --SR`` with the README's SR flags and bench.py's loss
+    flags (batch 1, crop 512x640, lr 2e-5, bf16) for 2 steps. Checks the
+    launches (K1 42 and K3 2 per step), finite losses, frozen nets unchanged
+    and trained ones moved, G falling over 4 model-level steps, an f32
+    kernel-vs-plain step at HR 256x256 (phase (e)'s bounds), one
+    --use_rec_as_real_input step (K1 78 launches, G_B_d unchanged); then
+    times and profiles the bf16 step.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
-    serving and train paths, error, time, the plain version's and the library
-    call's times, its bound on this card and the share of it reached
-    (bound_share), and for K1/K2 the rate (tflops); K1 has a row at the
-    serving shape and one at the translator's.
+    serving and train paths (and by path), error, time, the plain version's
+    and the library call's times, its bound on this card and the share of it
+    reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
+    the main serving shape, the translator's and the SR step's two HR
+    shapes, K3 at the main and the SR step's HR shape.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -58,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -71,6 +93,14 @@ K1_PER_STEP = 42                  # I2D_features 12 + Depth_f 12 (batch 2B) + G_
 K1_TRANS_PER_STEP = 18            # of those, G_A_d's: at TRANS_SHAPE, replicate borders
 K3_PER_STEP = 2                   # the syn and real (task, holes, holes_l2) triplets
 PEAK_F32 = 67e12                  # f32 FLOP/s outside the tensor cores, H100 SXM data sheet
+# the x2 SR stage at the README geometry: LR 512x640 -> HR 1024x1280
+SR_SERVE_SHAPE = (4, 256, 320, 128)   # Depth_f's ResnetBlocks at HR, a serving batch of 4
+SR_LR_SHAPE = (4, 128, 160, 128)      # I2D_features' at LR, a serving batch of 4
+SR_DEPTHF_SHAPE = (2, 256, 320, 128)  # Depth_f's at HR in the train step (batch 2B, B=1)
+SR_TRANS_SHAPE = (1, 256, 320, 256)   # G_A_d's (replicate) and G_B_d's (reflect) at HR, B=1
+SR_LOSS_SHAPES = ((1, 1024, 1280), (1, 512, 640))  # K3's syn (HR) and real (LR) triplets
+SR_K1_PER_STEP = 42       # I2D_features 12 (LR) + Depth_f 12 (HR, with a backward) + G_A_d 18
+SR_K1_REC_PER_STEP = 78   # --use_rec_as_real_input: + G_B_d 18 + G_A_d 18 more
 
 
 class SmokeFailure(RuntimeError):
@@ -216,12 +246,19 @@ def phase_kernels():
 
     from desr_tpu_torch.ops import conv3x3 as K
 
-    worst = {"K1": 0.0, "K2": 0.0, "K1 translator": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K1 translator": 0.0, "K1 SR LR": 0.0, "K1 SR HR": 0.0,
+             "K1 SR Depth_f": 0.0, "K1 SR translator": 0.0}
     # the serving path's variants and borders; the translator's ResnetBlockT
-    # (G_A_d on the train path) runs stats, then norm+relu+stats, replicate
+    # (G_A_d on the train path) runs stats, then norm+relu+stats, replicate;
+    # the SR stage's ResnetBlocks at LR and HR, and its translators at HR
+    # (G_A_d replicate, G_B_d of --use_rec_as_real_input reflect)
     for tag, shape, modes, variants in (
             ("", SERVE_SHAPE, ("reflect", "replicate", "zeros"), K1_VARIANTS),
-            (" translator", TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2])):
+            (" translator", TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" SR LR", SR_LR_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" SR HR", SR_SERVE_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" SR Depth_f", SR_DEPTHF_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" SR translator", SR_TRANS_SHAPE, ("replicate", "reflect"), K1_VARIANTS[:2])):
         n_pix = shape[1] * shape[2]
         for dtype in (torch.float32, torch.bfloat16):
             x, w, scale, shift = _inputs(dtype, shape=shape)
@@ -235,7 +272,7 @@ def phase_kernels():
                     e = _compare(f"K1{tag} {variant} {mode} {dt}", got, want, dtype, n_pix)
                     if dtype == torch.bfloat16:
                         worst["K1" + tag] = max(worst["K1" + tag], e)
-                if tag:
+                if tag:  # K2 runs only at the main serving shape
                     continue
                 got = K.conv3x3(x, w, mode)
                 want = K.conv3x3_fused_plain(x, w, pad_mode=mode)
@@ -290,8 +327,8 @@ def phase_masked_loss():
 
     from desr_tpu_torch.ops import masked_loss as K3
 
-    worst = 0.0
-    for shape in (LOSS_SHAPE, (3, 37, 41)):
+    worst = {}
+    for shape in (LOSS_SHAPE, *SR_LOSS_SHAPES, (3, 37, 41)):
         for dtype in (torch.float32, torch.bfloat16):
             ins = _loss_inputs(shape, dtype, seed=sum(shape))
             got = torch.stack(K3.masked_loss_sums(*ins))
@@ -306,22 +343,22 @@ def phase_masked_loss():
             print(f"[b'] {name}: max |d| {float(err.max()):.3g}, max rel "
                   f"{float((err / want.abs().clamp_min(1e-30)).max()):.3g} (bound 1e-5); "
                   "two launches bit-equal")
-            if shape == LOSS_SHAPE and dtype == torch.float32:
-                worst = float(err.max())
+            if shape in (LOSS_SHAPE, SR_LOSS_SHAPES[0]) and dtype == torch.float32:
+                worst[shape] = float(err.max())
     torch.cuda.synchronize()
     return worst
 
 
 # ------------------------------------------------------------------ (c)
 
-def _write_frames(folder, n, seed=0):
-    """n seeded 480x640 frames: smooth RGB with noise, uint16 mm depth with holes."""
+def _write_frames(folder, n, seed=0, hw=(480, 640)):
+    """n seeded frames of hw: smooth RGB with noise, uint16 mm depth with holes."""
     import numpy as np
 
     from desr_tpu_torch.data.png import write_png
 
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float32)
     for sub in ("depth", "img"):
         os.makedirs(os.path.join(folder, sub), exist_ok=True)
     for i in range(n):
@@ -331,14 +368,14 @@ def _write_frames(folder, n, seed=0):
         depth = 1500 + 1000 * np.sin(a * xx) * np.cos(b * yy) + 0.5 * yy
         depth += rng.normal(0, 20, depth.shape)
         depth[rng.random(depth.shape) < 0.05] = 0           # speckle holes
-        y0, x0 = rng.integers(0, 400), rng.integers(0, 560)
+        y0, x0 = rng.integers(0, hw[0] - 80), rng.integers(0, hw[1] - 80)
         depth[y0:y0 + 60, x0:x0 + 80] = 0                   # one block hole
         write_png(os.path.join(folder, "img", f"f{i:02d}.png"), img.clip(0, 255).astype(np.uint8))
         write_png(os.path.join(folder, "depth", f"f{i:02d}.png"),
                   depth.clip(0, 65535).astype(np.uint16))
 
 
-def _read_outputs(folder, n):
+def _read_outputs(folder, n, hw=(480, 640)):
     import numpy as np
 
     from desr_tpu_torch.data.png import read_png
@@ -347,7 +384,7 @@ def _read_outputs(folder, n):
     check(len(files) == n, f"{folder}: {len(files)} PNGs, want {n}")
     arrs = [read_png(os.path.join(folder, f)) for f in files]
     for f, a in zip(files, arrs):
-        check(a.dtype == np.uint16 and a.shape == (480, 640), f"{f}: {a.dtype} {a.shape}")
+        check(a.dtype == np.uint16 and a.shape == hw, f"{f}: {a.dtype} {a.shape}, want {hw}")
     return np.stack(arrs).astype(np.int64)
 
 
@@ -414,50 +451,7 @@ def phase_serving(tmp):
           f"serve_forward: {K.conv3x3_fused.launches} K1 launches")
     check(tuple(pred.shape) == (8, 512, 640) and bool(torch.isfinite(pred).all()),
           f"serve_forward: shape {tuple(pred.shape)} or non-finite values")
-    report = {}
-
-    def forward(dtype, plain=False, fused=True):
-        model.compute_dtype = dtype
-        blocks = [m for m in model.modules() if hasattr(m, "fused")]
-        for m in blocks:
-            m.fused = fused
-        try:
-            if plain:
-                with mock.patch.object(K, "conv3x3_fused", K.conv3x3_fused_plain), \
-                        mock.patch.object(K, "conv3x3", K.conv3x3_fused_plain):
-                    return model.serve_forward(batch)
-            return model.serve_forward(batch)
-        finally:
-            for m in blocks:
-                m.fused = True
-
-    def mean_max(a, b):
-        d = (a - b).abs()
-        return float(d.mean()), float(d.max())
-
-    # float32: the kernels differ from the plain convs by summation order
-    # only, and the K2 route from the fused one by where the bias and the
-    # norm are applied: max |d| <= 1e-3 on the tanh output in [-1, 1]
-    ref32 = forward(torch.float32, plain=True)
-    for label, out in (("kernel (K1)", forward(torch.float32)),
-                       ("K2 route", forward(torch.float32, fused=False))):
-        mean, mx = mean_max(out, ref32)
-        print(f"[c] serve_forward float32 {label} vs plain convs: mean |d| {mean:.3g}, "
-              f"max |d| {mx:.3g} (bound 1e-3)")
-        check(mx <= 1e-3, f"serve_forward float32 {label}: max |d| {mx:.3g} > 1e-3")
-        report[f"f32_{label.split()[0]}_max_abs_diff"] = mx
-    # bf16: the kernel must sit as close to the float32 result as the plain
-    # bf16 convs do (bf16 error itself sets the scale): within 1.5x
-    noise, _ = mean_max(forward(torch.bfloat16, plain=True), ref32)
-    for label, out in (("kernel (K1)", forward(torch.bfloat16)),
-                       ("K2 route", forward(torch.bfloat16, fused=False))):
-        mean, mx = mean_max(out, ref32)
-        print(f"[c] serve_forward bfloat16 {label} vs float32 plain: mean |d| {mean:.3g}, "
-              f"max |d| {mx:.3g}; plain bf16 convs: mean |d| {noise:.3g} (bound 1.5x)")
-        check(mean <= 1.5 * noise, f"serve_forward bf16 {label}: mean |d| {mean:.3g} > 1.5 x {noise:.3g}")
-        report[f"bf16_{label.split()[0]}_mean_abs_diff"] = mean
-    report["bf16_plain_mean_abs_diff"] = noise
-    model.compute_dtype = torch.bfloat16
+    report = _serve_checks(model, batch, "c", k2_route=True)
     ms = cuda_ms(lambda: model.serve_forward(batch), iters=5, warmup=2)
     report["serve_ms_per_batch8"] = ms
     report["serve_frames_per_s"] = 8000.0 / ms
@@ -481,6 +475,62 @@ def phase_serving(tmp):
     report.update(_profile(lambda: model.serve_forward(batch), iters=3))
     print("[c] " + json.dumps(report))
     return launches
+
+
+def _serve_checks(model, batch, tag, k2_route):
+    """serve_forward through the kernels against the same model with them
+    swapped for their plain versions (and, with ``k2_route``, the K2 route).
+
+    float32: the kernels differ from the plain convs by summation order only,
+    and the K2 route from the fused one by where the bias and the norm are
+    applied: max |d| <= 1e-3 on the tanh output in [-1, 1]. bf16: the kernel
+    must sit as close to the float32 result as the plain bf16 convs do (bf16
+    error itself sets the scale): mean |d| within 1.5x.
+    """
+    import torch
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    report = {}
+
+    def forward(dtype, plain=False, fused=True):
+        model.compute_dtype = dtype
+        blocks = [m for m in model.modules() if hasattr(m, "fused")]
+        for m in blocks:
+            m.fused = fused
+        try:
+            if plain:
+                with mock.patch.object(K, "conv3x3_fused", K.conv3x3_fused_plain), \
+                        mock.patch.object(K, "conv3x3", K.conv3x3_fused_plain):
+                    return model.serve_forward(batch)
+            return model.serve_forward(batch)
+        finally:
+            for m in blocks:
+                m.fused = True
+            model.compute_dtype = torch.bfloat16
+
+    def mean_max(a, b):
+        d = (a - b).abs()
+        return float(d.mean()), float(d.max())
+
+    routes = [("kernel (K1)", True)] + ([("K2 route", False)] if k2_route else [])
+    ref32 = forward(torch.float32, plain=True)
+    for label, fused in routes:
+        mean, mx = mean_max(forward(torch.float32, fused=fused), ref32)
+        print(f"[{tag}] serve_forward float32 {label} vs plain convs: mean |d| {mean:.3g}, "
+              f"max |d| {mx:.3g} (bound 1e-3)")
+        check(mx <= 1e-3, f"[{tag}] serve_forward float32 {label}: max |d| {mx:.3g} > 1e-3")
+        report[f"f32_{label.split()[0]}_max_abs_diff"] = mx
+    noise, _ = mean_max(forward(torch.bfloat16, plain=True), ref32)
+    for label, fused in routes:
+        mean, mx = mean_max(forward(torch.bfloat16, fused=fused), ref32)
+        print(f"[{tag}] serve_forward bfloat16 {label} vs float32 plain: mean |d| {mean:.3g}, "
+              f"max |d| {mx:.3g}; plain bf16 convs: mean |d| {noise:.3g} (bound 1.5x)")
+        check(mean <= 1.5 * noise,
+              f"[{tag}] serve_forward bf16 {label}: mean |d| {mean:.3g} > 1.5 x {noise:.3g}")
+        report[f"bf16_{label.split()[0]}_mean_abs_diff"] = mean
+    report["bf16_plain_mean_abs_diff"] = noise
+    return report
 
 
 def _profile(fn, iters, tag="c", unit="batch"):
@@ -520,13 +570,13 @@ def _profile(fn, iters, tag="c", unit="batch"):
 
 # ------------------------------------------------------------------ (e)
 
-def _write_train_domain(root, dom, seed):
-    """12 frames of phase (c)'s kind, each its own scene with intrinsics."""
+def _write_train_domain(root, dom, seed, n=12):
+    """n 480x640 frames of phase (c)'s kind, each its own scene with intrinsics."""
     import numpy as np
 
     folder = os.path.join(root, dom)
-    _write_frames(folder, 12, seed=seed)
-    for i in range(12):
+    _write_frames(folder, n, seed=seed)
+    for i in range(n):
         kdir = os.path.join(root, "intr", f"{dom}{i:02d}", "intrinsic")
         os.makedirs(kdir, exist_ok=True)
         np.savetxt(os.path.join(kdir, "intrinsic_depth.txt"),
@@ -635,7 +685,12 @@ def phase_training(tmp):
     print(f"[e] G over 4 bf16 steps on one batch: {', '.join(f'{v:.5g}' for v in g)}; "
           f"K1 {K1_PER_STEP} launches a step, {K1_TRANS_PER_STEP} of them in G_A_d")
 
-    report.update(_train_parity(opt, batch))
+    opt32 = SimpleNamespace(**{**vars(opt), "batch_size": 2})
+    # the U-Nets take multiples of 128: 256x384 of the 512x640 batch
+    small = {k: v[:2, :256, :384] if k[0] in "AB" else v[:2] for k, v in batch.items()
+             if not k.endswith("paths")}
+    small["crop_A"] = small["crop_B"] = np.array([[0, 256, 0, 384]] * 2, np.float32)
+    report.update(_train_parity(MainModel, opt32, small, "e", "batch 2 at 256x384"))
 
     # time: bf16 step, batch 6 at 512x640, after warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -655,9 +710,10 @@ def phase_training(tmp):
     return launches
 
 
-def _train_parity(opt, batch):
-    """Float32 at batch 2, 256x384, TF32 off: one step through the kernels
-    against the same step with both kernels swapped for their plain versions.
+def _train_parity(model_cls, opt32, small, tag, what):
+    """Float32, TF32 off, on the reduced batch ``small``: one step of
+    ``model_cls(opt32)`` through the kernels against the same step with both
+    kernels swapped for their plain versions.
 
     Loss terms within 1e-4 relative. The step's gradients are ill-conditioned
     at a random init (on the CPU a 1e-7 relative perturbation of K1's outputs
@@ -670,22 +726,13 @@ def _train_parity(opt, batch):
     an exact gradient of 0 (the norm subtracts them again): each bias's gap
     is held to 1e-3 of its net's largest weight gradient, L2 over the tensor.
     """
-    from types import SimpleNamespace
-
-    import numpy as np
     import torch
 
-    from desr_tpu_torch.models.main_model import MainModel
     from desr_tpu_torch.ops import conv3x3 as K
     from desr_tpu_torch.ops import masked_loss as K3
 
-    opt32 = SimpleNamespace(**{**vars(opt), "batch_size": 2})
-    model = MainModel(opt32, device="cuda", compute_dtype=torch.float32, is_train=True,
+    model = model_cls(opt32, device="cuda", compute_dtype=torch.float32, is_train=True,
                       generator=torch.Generator().manual_seed(8))
-    # the U-Nets take multiples of 128: 256x384 of the 512x640 batch
-    small = {k: v[:2, :256, :384] if k[0] in "AB" else v[:2] for k, v in batch.items()
-             if not k.endswith("paths")}
-    small["crop_A"] = small["crop_B"] = np.array([[0, 256, 0, 384]] * 2, np.float32)
     model.set_input(small)
 
     def step():
@@ -714,7 +761,7 @@ def _train_parity(opt, batch):
             _, g_n = step()
     worst_loss = max(float((m_k[k] - m_p[k]).abs() / (m_p[k].abs() + 1e-12)) for k in m_p)
     check(all(float((m_k[k] - m_p[k]).abs()) <= 1e-4 * float(m_p[k].abs()) + 1e-7 for k in m_p),
-          f"float32 step: a loss term off by {worst_loss:.3g} relative (bound 1e-4)")
+          f"[{tag}] float32 step: a loss term off by {worst_loss:.3g} relative (bound 1e-4)")
     net_scale = {n: max(float(g.norm()) for k, g in g_p.items()
                         if k.startswith(n + ".") and not k.endswith("bias"))
                  for n in model.trainable_nets}
@@ -728,7 +775,7 @@ def _train_parity(opt, batch):
         if gk > bound:
             bad.append(k)
     weights = sorted((v[0], v[1], k) for k, v in gaps.items() if not k.endswith("bias"))
-    print(f"[e] float32 batch 2 at 256x384, kernels vs plain: loss terms max rel "
+    print(f"[{tag}] float32 {what}, kernels vs plain: loss terms max rel "
           f"{worst_loss:.3g} (bound 1e-4); weight grads, relative L2 gap (kernel / 1e-6 "
           f"perturbation): median {weights[len(weights) // 2][0]:.3g} / "
           f"{weights[len(weights) // 2][1]:.3g}, worst {weights[-1][0]:.3g} / "
@@ -736,34 +783,280 @@ def _train_parity(opt, batch):
           f"{max(v[0] for k, v in gaps.items() if k.endswith('bias')):.3g} of the net's "
           "largest weight gradient (bound 1e-3)")
     for gk, gn, k in weights[-5:]:
-        print(f"[e]   {k}: kernel {gk:.3g}, perturbation {gn:.3g}")
-    check(not bad, "float32 step: grads off in "
+        print(f"[{tag}]   {k}: kernel {gk:.3g}, perturbation {gn:.3g}")
+    check(not bad, f"[{tag}] float32 step: grads off in "
           + ", ".join(f"{k} ({gaps[k][0]:.3g} > {gaps[k][2]:.3g})" for k in bad[:5]))
     return {"f32_loss_max_rel": worst_loss, "f32_weight_grad_worst_gap": weights[-1][0],
             "f32_weight_grad_median_gap": weights[len(weights) // 2][0],
             "f32_weight_grad_worst_perturbation_gap": max(w[1] for w in weights)}
 
 
+# ------------------------------------------------------------------ (f)
+
+def phase_sr_serving(tmp):
+    """SR serving: 8 synthetic 960x1280 frames (ScanNet's 480x640 at x2, the
+    SR dataset's canvas) through ``predict.main --SR`` in bf16 as two requests
+    of 4: padded to 1024x1280, LR guidance at 512x640."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import predict
+    from desr_tpu_torch.models.main_model import NET_NAMES, NetOptions
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops.resize import resize_bicubic_planar
+
+    for r in range(2):
+        _write_frames(os.path.join(tmp, f"req{r}"), 4, seed=30 + r, hw=(960, 1280))
+    model = MainSRModel(NetOptions(crop_size_h=512, crop_size_w=640), device="cuda",
+                        generator=torch.Generator().manual_seed(2))
+    for name in NET_NAMES:
+        ckpt.save_net(model.nets[name], ckpt.net_ckpt_path(tmp, "sr", "latest", name))
+    launches = {"K1": 0}
+    for r in range(2):
+        out = os.path.join(tmp, f"out{r}")
+        argv = ["--name", "sr", "--checkpoints_dir", tmp, "--SR",
+                "--input_depth", os.path.join(tmp, f"req{r}", "depth"),
+                "--input_img", os.path.join(tmp, f"req{r}", "img"), "--output", out,
+                "--batch_size", "4", "--compute_dtype", "bfloat16"]
+        K.conv3x3_fused.launches = K.conv3x3.launches = 0
+        t0 = time.perf_counter()
+        predict.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = K.conv3x3_fused.launches, K.conv3x3.launches
+        check(k1 == LAUNCHES_PER_BATCH and k2 == 0,
+              f"SR request {r}: K1 launched {k1} times, K2 {k2}; want {LAUNCHES_PER_BATCH} and 0")
+        launches["K1"] += k1
+        outs = _read_outputs(out, 4, hw=(960, 1280))
+        check(int(outs.max()) > 0, f"SR request {r}: an output is all zeros")
+        print(f"[f] SR request {r}: 4 frames 960x1280 through predict.main --SR in {wall:.2f} s "
+              f"host wall (model build + .pth load + PNG I/O included), K1 launches {k1}")
+
+    frames = [predict.decode_frame(os.path.join(tmp, "req0", "depth", f"f{i:02d}.png"),
+                                   os.path.join(tmp, "req0", "img", f"f{i:02d}.png"), 5100.0, 256)
+              for i in range(4)]
+    batch = {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    K.conv3x3_fused.launches = 0
+    pred = model.serve_forward(batch)
+    check(K.conv3x3_fused.launches == LAUNCHES_PER_BATCH,
+          f"SR serve_forward: {K.conv3x3_fused.launches} K1 launches")
+    check(tuple(pred.shape) == (4, 1024, 1280) and bool(torch.isfinite(pred).all()),
+          f"SR serve_forward: shape {tuple(pred.shape)} or non-finite values")
+    report = _serve_checks(model, batch, "f", k2_route=False)
+    ms = cuda_ms(lambda: model.serve_forward(batch), iters=5, warmup=2)
+    report["sr_serve_ms_per_batch4"] = ms
+    report["sr_serve_frames_per_s"] = 4000.0 / ms
+    # where the device time goes: each net alone on this batch's inputs, and
+    # the guidance's resizes (LR image down, features and prior up)
+    nets, dt = model.nets, torch.bfloat16
+    img = batch["B_i"].to(dt).permute(0, 3, 1, 2)
+    lr_img = resize_bicubic_planar(img.float(), model.lr_hw).to(dt)
+    feats = nets["I2D_features"](lr_img)
+    dbi = nets["Image2Depth"](feats)[:, 0].float()
+    feats_hr, dbi_hr = model._guidance(img)
+    pair = torch.stack([batch["B_d"][..., 0].float(), dbi_hr], 1).to(dt)
+    pair = pair.contiguous(memory_format=torch.channels_last)
+    task_in = torch.cat([feats_hr, nets["Depth_f"](pair), pair, img], 1)
+    for name, fn in (("I2D_features", lambda: nets["I2D_features"](lr_img)),
+                     ("Image2Depth", lambda: nets["Image2Depth"](feats)),
+                     ("resizes", lambda: (
+                         resize_bicubic_planar(img.float(), model.lr_hw).to(dt),
+                         resize_bicubic_planar(feats.float(), model.hr_hw).to(dt),
+                         resize_bicubic_planar(dbi, model.hr_hw))),
+                     ("Depth_f", lambda: nets["Depth_f"](pair)),
+                     ("Task", lambda: nets["Task"](task_in))):
+        report[f"net_ms_{name}"] = cuda_ms(fn, iters=5, warmup=1)
+    del feats_hr, task_in
+    print(f"[f] SR serve_forward bf16 batch 4 (1024x1280, LR 512x640): {ms:.2f} ms per batch, "
+          f"{report['sr_serve_frames_per_s']:.2f} frames/s (CUDA events, after warm-up); "
+          "per net ms: "
+          + ", ".join(f"{k[7:]} {v:.2f}" for k, v in report.items() if k.startswith("net_ms_")))
+    report.update(_profile(lambda: model.serve_forward(batch), iters=3, tag="f"))
+    print("[f] " + json.dumps(report))
+    return launches
+
+
+# ------------------------------------------------------------------ (g)
+
+def _sr_train_argv(tmp, name):
+    a, b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+    return ["--model_type", "main", "--SR", "--name", name, "--checkpoints_dir", tmp,
+            # the README's SR flags (README.md:106-108) and bench.py:62-70's losses
+            "--do_train", "--continue_train", "--batch_size", "1", "--crop_size_h", "512",
+            "--crop_size_w", "640", "--lr", "2e-5", "--use_image_for_trans", "--use_masked",
+            "--norm_loss", "--use_smooth_loss", "--w_syn_norm", "0.05",
+            "--compute_dtype", "bfloat16", "--image_and_depth", "--use_scannet",
+            "--path_A", f"{a}/depth", "--A_add_paths", f"{a}/img",
+            "--path_B", f"{b}/depth", "--B_add_paths", f"{b}/img",
+            "--path_to_intr", os.path.join(tmp, "intr"), "--n_epochs", "1",
+            "--n_epochs_decay", "0", "--print_freq", "1", "--save_epoch_freq", "1",
+            "--num_threads", "0", "--max_dataset_size", "2"]
+
+
+def phase_sr_training(tmp):
+    """The SR train step at the README geometry: 4 synthetic 480x640 frames a
+    domain through NaiveSRDataset (INTER_AREA x2, pad to 1024x1280, a crop of
+    the whole canvas), batch 1, LR 512x640 -> HR 1024x1280, bf16."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import train
+    from desr_tpu_torch.data.loader import create_dataset
+    from desr_tpu_torch.data.sr_dataset import NaiveSRDataset
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import masked_loss as K3
+    from desr_tpu_torch.options import train_options
+
+    report = {}
+    _write_train_domain(tmp, "A", seed=40, n=4)
+    _write_train_domain(tmp, "B", seed=50, n=4)
+    argv = _sr_train_argv(tmp, "srtrain")
+    opt = train_options.parse(argv, print_options=False)
+    model = MainSRModel(opt, device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                        generator=torch.Generator().manual_seed(9))
+    for n in model.model_names:
+        ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(tmp, "srtrain", "latest", n))
+    before = _state(model, model.model_names)
+
+    # the CLI, in-process: --max_dataset_size 2 at batch 1 = 2 steps
+    K.conv3x3_fused.launches = K.conv3x3.launches = K3.masked_loss_sums.launches = 0
+    t0 = time.perf_counter()
+    losses = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": K.conv3x3_fused.launches, "K2": K.conv3x3.launches,
+                "K3": K3.masked_loss_sums.launches}
+    check(launches == {"K1": 2 * SR_K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP},
+          f"train.main --SR: launches {launches}; want K1 {2 * SR_K1_PER_STEP}, K2 0, "
+          f"K3 {2 * K3_PER_STEP} over 2 steps")
+    check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
+          f"train.main --SR losses: {losses}")
+    print(f"[g] train.main --SR: 2 steps of batch 1 (HR 1024x1280) in {wall:.1f} s host wall "
+          f"(model build, .pth load, PNG decode and INTER_AREA resize, checkpoint writes "
+          f"included); launches {launches}; losses "
+          + ", ".join(f"{k} {v:.4g}" for k, v in losses.items()))
+    trained = MainSRModel(opt, device="cuda", is_train=True)
+    trained.load_networks(tmp, "srtrain", "latest", verbose=False)
+    after = _state(trained, model.model_names)
+    for n in model.model_names:
+        same = all(torch.equal(after[n][k], before[n][k]) for k in before[n])
+        check(same == (n not in model.trainable_nets),
+              f"SR {n}: weights {'unchanged' if same else 'changed'} after training")
+    print("[g] after train.main --SR: G_A_d, I2D_features, Image2Depth bit-equal to their "
+          ".pth files; Depth_f and Task moved")
+    del trained
+
+    batch = next(iter(create_dataset(opt, NaiveSRDataset)))
+    check(batch["A_d"].shape == (1, 1024, 1280, 1) and batch["B_i"].shape == (1, 1024, 1280, 3),
+          f"NaiveSRDataset batch: A_d {batch['A_d'].shape}, B_i {batch['B_i'].shape}")
+    model.set_input(batch)
+    in_gad = {"start": 0, "n": 0}
+    gad = model.nets["G_A_d"]
+    hooks = (gad.register_forward_pre_hook(
+                 lambda m, i: in_gad.update(start=K.conv3x3_fused.launches)),
+             gad.register_forward_hook(
+                 lambda m, i, o: in_gad.update(n=K.conv3x3_fused.launches - in_gad["start"])))
+    g = []
+    for _ in range(4):
+        K.conv3x3_fused.launches = K3.masked_loss_sums.launches = 0
+        model.optimize_parameters()
+        g.append(float(model.metrics["G"]))
+        check((K.conv3x3_fused.launches, K3.masked_loss_sums.launches, in_gad["n"])
+              == (SR_K1_PER_STEP, K3_PER_STEP, K1_TRANS_PER_STEP),
+              f"SR step: K1 {K.conv3x3_fused.launches} ({in_gad['n']} in G_A_d), "
+              f"K3 {K3.masked_loss_sums.launches}")
+    for h in hooks:
+        h.remove()
+    check(all(np.isfinite(g)) and g[-1] < g[0], f"SR G over 4 steps on one batch: {g}")
+    print(f"[g] G over 4 bf16 SR steps on one batch: {', '.join(f'{v:.5g}' for v in g)}; "
+          f"K1 {SR_K1_PER_STEP} launches a step, {K1_TRANS_PER_STEP} of them in G_A_d")
+
+    # float32 kernels vs plain at HR 256x256 (LR 128x128: the U-Nets' /128)
+    opt32 = SimpleNamespace(**{**vars(opt), "crop_size_h": 128, "crop_size_w": 128})
+    small = {k: v[:, :256, :256] if k[0] in "AB" else v for k, v in batch.items()
+             if not k.endswith("paths")}
+    small["crop_A"] = np.array([[0, 256, 0, 256]], np.float32)
+    small["crop_B"] = np.array([[0, 128, 0, 128]], np.float32)
+    report.update({f"sr_{k}": v for k, v in _train_parity(
+        MainSRModel, opt32, small, "g", "batch 1 at HR 256x256").items()})
+
+    # --use_rec_as_real_input: the frozen random-init G_B_d and G_A_d again
+    rec = MainSRModel(SimpleNamespace(**{**vars(opt), "use_rec_as_real_input": True}),
+                      device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                      generator=torch.Generator().manual_seed(10))
+    rec.set_input(batch)
+    gbd = _state(rec, ["G_B_d"])["G_B_d"]
+    K.conv3x3_fused.launches = K3.masked_loss_sums.launches = 0
+    rec.optimize_parameters()
+    k1, k3 = K.conv3x3_fused.launches, K3.masked_loss_sums.launches
+    check((k1, k3) == (SR_K1_REC_PER_STEP, K3_PER_STEP),
+          f"--use_rec_as_real_input step: K1 {k1}, K3 {k3}; want {SR_K1_REC_PER_STEP}, "
+          f"{K3_PER_STEP}")
+    check(all(torch.equal(v, gbd[k]) for k, v in rec.nets["G_B_d"].state_dict().items()),
+          "--use_rec_as_real_input: G_B_d changed")
+    check(bool(np.isfinite(float(rec.metrics["G"]))), "--use_rec_as_real_input: G not finite")
+    print(f"[g] --use_rec_as_real_input step: K1 {k1} launches, K3 {k3}, G "
+          f"{float(rec.metrics['G']):.5g}, G_B_d bit-equal after the step")
+    del rec
+
+    # time: bf16 step, batch 1 at LR 512x640 -> HR 1024x1280, after warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    report["sr_train_step_ms"] = ms
+    report["sr_train_pairs_per_s"] = 1000.0 / ms
+    report["sr_train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_fwd = cuda_ms(lambda: model.losses(model.forward_all(model._batch, True), model._batch),
+                     iters=3, warmup=1)
+    report["sr_train_forward_and_losses_ms"] = ms_fwd
+    print(f"[g] SR train step bf16, batch 1, LR 512x640 -> HR 1024x1280: {ms:.2f} ms per step, "
+          f"{report['sr_train_pairs_per_s']:.3f} pairs/s (CUDA events, 10 steps after 3); "
+          f"forward + losses alone {ms_fwd:.2f} ms; peak memory "
+          f"{report['sr_train_peak_mem_gib']:.2f} GiB")
+    report.update(_profile(model.optimize_parameters, iters=3, tag="g", unit="step"))
+    print("[g] " + json.dumps(report))
+    return launches
+
+
 # ------------------------------------------------------------------ (d)
 
-def phase_report(serve_launches, train_launches, worst, k3_err):
-    """One row per kernel and shape (K1 has two); ``launches`` counts the
-    serving and train paths' runs together (K2 runs only on the serving
-    --pallas_conv route), with each path's count beside it."""
+def phase_report(paths, worst, k3_err):
+    """One row per kernel and shape (K1 has four, K3 two); ``launches``
+    counts every path's runs together (K2 runs only on the serving
+    --pallas_conv route): ``launches_serving`` phases (c) and (f),
+    ``launches_train`` phases (e) and (g), and ``launches_by_path`` each.
+    ``paths`` maps a path to its launch counts by kernel."""
     import torch
     import torch.nn.functional as F
 
     from desr_tpu_torch.ops import conv3x3 as K
     from desr_tpu_torch.ops import masked_loss as K3
 
+    def counts(kernel):
+        by_path = {p: c.get(kernel, 0) for p, c in paths.items()}
+        serving = sum(v for p, v in by_path.items() if p.startswith("serve"))
+        train = sum(v for p, v in by_path.items() if p.startswith("train"))
+        return {"launches": serving + train, "launches_serving": serving,
+                "launches_train": train, "launches_by_path": by_path}
+
     rows = []
-    # K1 and K2 at the serving shape (reflect), K1 at the translator's
-    # (replicate): the main path's two shapes of K1, each with its own bound
-    for name, entry, shape, mode, replaces in (
-            ("conv3x3_fused", "K1", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:353"),
-            ("conv3x3_fused", "K1 translator", TRANS_SHAPE, "replicate",
-             "desr_tpu/ops/pallas_conv.py:353"),
-            ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309")):
+    # K1 and K2 at the main serving shape (reflect), K1 at the translator's
+    # (replicate), and K1 at the SR step's two HR shapes: Depth_f's (reflect)
+    # and G_A_d's (replicate); each with its own bound. The per-shape counts
+    # are launches a train step makes at that shape.
+    k1 = "desr_tpu/ops/pallas_conv.py:353"
+    for name, entry, shape, mode, replaces, per_step in (
+            ("conv3x3_fused", "K1", SERVE_SHAPE, "reflect", k1, None),
+            ("conv3x3_fused", "K1 translator", TRANS_SHAPE, "replicate", k1, K1_TRANS_PER_STEP),
+            ("conv3x3_fused", "K1 SR Depth_f", SR_DEPTHF_SHAPE, "reflect", k1, 12),
+            ("conv3x3_fused", "K1 SR translator", SR_TRANS_SHAPE, "replicate", k1,
+             K1_TRANS_PER_STEP),
+            ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309", None)):
         b, h, w, c = shape
         x, wt, scale, shift = _inputs(torch.bfloat16, seed=1, shape=shape)
         if name == "conv3x3_fused":
@@ -780,13 +1073,9 @@ def phase_report(serve_launches, train_launches, worst, k3_err):
         xp = xp.contiguous(memory_format=torch.channels_last)
         wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         t_ops, t_bytes = flops / PEAK_BF16 * 1e3, (io + extra_bytes) / PEAK_HBM * 1e3
-        entry_launches = entry.split()[0]
         row = {
             "name": name, "route": "cuda", "source": "desr_tpu_torch/csrc/conv3x3.cu",
-            "replaces": replaces,
-            "launches": serve_launches[entry_launches] + train_launches[entry_launches],
-            "launches_serving": serve_launches[entry_launches],
-            "launches_train": train_launches[entry_launches],
+            "replaces": replaces, **counts(entry.split()[0]),
             "max_abs_err": worst[entry],
             "event_ms": cuda_ms(fn), **_device_stats(fn, "conv3x3"),
             "plain_ms": cuda_ms(plain, iters=5),
@@ -796,33 +1085,37 @@ def phase_report(serve_launches, train_launches, worst, k3_err):
                      + (" norm+relu+stats" if name == "conv3x3_fused" else ""),
             "flops": flops,
         }
-        if entry == "K1 translator":
-            # the kernel's counter is one for both shapes: the launches above
-            # are all of K1's; this many a train step are at this shape
-            row["launches_per_train_step_at_shape"] = K1_TRANS_PER_STEP
+        if per_step is not None:
+            # the kernel's counter is one for all shapes: the launches above
+            # are all of K1's; this many a (main or SR) train step are at this shape
+            row["launches_per_train_step_at_shape"] = per_step
         rows.append(row)
         del x, wt, scale, shift, xp, wb
-    # K3 at the train step's shape, f32 pred/target (the model's tail is f32);
-    # its device time in three rounds, to show that the reading repeats
-    ins = _loss_inputs(LOSS_SHAPE, torch.float32, seed=2)
-    n = ins[0].numel()
-    t_bytes = 4 * 4 * n / PEAK_HBM * 1e3  # four f32 inputs read once; 12 B written
-    t_ops = 9 * n / PEAK_F32 * 1e3       # 3 mul + 1 sub + 1 mul, 2 abs, 1 square, 3 adds
-    rows.append({
-        "name": "masked_loss_sums", "route": "cuda", "source": "desr_tpu_torch/csrc/masked_loss.cu",
-        "replaces": "desr_tpu/ops/pallas_kernels.py:97",
-        "launches": train_launches["K3"], "launches_serving": 0,
-        "launches_train": train_launches["K3"], "max_abs_err": k3_err,
-        "event_ms": cuda_ms(lambda: K3.masked_loss_sums(*ins), iters=50, warmup=5),
-        **_device_stats(lambda: K3.masked_loss_sums(*ins), "masked_loss", repeats=3),
-        # back to back, the 31.5 MB of inputs stay in the 50 MB L2
-        "device_ms_l2_warm": device_ms(lambda: K3.masked_loss_sums(*ins), "masked_loss",
-                                       flush_l2=False),
-        "plain_ms": cuda_ms(lambda: K3.masked_loss_sums_plain(*ins), iters=20),
-        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-        "shape": "6x512x640 f32 pred/target, f32 masks",
-    })
+    # K3 at the main train step's shape and at the SR step's HR one, f32
+    # pred/target (the model's tail is f32); device time in three rounds, to
+    # show that the reading repeats
+    for shape, per_step in ((LOSS_SHAPE, K3_PER_STEP), (SR_LOSS_SHAPES[0], 1)):
+        ins = _loss_inputs(shape, torch.float32, seed=2)
+        n = ins[0].numel()
+        t_bytes = 4 * 4 * n / PEAK_HBM * 1e3  # four f32 inputs read once; 12 B written
+        t_ops = 9 * n / PEAK_F32 * 1e3       # 3 mul + 1 sub + 1 mul, 2 abs, 1 square, 3 adds
+        rows.append({
+            "name": "masked_loss_sums", "route": "cuda",
+            "source": "desr_tpu_torch/csrc/masked_loss.cu",
+            "replaces": "desr_tpu/ops/pallas_kernels.py:97", **counts("K3"),
+            "launches_per_train_step_at_shape": per_step, "max_abs_err": k3_err[shape],
+            "event_ms": cuda_ms(lambda: K3.masked_loss_sums(*ins), iters=50, warmup=5),
+            **_device_stats(lambda: K3.masked_loss_sums(*ins), "masked_loss", repeats=3),
+            # back to back, inputs under the 50 MB L2 stay there
+            "device_ms_l2_warm": device_ms(lambda: K3.masked_loss_sums(*ins), "masked_loss",
+                                           flush_l2=False),
+            "plain_ms": cuda_ms(lambda: K3.masked_loss_sums_plain(*ins), iters=20),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "shape": f"{'x'.join(map(str, shape))} f32 pred/target, f32 masks",
+        })
+        del ins
     for r in rows:
         # "ms" is the kernels' device time per call where the profiler traced
         # it; CUDA events over back-to-back calls ("event_ms") also count the
@@ -873,14 +1166,15 @@ def main():
     card = phase_card_and_build()
     worst = phase_kernels()
     k3_err = phase_masked_loss()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
-        serve_launches = phase_serving(tmp)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
-        train_launches = phase_training(tmp)
-    rows = phase_report(serve_launches, train_launches, worst, k3_err)
+    paths = {}
+    for path, phase in (("serve_main", phase_serving), ("train_main", phase_training),
+                        ("serve_sr", phase_sr_serving), ("train_sr", phase_sr_training)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+            paths[path] = phase(tmp)
+        torch.cuda.empty_cache()
+    rows = phase_report(paths, worst, k3_err)
     for r in rows:
-        check(r["launches"] > 0, f"{r['name']} was launched neither on the serving nor the "
-                                 "train path")
+        check(r["launches"] > 0, f"{r['name']} was launched on no path")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,15 @@ def collate(samples):
     return out
 
 
+def dataset_for_model(opt):
+    """The stage-3 dataset class: NaiveSRDataset under --SR, else MainDataset
+    (data/__init__.py:34-42)."""
+    from desr_tpu_torch.data.main_dataset import MainDataset
+    from desr_tpu_torch.data.sr_dataset import NaiveSRDataset
+
+    return NaiveSRDataset if getattr(opt, "SR", False) else MainDataset
+
+
 def create_dataset(opt, dataset_cls, stage="train"):
     """The loader of ``dataset_cls(opt, stage)`` (loader.py:144-165), at most
     ``--max_dataset_size`` items; ``len(loader.dataset)`` is their number."""

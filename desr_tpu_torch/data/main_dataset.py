@@ -1,10 +1,10 @@
 """Stage-3 main dataset (counterpart of ``desr_tpu/data/main_dataset.py``).
 
-Geometry: (Resize to load_size), then train with ``--no_aug``:
+Geometry: Resize to load_size (INTER_AREA), then train with ``--no_aug``:
 PadIfNeeded(512, 640) + HFlip with p 0.5; test: PadIfNeeded(512, 640)
 (main_dataset.py:28-55). Emits per-sample intrinsics K_A/K_B and the crop
 boxes the K-based normals read. The rotate + crop branch (train without
-``--no_aug``) and a resize to another size are not yet ported and raise.
+``--no_aug``) is not yet ported and raises.
 """
 
 from __future__ import annotations

@@ -2,23 +2,31 @@
 
 The JAX package calls cv2 with albumentations 0.4.6 semantics; the card's
 machine has no cv2, so the port writes the branches it runs in numpy:
-PadIfNeeded (centred, border REFLECT_101, which is numpy's "reflect") and the
-horizontal flip. Resizing to another size (INTER_AREA) and rotation wait for
-the port of ``ops/resize.py`` and of the augmentation.
+Resize with interpolation 3 (cv2 INTER_AREA, through the matrices of
+``ops/resize.py``), PadIfNeeded (centred, border REFLECT_101, which is
+numpy's "reflect") and the horizontal flip. The other interpolation codes
+and rotation wait for the port of the augmentation.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from desr_tpu_torch.ops.resize import resize_cv2_inter_area_np
 
-def resize(img, height, width, interpolation=3):
-    """The identity at the frame's own size; any other size is not yet ported."""
+INTER_AREA = 3
+
+
+def resize(img, height, width, interpolation=INTER_AREA):
+    """cv2.resize of a float HW or HWC array to (height, width)
+    (transforms.py:44-47); only INTER_AREA is ported."""
     if img.shape[0] == height and img.shape[1] == width:
         return img
-    raise NotImplementedError(
-        f"resizing {img.shape[0]}x{img.shape[1]} frames to {height}x{width} "
-        "(cv2 INTER_AREA, transforms.py:44-47): not yet ported")
+    if interpolation != INTER_AREA:
+        raise NotImplementedError(
+            f"resizing with cv2 interpolation {interpolation} (transforms.py:44-47): "
+            "not yet ported; INTER_AREA (3) is")
+    return resize_cv2_inter_area_np(img, (height, width))
 
 
 def pad_if_needed(img, min_h, min_w):

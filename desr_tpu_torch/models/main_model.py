@@ -55,6 +55,9 @@ class NetOptions:
     # route the ResnetBlock convs through the plain conv3x3 kernel with
     # unfused norms (the JAX --pallas_conv route) instead of the fused chain
     pallas_conv: bool = False
+    # MainSRModel's LR grid; its HR grid (the input's) is twice this
+    crop_size_h: int = 384
+    crop_size_w: int = 512
 
 
 def _to_device(a, device):
@@ -77,6 +80,9 @@ class MainModel(BaseModel):
 
     model_names = ("G_A_d", "I2D_features", "Image2Depth", "Task", "Depth_f")
     trainable_nets = ("Depth_f", "Task")
+    _supports_rec_input = False  # --use_rec_as_real_input is the SR stage's (QUIRKS #31)
+    _dump_key, _dump_rows = "pred_real_depth", 16  # main_model.py:453-462
+    _hole_p, _hole_max_frac = (0.90, 0.90), 8      # train-time (real, syn) p, main_model.py:210-217
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16,
                  use_masked=True, generator=None, is_train=False, hole_generator=None):
@@ -109,6 +115,7 @@ class MainModel(BaseModel):
             # frozen translator, hardcoded config (main_model.py:115-117)
             nets["G_A_d"] = translation_networks.define_Gen(
                 translation_networks.default_translator_opt(), "img_depth", generator=generator)
+            nets.update(self._frozen_extra_nets(opt, common))
         self.nets = torch.nn.ModuleDict(nets)
         self.to(self.device)
         self.eval()  # no layer of these nets behaves differently in training
@@ -122,8 +129,12 @@ class MainModel(BaseModel):
         self._batch = None
         self._paths = {}
 
-    @staticmethod
-    def _refuse_as_shipped(opt):
+    def _frozen_extra_nets(self, opt, common):
+        """Frozen train-time nets beyond the main stage's (none here)."""
+        return {}
+
+    @classmethod
+    def _refuse_as_shipped(cls, opt):
         """The reference's crashing flags, refused clearly (main_model.py:79-140)."""
         if opt.use_edge:
             raise NotImplementedError(
@@ -134,7 +145,7 @@ class MainModel(BaseModel):
                 "the reference's non-image translation path requires netG_B_d, "
                 "which MainModel never defines (main_model.py:241-249); pass "
                 "--use_image_for_trans")
-        if getattr(opt, "use_rec_as_real_input", False):
+        if getattr(opt, "use_rec_as_real_input", False) and not cls._supports_rec_input:
             raise NotImplementedError(
                 "--use_rec_as_real_input crashes the reference main stage "
                 "(undefined netG_B_d, main_model.py:236-239); it is only "
@@ -179,14 +190,23 @@ class MainModel(BaseModel):
         else:
             depth_masked = real_depth
         nets = self.nets
-        feats_real = nets["I2D_features"](real_image)
-        real_dbi = nets["Image2Depth"](feats_real)[:, 0].float()
+        feats_real, real_dbi = self._guidance(real_image)
         real_pair = torch.stack([depth_masked, real_dbi], dim=1).to(dt)
         real_pair = real_pair.contiguous(memory_format=torch.channels_last)
         feat_real_d = nets["Depth_f"](real_pair)
         # channel order of main_model.py:237 (apply_parts is the same function)
         task_in = torch.cat([feats_real, feat_real_d, real_pair, real_image], dim=1)
         return nets["Task"](task_in)[:, 0].float()
+
+    def _guidance(self, images):
+        """(features, depth prior) of the frozen image nets: compute-dtype
+        NCHW features and a float32 (B, H, W) depth, on the images' grid."""
+        feats = self.nets["I2D_features"](images)
+        return feats, self.nets["Image2Depth"](feats)[:, 0].float()
+
+    def _real_input_depth(self, batch, real_depth, real_image):
+        """The real depth the holes are punched into (main: the input's own)."""
+        return real_depth
 
     def forward_all(self, batch, train):
         """The full forward (main_model.py:163-249): every tensor the losses
@@ -208,29 +228,26 @@ class MainModel(BaseModel):
         with torch.no_grad():
             syn2real = nets["G_A_d"](batch["A_d"].to(dt).permute(0, 3, 1, 2),
                                      syn_image)[:, 0].float()
+            real_input_depth = self._real_input_depth(batch, real_depth, real_image)
             if batched:
                 both_images = torch.cat([syn_image, real_image], 0)
-                feats_both = nets["I2D_features"](both_images)
-                dbi_both = nets["Image2Depth"](feats_both)[:, 0].float()
+                feats_both, dbi_both = self._guidance(both_images)
                 feats_syn, feats_real = feats_both[:bsz], feats_both[bsz:]
                 syn_dbi, real_dbi = dbi_both[:bsz], dbi_both[bsz:]
             else:
-                feats_syn = nets["I2D_features"](syn_image)
-                feats_real = nets["I2D_features"](real_image)
-                syn_dbi = nets["Image2Depth"](feats_syn)[:, 0].float()
-                real_dbi = nets["Image2Depth"](feats_real)[:, 0].float()
+                feats_real, real_dbi = self._guidance(real_image)
+                feats_syn, syn_dbi = self._guidance(syn_image)
 
         if self.use_masked:
-            n, p = (60, 0.90) if train else (11, 0.0)
-            gt_mask_real = DPT.random_rect_holes(real_mask, n_max=n, p=p,
-                                                 generator=self.hole_generator)
-            depth_masked = DPT.punch_holes(real_depth, gt_mask_real)
-            gt_mask_syn = DPT.random_rect_holes(syn_mask, n_max=n, p=p,
-                                                generator=self.hole_generator)
+            n, (p_real, p_syn) = (60, self._hole_p) if train else (11, (0.0, 0.0))
+            holes = dict(n_max=n, max_frac=self._hole_max_frac, generator=self.hole_generator)
+            gt_mask_real = DPT.random_rect_holes(real_mask, p=p_real, **holes)
+            depth_masked = DPT.punch_holes(real_input_depth, gt_mask_real)
+            gt_mask_syn = DPT.random_rect_holes(syn_mask, p=p_syn, **holes)
             syn2real_masked = DPT.punch_holes(syn2real, gt_mask_syn)
         else:
             gt_mask_real, gt_mask_syn = torch.ones_like(real_mask), torch.ones_like(syn_mask)
-            depth_masked, syn2real_masked = real_depth, syn2real
+            depth_masked, syn2real_masked = real_input_depth, syn2real
 
         syn_pair = torch.stack([syn2real_masked, syn_dbi], dim=1).to(dt)
         real_pair = torch.stack([depth_masked, real_dbi], dim=1).to(dt)
@@ -365,15 +382,17 @@ class MainModel(BaseModel):
         _, m = self.losses(f, self._batch)
         self.metrics = m
         if getattr(self.opt, "save_all", False) and stage == "test":
-            self._dump_predictions(f["pred_real_depth"])
+            self._dump_predictions(f[self._dump_key])
 
     def _dump_predictions(self, pred):
-        """uint16 PNG dump, rows [16:-16], x5100 (main_model.py:453-462)."""
+        """uint16 PNG dump, x5100, of rows [r:-r] (main: 16, main_model.py:453-462;
+        SR: 32 of the HR prediction, main_sr_model.py:355-364)."""
         from desr_tpu_torch.utils.util import save_uint16_png
 
         os.makedirs(self.opt.save_image_folder, exist_ok=True)
         pred = pred.float().cpu().numpy()
+        r = self._dump_rows
         for i, path in enumerate(self._paths.get("B_paths") or []):
             stem = str(path).split("/")[-1].split(".")[0]
-            out = np.clip((pred[i, 16:-16, :] + 1) / 2, 0, 1)
+            out = np.clip((pred[i, r:-r, :] + 1) / 2, 0, 1)
             save_uint16_png(out, os.path.join(self.opt.save_image_folder, f"{stem}.png"))

@@ -1,5 +1,5 @@
-"""Generator zoo A (pix2pix lineage) for serving: ResNet and U-Net generators
-(counterpart of ``desr_tpu/models/networks.py``).
+"""Generator zoo A (pix2pix lineage): ResNet and U-Net generators, the U-Net
+with its SR head (counterpart of ``desr_tpu/models/networks.py``).
 
 Attribute names reproduce the JAX ``Net.init`` keys exactly: ``model.N.…`` for
 the ResNet generator, ``model.N.conv_block.M.…`` inside its blocks and the
@@ -148,17 +148,38 @@ class ResnetGenerator(nn.Module):
 
 
 class UnetSkipConnectionBlock(nn.Module):
-    """networks.py:139-207 (reference networks.py:516-629) without the SR head."""
+    """networks.py:139-207 (reference networks.py:516-629).
+
+    With ``sr`` the outermost block carries the SR decoder head
+    (networks.py:155-172): two transposed convs, each followed by a
+    ResnetBlock, emit twice the input's resolution per axis and one channel.
+    As shipped, the norms after those convs are built for ``inner_nc``
+    channels while they normalise ``inner_nc // 2`` and ``inner_nc // 4``;
+    InstanceNorm without affine does not depend on the width.
+    """
 
     def __init__(self, outer_nc, inner_nc, input_nc=None, submodule=None,
                  outermost=False, innermost=False, norm_layer=InstanceNorm2d,
-                 use_bias=True, use_dropout=False):
+                 use_bias=True, use_dropout=False, sr=False, fused=True):
         super().__init__()
         if input_nc is None:
             input_nc = outer_nc
         self.outermost = outermost
         downconv = Conv2d(input_nc, inner_nc, 4, stride=2, padding=1, bias=use_bias)
-        if outermost:
+        if outermost and sr:
+            model = [downconv, submodule, ReLU(),
+                     ConvTranspose2d(inner_nc * 2, inner_nc // 2, 4, stride=2, padding=1, bias=True),
+                     norm_layer(inner_nc),
+                     ResnetBlock(inner_nc // 2, "reflect", norm_layer, use_dropout, use_bias,
+                                 fused=fused),
+                     ReLU(),
+                     ConvTranspose2d(inner_nc // 2, inner_nc // 4, 4, stride=2, padding=1,
+                                     bias=True),
+                     norm_layer(inner_nc),
+                     ResnetBlock(inner_nc // 4, "reflect", norm_layer, use_dropout, use_bias,
+                                 fused=fused),
+                     ReLU(), Conv2d(inner_nc // 4, 1, 3, padding=1, bias=True), Tanh()]
+        elif outermost:
             upconv = ConvTranspose2d(inner_nc * 2, outer_nc, 4, stride=2, padding=1, bias=True)
             model = [downconv, submodule, ReLU(), upconv, Tanh()]
         elif innermost:
@@ -180,10 +201,11 @@ class UnetSkipConnectionBlock(nn.Module):
 
 
 class UnetGenerator(nn.Module):
-    """networks.py:210-221: ``num_downs`` halvings, innermost first."""
+    """networks.py:210-221: ``num_downs`` halvings, innermost first; ``use_sr``
+    puts the SR head on the outermost block."""
 
     def __init__(self, input_nc, output_nc, num_downs, ngf, norm_layer, use_bias,
-                 use_dropout=False):
+                 use_dropout=False, use_sr=False, fused=True):
         super().__init__()
         kw = dict(norm_layer=norm_layer, use_bias=use_bias)
         block = UnetSkipConnectionBlock(ngf * 8, ngf * 8, innermost=True, **kw)
@@ -195,7 +217,8 @@ class UnetGenerator(nn.Module):
         block = UnetSkipConnectionBlock(ngf, ngf * 2, submodule=block, **kw)
         self.model = UnetSkipConnectionBlock(output_nc, ngf, input_nc=input_nc,
                                              submodule=block, outermost=True,
-                                             use_dropout=use_dropout, **kw)
+                                             use_dropout=use_dropout, sr=use_sr, fused=fused,
+                                             **kw)
 
     def forward(self, x):
         return self.model(x)
@@ -228,10 +251,10 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
     """Mirror of define_G (networks.py:224-246), built on the CPU.
 
     ``generator`` seeds the weight init (a fresh one seeded 0 when None).
-    ``fused`` picks the ResnetBlock route (see ResnetBlock).
+    ``fused`` picks the ResnetBlock route (see ResnetBlock). ``use_sr`` (the
+    U-Net SR head) is a capability of the zoo that no model of either package
+    reaches: ``MainSRModel``'s Task is the plain U-Net on the HR grid.
     """
-    if use_sr:
-        raise NotImplementedError("the U-Net SR head: not yet ported")
     if use_old and norm == "group":
         raise NotImplementedError("use_old GroupNorm(1): not yet ported")
     norm_layer, use_bias = get_norm_layer(norm)
@@ -242,7 +265,7 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
     elif netG in ("unet_128", "unet_256"):
         num_downs = 7 if netG == "unet_128" else 8
         net = UnetGenerator(input_nc, output_nc, num_downs, ngf, norm_layer, use_bias,
-                            use_dropout)
+                            use_dropout, use_sr, fused)
     else:
         raise NotImplementedError(f"Generator model name [{netG}] is not recognized")
     if generator is None:

@@ -1,6 +1,6 @@
 """Training options for ``python -m desr_tpu_torch.train`` (counterpart of
 ``desr_tpu/options/{base,train}_options.py`` with the main stage's own flags,
-main_model.py:67-75).
+main_model.py:67-75); ``--SR`` trains the x2 SR fine-tune.
 
 Every flag of the JAX parser is known here, under its JAX name. Those the
 port honours keep the JAX defaults (several are read by no part of the main
@@ -17,7 +17,7 @@ import argparse
 import os
 
 # flags of the JAX parser that change what its main stage does, not ported yet
-NOT_PORTED = ("SR", "use_wandb", "profile_dir", "steps_per_call", "device_aug", "remat",
+NOT_PORTED = ("use_wandb", "profile_dir", "steps_per_call", "device_aug", "remat",
               "remat_tails", "no_remat_tails", "remat_blocks", "spatial_devices",
               "num_devices", "compiler_option", "no_donate", "compile_cache_dir")
 # XLA-lowering switches of the JAX package (layers.py Ctx): same math there
@@ -80,7 +80,7 @@ _SWITCHES = [
     "cat", "use_rec_masks", "use_idt_masks", "save_all", "use_rec_iou_error",
     "back_rec_iou_error", "use_rec_as_real_input", "use_image_for_trans", "norm_loss",
     "use_smooth_loss", "use_D", "use_edge", "use_masked", "use_scannet", "use_tv", "do_train",
-    "do_test", "interiornet", "no_aug", "use_i2d_in_input",
+    "do_test", "interiornet", "no_aug", "use_i2d_in_input", "SR",
 ]
 
 

@@ -1,23 +1,27 @@
-"""Serving CLI: enhance a folder of RGB-D frames on the GPU (main mode).
+"""Serving CLI: enhance (or x2-SR) a folder of RGB-D frames on the GPU.
 
-Counterpart of the repository's ``predict.py`` in its default (stage-3, main)
-mode:
+Counterpart of the repository's ``predict.py`` in its stage-3 modes, main
+(the default) and ``--SR``:
 
 - loads ``<epoch>_net_{I2D_features,Image2Depth,Depth_f,Task}.pth`` from
   ``--checkpoints_dir/--name`` through the tolerant loader;
 - reads ``--input_depth`` / ``--input_img`` (uint16-mm depth and RGB PNGs),
-  reflect-pads each frame to the U-Net's /128 grid, runs the real-branch
-  forward in batches of ``--batch_size`` and crops the padding back off;
+  reflect-pads each frame to the U-Net's /128 grid (/256 under ``--SR``,
+  whose guidance runs at half size), runs the real-branch forward in batches
+  of ``--batch_size`` and crops the padding back off. ``--SR`` predicts
+  ``pred_real_depth_hr`` on the input grid, so the pad offsets map 1:1 onto
+  it (predict.py:280-286); its LR grid is half the first frame's padded size
+  unless ``--net_args`` names ``--crop_size_h/_w`` (predict.py:226-236);
 - writes ``<stem>.png``, ``clip((p + 1) / 2)`` as x5100 uint16 PNGs.
 
 Usage:
     python -m desr_tpu_torch.predict --name <exp> --checkpoints_dir checkpoints \
         --input_depth .../depth --input_img .../img --output out/ \
-        [--batch_size 8] [--compute_dtype bfloat16] [--device cuda] \
+        [--SR] [--batch_size 8] [--compute_dtype bfloat16] [--device cuda] \
         [--net_args --Task_basef 64 ...]
 
-``--SR``, ``--I2D``, ``--translate``, ``--export`` and ``--from_export`` are
-not yet ported and exit with an error.
+``--I2D``, ``--translate``, ``--export`` and ``--from_export`` are not yet
+ported and exit with an error.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-NOT_PORTED = ("SR", "I2D", "translate", "export", "from_export")
+NOT_PORTED = ("I2D", "translate", "export", "from_export")
 
 
 def pad_to_multiple(arr, mult, axes=(0, 1)):
@@ -58,15 +62,15 @@ def parse_net_args(argv):
     return NetOptions(**vars(p.parse_args(argv)))
 
 
-def decode_frame(depth_path, img_path, max_distance):
-    """(depth [H, W, 1], image [H, W, 3], pads) normalised and /128-padded."""
+def decode_frame(depth_path, img_path, max_distance, mult=128):
+    """(depth [H, W, 1], image [H, W, 3], pads) normalised and padded to /mult."""
     from desr_tpu_torch.data.base_dataset import load_depth_png, load_image
     from desr_tpu_torch.data.transforms import normalize_depth_np, normalize_image_np
 
     im = normalize_image_np(load_image(img_path)[..., :3].astype(np.float32))
     d = normalize_depth_np(load_depth_png(depth_path), max_distance)
-    d, pads = pad_to_multiple(d, 128)
-    im, _ = pad_to_multiple(im, 128)
+    d, pads = pad_to_multiple(d, mult)
+    im, _ = pad_to_multiple(im, mult)
     return d[..., None], im, pads
 
 
@@ -94,6 +98,8 @@ def main(argv=None):
     parser.add_argument("--compute_dtype", default="bfloat16", choices=sorted(DTYPES))
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without a GPU, cpu must be asked for")
+    parser.add_argument("--SR", action="store_true",
+                        help="serve the x2 SR model (MainSRModel): frames padded to /256")
     for flag in NOT_PORTED:
         parser.add_argument(f"--{flag}", default=None, nargs="?", const=True,
                             help="not yet ported")
@@ -106,21 +112,29 @@ def main(argv=None):
                          "(serve it with the JAX predict.py)")
 
     from desr_tpu_torch import resolve_device
+    from desr_tpu_torch.data.base_dataset import load_depth_png
     from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
     from desr_tpu_torch.utils.util import save_uint16_png
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         parser.error(str(e))
-    model = MainModel(parse_net_args(args.net_args), device=device,
-                      compute_dtype=DTYPES[args.compute_dtype])
-    model.load_networks(args.checkpoints_dir, args.name, args.epoch)
-
     img_paths = sorted(glob.glob(os.path.join(args.input_img, "*")))
     depth_paths = sorted(glob.glob(os.path.join(args.input_depth, "*")))
     if len(depth_paths) != len(img_paths):
         parser.error(f"depth/img folder size mismatch: {len(depth_paths)} vs {len(img_paths)}")
+    mult = 256 if args.SR else 128
+    net_args = list(args.net_args)
+    if args.SR and "--crop_size_h" not in net_args and depth_paths:
+        # the LR grid is half the padded input (predict.py:226-236)
+        h, w = load_depth_png(depth_paths[0]).shape[:2]
+        net_args += ["--crop_size_h", str(-(-h // mult) * mult // 2),
+                     "--crop_size_w", str(-(-w // mult) * mult // 2)]
+    model = (MainSRModel if args.SR else MainModel)(
+        parse_net_args(net_args), device=device, compute_dtype=DTYPES[args.compute_dtype])
+    model.load_networks(args.checkpoints_dir, args.name, args.epoch)
     os.makedirs(args.output, exist_ok=True)
 
     def write(preds, ready, pad_infos, stems):
@@ -137,7 +151,7 @@ def main(argv=None):
     pending = None
     for i in range(0, len(depth_paths), args.batch_size):
         pairs = list(zip(depth_paths[i:i + args.batch_size], img_paths[i:i + args.batch_size]))
-        frames = [decode_frame(dp, ip, args.max_distance) for dp, ip in pairs]
+        frames = [decode_frame(dp, ip, args.max_distance, mult) for dp, ip in pairs]
         batch = {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
         stems = [os.path.splitext(os.path.basename(dp))[0] for dp, _ in pairs]
         preds = model.serve_forward(batch)

@@ -1,5 +1,5 @@
-"""Training CLI for the stage-3 main model on the GPU (counterpart of the
-repository's ``main.py`` for ``--model_type main``).
+"""Training CLI for the stage-3 main model and its x2 SR fine-tune on the
+GPU (counterpart of the repository's ``main.py`` for ``--model_type main``).
 
     python -m desr_tpu_torch.train --model_type main --do_train --do_test \
         --continue_train --use_image_for_trans --use_masked --norm_loss \
@@ -7,13 +7,17 @@ repository's ``main.py`` for ``--model_type main``).
         --path_A .../depth --A_add_paths .../img --path_B ... --B_add_paths ... \
         --path_to_intr <scannet root> [--compute_dtype bfloat16] [--device cuda]
 
+With ``--SR`` (e.g. ``--batch_size 1 --crop_size_h 512 --crop_size_w 640
+--lr 2e-5``) it trains ``MainSRModel`` on ``NaiveSRDataset``'s HR crops
+(models/__init__.py:18-20).
+
 The epoch loop of main.py:72-178: with ``--do_train`` each batch takes one
 step (forward, loss_G backward, Adam on ``Depth_f`` and ``Task``), the losses
 print every ``--print_freq`` images (and go to ``loss_log.txt``), ``latest``
 checkpoints are written every ``--save_latest_freq`` batches and at each
 ``--save_epoch_freq``-th epoch end, and the LR steps per epoch; with
 ``--do_test`` an eval pass averages the test losses. Not yet ported: wandb,
-the HTML gallery, the profiler, ``--steps_per_call``, ``--SR`` and the other
+the HTML gallery, the profiler, ``--steps_per_call`` and the other
 stages (options/train_options.py lists what stops the run).
 """
 
@@ -45,9 +49,9 @@ def main(argv=None):
     import torch
 
     from desr_tpu_torch import resolve_device
-    from desr_tpu_torch.data.loader import create_dataset
-    from desr_tpu_torch.data.main_dataset import MainDataset
+    from desr_tpu_torch.data.loader import create_dataset, dataset_for_model
     from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
     from desr_tpu_torch.options import train_options
 
     opt = train_options.parse(argv)
@@ -56,10 +60,12 @@ def main(argv=None):
     except RuntimeError as e:
         train_options.build_parser().error(str(e))
     dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
-    model = MainModel(opt, device=device, compute_dtype=dtype, is_train=True)
-    print("model [MainModel] was created")
-    dataset = create_dataset(opt, MainDataset) if opt.do_train else None
-    test_dataset = create_dataset(opt, MainDataset, stage="test") if opt.do_test else None
+    model_cls = MainSRModel if opt.SR else MainModel
+    model = model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
+    print(f"model [{model_cls.__name__}] was created")
+    dataset_cls = dataset_for_model(opt)
+    dataset = create_dataset(opt, dataset_cls) if opt.do_train else None
+    test_dataset = create_dataset(opt, dataset_cls, stage="test") if opt.do_test else None
     if dataset is not None:
         print("The number of training images = %d" % len(dataset.dataset))
     model.setup(opt)

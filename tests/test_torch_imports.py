@@ -28,8 +28,11 @@ def test_no_jax_or_desr_tpu_import_lines():
 
 
 def test_importing_the_port_loads_neither_jax_nor_desr_tpu():
-    code = ("import sys, desr_tpu_torch.predict, desr_tpu_torch.train, "
-            "desr_tpu_torch.models.main_model; "
+    """Every module of the package imported in a fresh interpreter."""
+    mods = sorted(os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+                  for p in _sources() if p.endswith(".py") and "desr_tpu_torch" in p)
+    assert "desr_tpu_torch.models.main_sr_model" in mods and "desr_tpu_torch.ops.resize" in mods
+    code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'desr_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -90,7 +90,34 @@ def test_resnet_block_routes_agree():
 
 
 def test_sr_head_and_unported_norms_raise():
+    """BatchNorm is not ported yet, with or without the SR head."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TN.define_G(4, 1, 8, "unet_128", use_sr=True)
+        TN.define_G(4, 1, 8, "unet_128", use_sr=True, norm="batch")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TN.define_G(4, 1, 8, "resnet_6blocks", norm="batch")
+
+
+@pytest.mark.parametrize("netG", ["unet_128", "unet_256"])
+def test_sr_head_matches_jax(netG):
+    """define_G(use_sr=True) at ngf 8: the JAX keys and shapes (the head's
+    norms keep their as-shipped inner_nc width), and on a 128x128 (unet_128)
+    or 256x256 (unet_256) input the one-channel output at twice the
+    resolution, within 1e-4 (its 4- and 2-channel ResnetBlocks run the fused
+    chain)."""
+    args = (4, 1, 8, netG)
+    jnet = JN.define_G(*args, use_sr=True)
+    params = jax_params(jnet, seed=4)
+    for i, k in enumerate(sorted(params)):
+        if k.endswith("bias"):
+            params[k] = randn(params[k].shape, 300 + i, 0.05)
+    tnet = TN.define_G(*args, use_sr=True).eval()
+    assert {k: tuple(v.shape) for k, v in tnet.state_dict().items()} == jax_shapes(jnet)
+    tnet.load_state_dict(from_jax_params(params), strict=True)
+    size = 128 if netG == "unet_128" else 256
+    x = randn((1, size, size, 4), 8)
+    want = jax.jit(lambda p, v: jnet.apply(p, v, JL.Ctx(dtype=jnp.float32)))(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x))
+    with torch.no_grad():
+        got = nchw_to_nhwc(tnet(nhwc_to_nchw(x)))
+    assert got.shape == want.shape == (1, 2 * size, 2 * size, 1)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)

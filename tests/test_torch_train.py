@@ -544,6 +544,11 @@ def test_loader_workers_give_the_inline_batches(tmp_path):
 
 
 def test_unported_dataset_branches_raise(tmp_path):
+    """The rotate + crop branch still raises; the resize to --load_size_h/_w
+    (INTER_AREA, here 256x320 -> 240x320, then padded to 512x640) gives the
+    JAX dataset's items within 1e-6, test and --no_aug train branches."""
+    from desr_tpu.data.main_dataset import MainDataset as JaxDataset
+    from desr_tpu.options.train_options import TrainOptions
     from desr_tpu_torch.data.main_dataset import MainDataset
 
     _write_folder(str(tmp_path), n=1)
@@ -552,10 +557,18 @@ def test_unported_dataset_branches_raise(tmp_path):
                               print_options=False)
     with pytest.raises(NotImplementedError, match="rotate"):
         MainDataset(opt)
-    opt = train_options.parse(["--model_type", "main", *flags[:-4], "--load_size_h", "240",
-                               "--load_size_w", "320"], print_options=False)
-    with pytest.raises(NotImplementedError, match="INTER_AREA"):
-        MainDataset(opt)[0]
+    argv = ["--model_type", "main", "--name", "d", "--checkpoints_dir", str(tmp_path / "ck"),
+            *flags[:-4], "--load_size_h", "240", "--load_size_w", "320"]
+    for stage in ("test", "train"):
+        a = JaxDataset(TrainOptions().parse(argv), stage=stage)[0]
+        b = MainDataset(train_options.parse(argv, print_options=False), stage=stage)[0]
+        assert set(a) == set(b) and b["A_d"].shape == (512, 640, 1)
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+                np.testing.assert_allclose(b[k], a[k], rtol=0, atol=1e-6, err_msg=k)
+            else:
+                assert a[k] == b[k], k
 
 
 # ----------------------------------------------------------------- options + driver
@@ -588,7 +601,7 @@ def test_every_port_flag_default_equals_jax():
 
 
 @pytest.mark.parametrize("flag,msg", [
-    (["--SR"], "not yet ported"), (["--use_wandb"], "not yet ported"),
+    (["--device_aug"], "not yet ported"), (["--use_wandb"], "not yet ported"),
     (["--steps_per_call", "4"], "not yet ported"), (["--fold_norm"], "no counterpart"),
     (["--model_type", "I2D"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
 ])
