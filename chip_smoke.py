@@ -30,15 +30,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     convs routed through K2 (``--net_args --pallas_conv``). Checks the PNGs,
     the launch counters (24 per batch), and one batch's ``serve_forward``
     against the same model with the kernel swapped for its plain version.
-(b') K3 = masked_loss_sums, at the train step's shape (6, 512, 640), the SR
-    step's (1, 1024, 1280) and (1, 512, 640) and a ragged (3, 37, 41),
-    float32 and bf16 pred/target, binary masks, against its plain version;
-    two launches must give the same bits.
+(b') K3 = masked_loss_sums (one launch a call) and its backward
+    masked_loss_grads, at the train step's shape (6, 512, 640), the SR step's
+    (1, 1024, 1280) and (1, 512, 640) and a ragged (3, 37, 41), float32 and
+    bf16 pred/target, binary masks, against their plain versions: the sums
+    within 1e-5, two launches bit-equal; dp (and dt, with and without it)
+    bit-equal at float32, within one bf16 step at bf16. Then 100 back-to-back launches give the same bits,
+    launches on two streams all give the plain sums, and n below one vector,
+    views one value into their storage (all four, or pred alone) work.
 (e) training: 12 synthetic 480x640 RGB-D frames per domain with their
     intrinsics and seeded random .pth files for all five nets at full width;
     ``desr_tpu_torch.train.main`` trains on them with the README stage-3 flags
     (--no_aug --continue_train --batch_size 6, bf16) for one epoch of 2 steps.
-    Checks the launch counters (K1 42 and K3 2 per step), finite losses, the
+    Checks the launch counters (K1 42, K3 2 and K3's backward 2 per step), finite losses, the
     frozen nets' weights unchanged and the trained ones moved; at model level
     G falls over 4 steps on one batch; at float32 (batch 2, 256x384) one step
     through the kernels against the same step through their plain versions
@@ -54,7 +58,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     NaiveSRDataset (INTER_AREA x2, pad to 1024x1280, the whole canvas as the
     crop); ``train.main --SR`` with the README's SR flags and bench.py's loss
     flags (batch 1, crop 512x640, lr 2e-5, bf16) for 2 steps. Checks the
-    launches (K1 42 and K3 2 per step), finite losses, frozen nets unchanged
+    launches (K1 42, K3 2 and K3's backward 2 per step: one HR and one LR
+    triplet each), finite losses, frozen nets unchanged
     and trained ones moved, G falling over 4 model-level steps, an f32
     kernel-vs-plain step at HR 256x256 (phase (e)'s bounds), one
     --use_rec_as_real_input step (K1 78 launches, G_B_d unchanged); then
@@ -64,7 +69,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     and the library call's times, its bound on this card and the share of it
     reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
     the main serving shape, the translator's and the SR step's two HR
-    shapes, K3 at the main and the SR step's HR shape.
+    shapes; K3's sums and its backward each at the main and the SR step's
+    HR shape, with the wrapper's host time per call (host_ms) and the kernels
+    a call launches; the sums rows also time the earlier two-launch design
+    (desr_tpu_torch/tools/masked_loss_two_launch.cu, built in phase (a)) on
+    the same inputs (two_launch_ms). Device times flush L2 before each call.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -92,6 +101,7 @@ TRANS_SHAPE = (6, 128, 160, 256)  # G_A_d's ResnetBlockT input at the train step
 K1_PER_STEP = 42                  # I2D_features 12 + Depth_f 12 (batch 2B) + G_A_d 18 (9 blocks)
 K1_TRANS_PER_STEP = 18            # of those, G_A_d's: at TRANS_SHAPE, replicate borders
 K3_PER_STEP = 2                   # the syn and real (task, holes, holes_l2) triplets
+K3_BWD_PER_STEP = 2               # their backward: one masked_loss_grads launch each
 PEAK_F32 = 67e12                  # f32 FLOP/s outside the tensor cores, H100 SXM data sheet
 # the x2 SR stage at the README geometry: LR 512x640 -> HR 1024x1280
 SR_SERVE_SHAPE = (4, 256, 320, 128)   # Depth_f's ResnetBlocks at HR, a serving batch of 4
@@ -128,6 +138,37 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, calls=200):
+    """The host's time per call of fn in ms: ``calls`` back-to-back calls
+    from an idle device, one sync at the end (perf_counter)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def _reset_counts():
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import masked_loss as K3
+
+    K.conv3x3_fused.launches = K.conv3x3.launches = 0
+    K3.masked_loss_sums.launches = K3.masked_loss_grads.launches = 0
+
+
+def _counts():
+    """Each kernel's launches since ``_reset_counts``."""
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import masked_loss as K3
+
+    return {"K1": K.conv3x3_fused.launches, "K2": K.conv3x3.launches,
+            "K3": K3.masked_loss_sums.launches, "K3 backward": K3.masked_loss_grads.launches}
+
+
 def device_ms(fn, key, iters=20, warmup=3, flush_l2=True):
     """Device time of one call of fn in ms over ``iters`` calls after
     ``warmup`` (torch.profiler): for each kernel whose name holds ``key``
@@ -162,7 +203,7 @@ def device_ms(fn, key, iters=20, warmup=3, flush_l2=True):
     return {"median": sum(statistics.median(v) for v in by_name.values()),
             "min": sum(min(v) for v in by_name.values()),
             "max": sum(max(v) for v in by_name.values()),
-            "traced": f"{traced}/{len(by_name) * iters}"}
+            "traced": f"{traced}/{len(by_name) * iters}", "names": sorted(by_name)}
 
 
 # ------------------------------------------------------------------ (a)
@@ -176,13 +217,17 @@ def phase_card_and_build():
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from desr_tpu_torch.tools.masked_loss_ab import build_two_launch
+
     t0 = time.perf_counter()
     names = ("conv3x3", "masked_loss")
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc process per source
+    with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc process per source
+        two_launch = pool.submit(build_two_launch)
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
+        paths.append(two_launch.result())
     print(f"[a] built {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"in {time.perf_counter() - t0:.1f} s")
-    return card
+    return card, paths[-1]
 
 
 # ------------------------------------------------------------------ (b)
@@ -319,34 +364,116 @@ def _loss_inputs(shape, dtype, seed):
     return p, t, m1, m2
 
 
-def phase_masked_loss():
-    """K3 against its plain version. Each of the three sums has only terms
-    >= 0, so f32 summation order bounds |kernel - plain| <= 1e-5 * sum
-    (+1e-6 for a sum of 0)."""
+def _bits(x):
+    import torch
+
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+def _check_sums(name, got, want):
+    """Each of the three sums has only terms >= 0, so f32 summation order
+    bounds |kernel - plain| <= 1e-5 * sum (+1e-6 for a sum of 0)."""
+    import torch
+
+    err = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite sums")
+    check(bool((err <= 1e-5 * want.abs() + 1e-6).all()),
+          f"{name}: sums {got.tolist()} vs plain {want.tolist()}")
+    return float(err.max()), float((err / want.abs().clamp_min(1e-30)).max())
+
+
+def _check_grads(name, ins, g):
+    """masked_loss_grads against masked_loss_grads_plain, with and without
+    dt: the kernel evaluates the plain expression in its order, each
+    operation rounded on its own, so float32 must be bit-equal; bf16 within
+    one bf16 step (2^-7 relative; it rounds the same f32 value). Returns the
+    max |d| of dp and the count of values whose bits differ."""
     import torch
 
     from desr_tpu_torch.ops import masked_loss as K3
 
-    worst = {}
+    worst, n_bits = 0.0, 0
+    for with_dt in (False, True):
+        got = K3.masked_loss_grads(*ins, g, with_dt)
+        want = K3.masked_loss_grads_plain(*ins, g, with_dt)
+        check((got[1] is not None) == with_dt,
+              f"{name}: dt {'missing' if with_dt else 'computed without being asked for'}")
+        for tag, a, b in zip(("dp", "dt"), got, want):
+            if b is None:
+                continue
+            check(a.dtype == b.dtype and a.shape == b.shape, f"{name} {tag}: {a.dtype} {a.shape}")
+            diff = int((_bits(a) != _bits(b)).sum())
+            err = (a.float() - b.float()).abs()
+            if a.dtype == torch.float32:
+                check(diff == 0, f"{name} {tag}: {diff} values differ in their bits from plain "
+                      f"(max |d| {float(err.max()):.3g})")
+            else:
+                check(bool((err <= 2.0 ** -7 * b.float().abs()).all()),
+                      f"{name} {tag}: off by more than one bf16 step (max |d| {float(err.max()):.3g})")
+            worst, n_bits = max(worst, float(err.max())), n_bits + diff
+    return worst, n_bits
+
+
+def phase_masked_loss():
+    """K3's sums and backward against their plain versions,
+    then the ticket, two streams, a tiny n and misaligned views. Returns the
+    float32 max |d| of the sums and of dp at the two shapes phase (d) reports."""
+    import torch
+
+    from desr_tpu_torch.ops import masked_loss as K3
+
+    worst, worst_bwd = {}, {}
+    g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
     for shape in (LOSS_SHAPE, *SR_LOSS_SHAPES, (3, 37, 41)):
         for dtype in (torch.float32, torch.bfloat16):
             ins = _loss_inputs(shape, dtype, seed=sum(shape))
             got = torch.stack(K3.masked_loss_sums(*ins))
             again = torch.stack(K3.masked_loss_sums(*ins))
             want = K3.masked_loss_sums_plain(*ins)
-            err = (got - want).abs()
             name = f"K3 {'x'.join(map(str, shape))} {str(dtype)[6:]}"
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite sums")
-            check(bool((err <= 1e-5 * want.abs() + 1e-6).all()),
-                  f"{name}: sums {got.tolist()} vs plain {want.tolist()}")
+            err, rel = _check_sums(name, got, want)
             check(torch.equal(got, again), f"{name}: two launches differ")
-            print(f"[b'] {name}: max |d| {float(err.max()):.3g}, max rel "
-                  f"{float((err / want.abs().clamp_min(1e-30)).max()):.3g} (bound 1e-5); "
-                  "two launches bit-equal")
+            bwd, n_bits = _check_grads(name, ins, g)
+            print(f"[b'] {name}: sums max |d| {err:.3g}, max rel {rel:.3g} (bound 1e-5), two "
+                  f"launches bit-equal; backward max |d| {bwd:.3g}, {n_bits} values with other "
+                  "bits than plain (dp, dt)")
             if shape in (LOSS_SHAPE, SR_LOSS_SHAPES[0]) and dtype == torch.float32:
-                worst[shape] = float(err.max())
+                worst[shape], worst_bwd[shape] = err, bwd
+            del ins
+    # the ticket: the last block resets it, so launch after launch gives the same bits
+    ins = _loss_inputs(SR_LOSS_SHAPES[0], torch.float32, seed=5)
+    first = torch.stack(K3.masked_loss_sums(*ins))
+    runs = [torch.stack(K3.masked_loss_sums(*ins)) for _ in range(100)]
+    check(all(torch.equal(r, first) for r in runs), "K3: 100 back-to-back launches differ")
+    # one ticket and partials per stream: two streams, no sync between launches
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
     torch.cuda.synchronize()
-    return worst
+    outs = []
+    for i in range(20):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(torch.stack(K3.masked_loss_sums(*ins)))
+    torch.cuda.synchronize()
+    _check_sums("K3 two streams", outs[1], K3.masked_loss_sums_plain(*ins))
+    check(all(torch.equal(o, first) for o in outs), "K3: launches on two streams differ")
+    print("[b'] K3 1x1024x1280 float32: 100 back-to-back launches bit-equal; 20 launches "
+          "alternating over two streams bit-equal to them")
+    # n below one vector, and views one value into their storage (no common
+    # alignment when pred alone is one value in: value by value)
+    for dtype in (torch.float32, torch.bfloat16):
+        p, t, m1, m2 = _loss_inputs((4, 33, 50), dtype, seed=7)
+        flat = [v.flatten() for v in (p, t, m1, m2)]
+        for label, case in (("n=3", _loss_inputs((1, 1, 3), dtype, seed=8)),
+                            ("all one value in", [v[1:] for v in flat]),
+                            ("pred alone one value in",
+                             [flat[0][1:]] + [v[:-1] for v in flat[1:]])):
+            name = f"K3 {label} {str(dtype)[6:]}"
+            want = K3.masked_loss_sums_plain(*case)
+            _check_sums(name, torch.stack(K3.masked_loss_sums(*case)), want)
+            _check_grads(name, case, g)
+        print(f"[b'] K3 {str(dtype)[6:]}: n=3, all four inputs one value into their storage, "
+              "pred alone one value in: sums and backward agree with plain")
+    torch.cuda.synchronize()
+    return worst, worst_bwd
 
 
 # ------------------------------------------------------------------ (c)
@@ -617,7 +744,6 @@ def phase_training(tmp):
     from desr_tpu_torch.data.main_dataset import MainDataset
     from desr_tpu_torch.models.main_model import MainModel
     from desr_tpu_torch.ops import conv3x3 as K
-    from desr_tpu_torch.ops import masked_loss as K3
     from desr_tpu_torch.options import train_options
 
     report = {}
@@ -634,16 +760,15 @@ def phase_training(tmp):
           f"width; trainable: {sum(p.numel() for p in model.parameters() if p.requires_grad)}")
 
     # the CLI, in-process: 12 pairs at batch 6 = 2 steps
-    K.conv3x3_fused.launches = K.conv3x3.launches = K3.masked_loss_sums.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     losses = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": K.conv3x3_fused.launches, "K2": K.conv3x3.launches,
-                "K3": K3.masked_loss_sums.launches}
-    check(launches == {"K1": 2 * K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP},
-          f"train.main: launches {launches}; want K1 {2 * K1_PER_STEP}, K2 0, "
-          f"K3 {2 * K3_PER_STEP} over 2 steps")
+    launches = _counts()
+    want = {"K1": 2 * K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP,
+            "K3 backward": 2 * K3_BWD_PER_STEP}
+    check(launches == want, f"train.main: launches {launches}; want {want} over 2 steps")
     check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
           f"train.main losses: {losses}")
     print(f"[e] train.main: 2 steps of batch 6 in {wall:.1f} s host wall (model build, .pth "
@@ -672,18 +797,19 @@ def phase_training(tmp):
                  lambda m, i, o: in_gad.update(n=K.conv3x3_fused.launches - in_gad["start"])))
     g = []
     for _ in range(4):
-        K.conv3x3_fused.launches = K3.masked_loss_sums.launches = 0
+        _reset_counts()
         model.optimize_parameters()
         g.append(float(model.metrics["G"]))
-        check((K.conv3x3_fused.launches, K3.masked_loss_sums.launches, in_gad["n"])
-              == (K1_PER_STEP, K3_PER_STEP, K1_TRANS_PER_STEP),
-              f"step: K1 {K.conv3x3_fused.launches} ({in_gad['n']} in G_A_d), "
-              f"K3 {K3.masked_loss_sums.launches}")
+        c = _counts()
+        check((c["K1"], c["K3"], c["K3 backward"], in_gad["n"])
+              == (K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP, K1_TRANS_PER_STEP),
+              f"step: launches {c} ({in_gad['n']} K1 in G_A_d)")
     for h in hooks:
         h.remove()
     check(all(np.isfinite(g)) and g[-1] < g[0], f"G over 4 steps on one batch: {g}")
     print(f"[e] G over 4 bf16 steps on one batch: {', '.join(f'{v:.5g}' for v in g)}; "
-          f"K1 {K1_PER_STEP} launches a step, {K1_TRANS_PER_STEP} of them in G_A_d")
+          f"K1 {K1_PER_STEP} launches a step, {K1_TRANS_PER_STEP} of them in G_A_d; K3 "
+          f"{K3_PER_STEP} and its backward {K3_BWD_PER_STEP}")
 
     opt32 = SimpleNamespace(**{**vars(opt), "batch_size": 2})
     # the U-Nets take multiples of 128: 256x384 of the 512x640 batch
@@ -754,7 +880,8 @@ def _train_parity(model_cls, opt32, small, tag, what):
         return res if len(res) > 1 else res[0]
 
     m_k, g_k = step()
-    with mock.patch.object(K3, "_forward", K3.masked_loss_sums_plain):
+    with mock.patch.object(K3, "_forward", K3.masked_loss_sums_plain), \
+            mock.patch.object(K3, "masked_loss_grads", K3.masked_loss_grads_plain):
         with mock.patch.object(K, "_fused_forward", plain_conv):
             m_p, g_p = step()
         with mock.patch.object(K, "_fused_forward", noisy_conv):
@@ -909,7 +1036,6 @@ def phase_sr_training(tmp):
     from desr_tpu_torch.data.sr_dataset import NaiveSRDataset
     from desr_tpu_torch.models.main_sr_model import MainSRModel
     from desr_tpu_torch.ops import conv3x3 as K
-    from desr_tpu_torch.ops import masked_loss as K3
     from desr_tpu_torch.options import train_options
 
     report = {}
@@ -924,16 +1050,15 @@ def phase_sr_training(tmp):
     before = _state(model, model.model_names)
 
     # the CLI, in-process: --max_dataset_size 2 at batch 1 = 2 steps
-    K.conv3x3_fused.launches = K.conv3x3.launches = K3.masked_loss_sums.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     losses = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": K.conv3x3_fused.launches, "K2": K.conv3x3.launches,
-                "K3": K3.masked_loss_sums.launches}
-    check(launches == {"K1": 2 * SR_K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP},
-          f"train.main --SR: launches {launches}; want K1 {2 * SR_K1_PER_STEP}, K2 0, "
-          f"K3 {2 * K3_PER_STEP} over 2 steps")
+    launches = _counts()
+    want = {"K1": 2 * SR_K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP,
+            "K3 backward": 2 * K3_BWD_PER_STEP}
+    check(launches == want, f"train.main --SR: launches {launches}; want {want} over 2 steps")
     check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
           f"train.main --SR losses: {losses}")
     print(f"[g] train.main --SR: 2 steps of batch 1 (HR 1024x1280) in {wall:.1f} s host wall "
@@ -963,18 +1088,19 @@ def phase_sr_training(tmp):
                  lambda m, i, o: in_gad.update(n=K.conv3x3_fused.launches - in_gad["start"])))
     g = []
     for _ in range(4):
-        K.conv3x3_fused.launches = K3.masked_loss_sums.launches = 0
+        _reset_counts()
         model.optimize_parameters()
         g.append(float(model.metrics["G"]))
-        check((K.conv3x3_fused.launches, K3.masked_loss_sums.launches, in_gad["n"])
-              == (SR_K1_PER_STEP, K3_PER_STEP, K1_TRANS_PER_STEP),
-              f"SR step: K1 {K.conv3x3_fused.launches} ({in_gad['n']} in G_A_d), "
-              f"K3 {K3.masked_loss_sums.launches}")
+        c = _counts()
+        check((c["K1"], c["K3"], c["K3 backward"], in_gad["n"])
+              == (SR_K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP, K1_TRANS_PER_STEP),
+              f"SR step: launches {c} ({in_gad['n']} K1 in G_A_d)")
     for h in hooks:
         h.remove()
     check(all(np.isfinite(g)) and g[-1] < g[0], f"SR G over 4 steps on one batch: {g}")
     print(f"[g] G over 4 bf16 SR steps on one batch: {', '.join(f'{v:.5g}' for v in g)}; "
-          f"K1 {SR_K1_PER_STEP} launches a step, {K1_TRANS_PER_STEP} of them in G_A_d")
+          f"K1 {SR_K1_PER_STEP} launches a step, {K1_TRANS_PER_STEP} of them in G_A_d; K3 "
+          f"{K3_PER_STEP} and its backward {K3_BWD_PER_STEP}")
 
     # float32 kernels vs plain at HR 256x256 (LR 128x128: the U-Nets' /128)
     opt32 = SimpleNamespace(**{**vars(opt), "crop_size_h": 128, "crop_size_w": 128})
@@ -991,12 +1117,13 @@ def phase_sr_training(tmp):
                       generator=torch.Generator().manual_seed(10))
     rec.set_input(batch)
     gbd = _state(rec, ["G_B_d"])["G_B_d"]
-    K.conv3x3_fused.launches = K3.masked_loss_sums.launches = 0
+    _reset_counts()
     rec.optimize_parameters()
-    k1, k3 = K.conv3x3_fused.launches, K3.masked_loss_sums.launches
-    check((k1, k3) == (SR_K1_REC_PER_STEP, K3_PER_STEP),
-          f"--use_rec_as_real_input step: K1 {k1}, K3 {k3}; want {SR_K1_REC_PER_STEP}, "
-          f"{K3_PER_STEP}")
+    c = _counts()
+    k1, k3 = c["K1"], c["K3"]
+    check((k1, k3, c["K3 backward"]) == (SR_K1_REC_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP),
+          f"--use_rec_as_real_input step: launches {c}; want K1 {SR_K1_REC_PER_STEP}, K3 "
+          f"{K3_PER_STEP}, K3 backward {K3_BWD_PER_STEP}")
     check(all(torch.equal(v, gbd[k]) for k, v in rec.nets["G_B_d"].state_dict().items()),
           "--use_rec_as_real_input: G_B_d changed")
     check(bool(np.isfinite(float(rec.metrics["G"]))), "--use_rec_as_real_input: G not finite")
@@ -1025,17 +1152,22 @@ def phase_sr_training(tmp):
 
 # ------------------------------------------------------------------ (d)
 
-def phase_report(paths, worst, k3_err):
-    """One row per kernel and shape (K1 has four, K3 two); ``launches``
+def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
+    """One row per kernel and shape (K1 has four, K3's sums and backward two
+    each); ``launches``
     counts every path's runs together (K2 runs only on the serving
     --pallas_conv route): ``launches_serving`` phases (c) and (f),
     ``launches_train`` phases (e) and (g), and ``launches_by_path`` each.
-    ``paths`` maps a path to its launch counts by kernel."""
+    ``paths`` maps a path to its launch counts by kernel; ``two_launch_so``
+    is the earlier two-launch design of K3's sums, timed beside them."""
     import torch
     import torch.nn.functional as F
 
     from desr_tpu_torch.ops import conv3x3 as K
     from desr_tpu_torch.ops import masked_loss as K3
+    from desr_tpu_torch.tools.masked_loss_ab import TwoLaunch
+
+    two_launch = TwoLaunch(two_launch_so)
 
     def counts(kernel):
         by_path = {p: c.get(kernel, 0) for p, c in paths.items()}
@@ -1092,11 +1224,23 @@ def phase_report(paths, worst, k3_err):
         rows.append(row)
         del x, wt, scale, shift, xp, wb
     # K3 at the main train step's shape and at the SR step's HR one, f32
-    # pred/target (the model's tail is f32); device time in three rounds, to
-    # show that the reading repeats
+    # pred/target (the model's tail is f32): the sums, then the backward as
+    # the step runs it (target is data: no dt). Device time in three rounds,
+    # to show that the reading repeats; the two-launch design on the same
+    # inputs, which must give the plain sums too
+    g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
     for shape, per_step in ((LOSS_SHAPE, K3_PER_STEP), (SR_LOSS_SHAPES[0], 1)):
         ins = _loss_inputs(shape, torch.float32, seed=2)
         n = ins[0].numel()
+        label = f"{'x'.join(map(str, shape))} f32 pred/target, f32 masks"
+        sums = lambda: K3.masked_loss_sums(*ins)  # noqa: E731
+        old = lambda: two_launch.call(ins, torch.empty(3, device="cuda"))  # noqa: E731
+        out = torch.empty(3, device="cuda")
+        two_launch.call(ins, out)
+        want = K3.masked_loss_sums_plain(*ins)
+        check(bool(((out - want).abs() <= 1e-5 * want.abs()).all()),
+              f"the two-launch sums at {shape}: {out.tolist()} against {want.tolist()}")
+        old_stats = _device_stats(old, "masked_loss", repeats=3)
         t_bytes = 4 * 4 * n / PEAK_HBM * 1e3  # four f32 inputs read once; 12 B written
         t_ops = 9 * n / PEAK_F32 * 1e3       # 3 mul + 1 sub + 1 mul, 2 abs, 1 square, 3 adds
         rows.append({
@@ -1104,16 +1248,39 @@ def phase_report(paths, worst, k3_err):
             "source": "desr_tpu_torch/csrc/masked_loss.cu",
             "replaces": "desr_tpu/ops/pallas_kernels.py:97", **counts("K3"),
             "launches_per_train_step_at_shape": per_step, "max_abs_err": k3_err[shape],
-            "event_ms": cuda_ms(lambda: K3.masked_loss_sums(*ins), iters=50, warmup=5),
-            **_device_stats(lambda: K3.masked_loss_sums(*ins), "masked_loss", repeats=3),
+            **_device_stats(sums, "masked_loss_sums", repeats=3),
+            "event_ms": cuda_ms(sums, iters=50, warmup=5),
             # back to back, inputs under the 50 MB L2 stay there
-            "device_ms_l2_warm": device_ms(lambda: K3.masked_loss_sums(*ins), "masked_loss",
-                                           flush_l2=False),
+            "device_ms_l2_warm": device_ms(sums, "masked_loss_sums", flush_l2=False)["median"],
+            "host_ms": host_ms(sums),
             "plain_ms": cuda_ms(lambda: K3.masked_loss_sums_plain(*ins), iters=20),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-            "shape": f"{'x'.join(map(str, shape))} f32 pred/target, f32 masks",
+            "library_ms": None, "two_launch_ms": old_stats["device_ms"],
+            "two_launch_kernels_per_call": old_stats.get("device_kernels_per_call"),
+            "shape": label,
+        })
+        bwd = lambda: K3.masked_loss_grads(*ins, g, False)  # noqa: E731
+        plain = lambda: K3.masked_loss_grads_plain(*ins, g, False)  # noqa: E731
+        t_bytes = (4 * 4 + 4) * n / PEAK_HBM * 1e3  # four f32 inputs read, f32 dp written
+        t_ops = 15 * n / PEAK_F32 * 1e3  # d1, d2 4; 2 signs; 7 mul/add of gt; the negation
+        rows.append({
+            "name": "masked_loss_grads", "route": "cuda",
+            "source": "desr_tpu_torch/csrc/masked_loss.cu",
+            "replaces": "desr_tpu/ops/pallas_kernels.py:129 (_mls_bwd, the VJP of :120)",
+            **counts("K3 backward"), "launches_per_train_step_at_shape": per_step,
+            "max_abs_err": k3_bwd_err[shape],
+            **_device_stats(bwd, "masked_loss_grads", repeats=3),
+            "event_ms": cuda_ms(bwd, iters=50, warmup=5),
+            "host_ms": host_ms(bwd),
+            "plain_ms": cuda_ms(plain, iters=20),
+            # the plain backward's kernels, all of them (L2 not flushed)
+            "plain_device_ms": _profile(plain, iters=10, tag="d", unit="call")[
+                "profile_device_ms_per_call"],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # the backward before this kernel was the plain version: plain_device_ms
+            "library_ms": None, "shape": label + ", no dt",
         })
         del ins
     for r in rows:
@@ -1144,7 +1311,9 @@ def _device_stats(fn, key, repeats=1):
             "device_ms_min": min(r["min"] for r in rounds),
             "device_ms_max": max(r["max"] for r in rounds),
             "device_ms_round_medians": [r["median"] for r in rounds],
-            "device_kernels_traced": [r["traced"] for r in rounds]}
+            "device_kernels_traced": [r["traced"] for r in rounds],
+            "device_kernels_per_call": len(rounds[0]["names"]),
+            "device_kernel_names": [n[:90] for n in rounds[0]["names"]]}
 
 
 def main():
@@ -1163,16 +1332,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print("[b] TF32 off: torch.backends.cudnn.allow_tf32 = False, "
           "torch.backends.cuda.matmul.allow_tf32 = False")
-    card = phase_card_and_build()
+    card, two_launch_so = phase_card_and_build()
     worst = phase_kernels()
-    k3_err = phase_masked_loss()
+    k3_err, k3_bwd_err = phase_masked_loss()
     paths = {}
     for path, phase in (("serve_main", phase_serving), ("train_main", phase_training),
                         ("serve_sr", phase_sr_serving), ("train_sr", phase_sr_training)):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
             paths[path] = phase(tmp)
         torch.cuda.empty_cache()
-    rows = phase_report(paths, worst, k3_err)
+    rows = phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so)
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} was launched on no path")
     print(card)

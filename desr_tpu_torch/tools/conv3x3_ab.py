@@ -7,7 +7,7 @@ Each SPEC is a list of text substitutions on ``desr_tpu_torch/csrc/conv3x3.cu``,
 Every variant (and "base", the source as it is) is built with the package's
 nvcc flags into its own library under ``desr_tpu_torch/_build/ab/`` (one
 nvcc each, in parallel); ptxas's register, spill and warning lines are
-printed. Then, at the serving shape (B=8, 128x160, 128->128, reflect) and
+printed (``tools/variants.py``). Then, at the serving shape (B=8, 128x160, 128->128, reflect) and
 the translator's (B=6, 128x160, 256->256, replicate), bf16, each library in
 turn runs K1 (norm+relu+stats) and K2 through the package's wrappers: the
 output is checked against the plain version (``ok``, chip_smoke.py's bf16
@@ -58,19 +58,6 @@ PROBES = {
 }
 
 
-def _variant_source(spec, base):
-    if spec.startswith("@"):
-        with open(spec[1:]) as f:
-            return f.read()
-    src = base
-    for pair in filter(None, spec.split("@@")):
-        old, new = pair.split("=>")
-        if old not in src:
-            raise SystemExit(f"substitution not found in the source: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*", help="NAME=SPEC")
@@ -85,6 +72,7 @@ def main(argv=None):
     import chip_smoke as S
     from desr_tpu_torch.ops import _build
     from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.tools.variants import build_variant, variant_source
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -93,25 +81,14 @@ def main(argv=None):
     variants, th128 = {"base": base}, {}
     for v in args.variants:
         name, _, spec = v.partition("=")
-        variants[name], th128[name] = _variant_source(spec, base), args.th128
+        variants[name], th128[name] = variant_source(spec, base), args.th128
     for name, (spec, rows) in (PROBES.items() if args.probes else ()):
-        variants[name], th128[name] = _variant_source(spec, base), rows
-    out_dir = os.path.join(_build.BUILD_DIR, "ab")
-    os.makedirs(out_dir, exist_ok=True)
-
-    def build(name):
-        cu, so = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"lib{name}.so")
-        with open(cu, "w") as f:
-            f.write(variants[name])
-        res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                              "-o", so, cu], capture_output=True, text=True)
-        keep = [ln.strip() for ln in res.stderr.splitlines()
-                if "registers" in ln or "C7520" in ln or "error" in ln]
-        return name, (so if res.returncode == 0 else None), keep
+        variants[name], th128[name] = variant_source(spec, base), rows
 
     libs = {}
     with ThreadPoolExecutor(len(variants)) as pool:
-        for name, so, log in pool.map(build, variants):
+        for name, (so, log) in zip(variants, pool.map(build_variant, variants,
+                                                      variants.values())):
             print(f"== {name}: {'built' if so else 'BUILD FAILED'}")
             for ln in log:
                 print("   " + ln[:160])

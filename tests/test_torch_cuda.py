@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1/K2 conv3x3, K3 masked-loss sums) against their
-plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1/K2 conv3x3, K3 masked-loss sums and their
+backward) against their plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The file
 imports neither JAX nor anything of ``desr_tpu``, so that it runs on a machine
@@ -220,15 +220,94 @@ def test_cuda_masked_loss_grads_and_launch_count():
     dev = _cuda()
     p, t, m1, m2 = _loss_inputs((2, 40, 48), 83, dev)
     p.requires_grad_(True)
-    before = K3.masked_loss_sums.launches
+    before = K3.masked_loss_sums.launches, K3.masked_loss_grads.launches
     task, holes, l2 = K3.fused_hole_means(p, t, m1, m2)
     (g,) = torch.autograd.grad(task + 2 * holes + 3 * l2, p)
-    assert K3.masked_loss_sums.launches == before + 1
+    assert (K3.masked_loss_sums.launches, K3.masked_loss_grads.launches) == (
+        before[0] + 1, before[1] + 1)
     n = p.numel()
     d1 = (t * m1 - p * m1).detach()
     d2 = d1 * m2
     want = -(torch.sign(d1) / n + m1 * (2 * torch.sign(d2) / n + 3 * 2 * d2 * 5 / n)) * m1
     torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 512, 640), (3, 37, 41), (1, 1, 3)])
+def test_cuda_masked_loss_sums_one_launch_match_plain(shape, dtype):
+    """The sums in one launch (grid over whole waves, head and tail by block
+    0), within 1e-5 of the plain sums; one count a call."""
+    dev = _cuda()
+    ins = _loss_inputs(shape, 85, dev, getattr(torch, dtype))
+    before = K3.masked_loss_sums.launches
+    got = torch.stack(K3.masked_loss_sums(*ins))
+    assert K3.masked_loss_sums.launches == before + 1
+    torch.testing.assert_close(got, K3.masked_loss_sums_plain(*ins), rtol=1e-5, atol=1e-6)
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dt", [True, False], ids=["with_dt", "no_dt"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 40, 48), (3, 37, 41), (1, 1, 3), "misaligned"])
+def test_cuda_masked_loss_grads_equal_plain_bits(shape, dtype, with_dt):
+    """The backward kernel evaluates the plain expression in its order with
+    every operation rounded on its own: the same bits as
+    masked_loss_grads_plain (bf16: after the same rounding); one launch."""
+    dev = _cuda()
+    dt_ = getattr(torch, dtype)
+    if shape == "misaligned":  # views one value into their storage
+        ins = [v.flatten()[1:] for v in _loss_inputs((4, 33, 50), 86, dev, dt_)]
+    else:
+        ins = _loss_inputs(shape, 86, dev, dt_)
+    g = torch.tensor([0.7, -1.3, 0.4], device=dev)
+    before = K3.masked_loss_grads.launches
+    got = K3.masked_loss_grads(*ins, g, with_dt)
+    assert K3.masked_loss_grads.launches == before + 1
+    want = K3.masked_loss_grads_plain(*ins, g, with_dt)
+    assert got[0].dtype == ins[0].dtype and torch.equal(_bits(got[0]), _bits(want[0]))
+    if with_dt:
+        assert torch.equal(_bits(got[1]), _bits(want[1]))
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.cuda
+def test_cuda_masked_loss_ticket_resets_between_launches():
+    """The last block resets the ticket: 100 launches in a row give the same
+    bits, and a small n (fewer blocks) in between does not disturb it."""
+    dev = _cuda()
+    ins = _loss_inputs((1, 1024, 1280), 87, dev)
+    small = _loss_inputs((1, 1, 3), 88, dev)
+    first = torch.stack(K3.masked_loss_sums(*ins))
+    for i in range(100):
+        if i == 50:
+            torch.testing.assert_close(torch.stack(K3.masked_loss_sums(*small)),
+                                       K3.masked_loss_sums_plain(*small), rtol=1e-5, atol=1e-6)
+        assert torch.equal(torch.stack(K3.masked_loss_sums(*ins)), first)
+    torch.testing.assert_close(first, K3.masked_loss_sums_plain(*ins), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_loss_on_two_streams():
+    """Each stream has its own ticket and partials: launches on two streams
+    without a sync between them all give the plain sums, with the same bits."""
+    dev = _cuda()
+    ins = _loss_inputs((6, 512, 640), 89, dev)
+    want = K3.masked_loss_sums_plain(*ins)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(20):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(torch.stack(K3.masked_loss_sums(*ins)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0], want, rtol=1e-5, atol=1e-6)
+    assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 @pytest.mark.cuda
