@@ -23,7 +23,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     (C_in and C_out off its 64-channel chunk and N tile, 16 -> 16, W off its
     16-pixel tile, H = W = 2 with reflect, C_out = 300 over two N tiles),
     every K1 variant and K2 in all three borders; two launches of K1 must
-    give the same bits.
+    give the same bits. Then K1 (stats only, normalise+ReLU+stats) at this
+    slice's shapes: Image_f's in the I2D step (B=24, 96x128x128, reflect),
+    the main step's on its 384x512 crops (B=12, 96x128x128, reflect; G_A_d
+    B=6, 96x128x256, replicate) and the translators serving (B=8,
+    128x160x256, replicate).
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -31,7 +35,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     the launch counters (24 per batch), and one batch's ``serve_forward``
     against the same model with the kernel swapped for its plain version.
 (b') K3 = masked_loss_sums (one launch a call) and its backward
-    masked_loss_grads, at the train step's shape (6, 512, 640), the SR step's
+    masked_loss_grads, at the train step's shape (6, 512, 640) and on its
+    384x512 crops (6, 384, 512), the SR step's
     (1, 1024, 1280) and (1, 512, 640) and a ragged (3, 37, 41), float32 and
     bf16 pred/target, binary masks, against their plain versions: the sums
     within 1e-5, two launches bit-equal; dp (and dt, with and without it)
@@ -47,7 +52,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     G falls over 4 steps on one batch; at float32 (batch 2, 256x384) one step
     through the kernels against the same step through their plain versions
     (loss terms, and gradients against the plain route's own sensitivity);
-    then times the bf16 step (CUDA events) and profiles it.
+    then times the bf16 step (CUDA events) and profiles it. Then the README's
+    command as it stands, without --no_aug (rotate with p 0.9, 384x512
+    crops): 2 steps through ``train.main`` (K1 42, K3 2 and 2 a step), one
+    model-level step's launches, the step timed and profiled.
 (f) SR serving: 8 synthetic 960x1280 RGB-D frames (ScanNet's 480x640 at x2)
     and seeded random .pth files at full width; ``predict.main --SR`` serves
     them in bf16 as two requests of 4 (padded to 1024x1280, guidance at LR
@@ -64,13 +72,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     kernel-vs-plain step at HR 256x256 (phase (e)'s bounds), one
     --use_rec_as_real_input step (K1 78 launches, G_B_d unchanged); then
     times and profiles the bf16 step.
+(h) I2D serving: 8 synthetic 480x640 frames, RGB only, through
+    ``predict.main --I2D`` in bf16 (padded to 512x640; Image_f and Task at
+    the default widths, seeded random .pth files). Checks the PNGs, K1 at 12
+    a batch, and ``serve_forward`` against the same model with K1 swapped for
+    its plain version (phase (c)'s bounds); times the batch and each net.
+(i) translate serving: 8 synthetic 480x640 RGB-D frames through
+    ``predict.main --translate AtoB`` (G_A) and ``BtoA`` (G_B), bf16, at the
+    translator's hardcoded widths. Checks the PNGs (the two directions
+    differ), K1 at 18 a batch, each direction's forward against the plain
+    version (phase (c)'s bounds); times each direction and G_A's parts.
+(j) I2D training: 24 synthetic 480x640 frames a domain through I2DDataset
+    (ColorJitter, rotate with p 0.85, 384x512 crops); ``train.main
+    --model_type I2D`` with the README stage-1 flags (batch 12, lr 2e-4) plus
+    --use_D, for 2 steps: K1 12 a step, finite losses, Image_f bit-equal
+    (the Task-only optimizer), Task and D_depth moved; one
+    --i2d_train_features step, where every ResnetBlock conv of Image_f gets a
+    gradient through K1's backward and Image_f moves; a float32
+    kernel-vs-plain step with the adversarial term (phase (e)'s bounds); then
+    times and profiles the bf16 step with its D step.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path), error, time, the plain version's
     and the library call's times, its bound on this card and the share of it
     reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
-    the main serving shape, the translator's and the SR step's two HR
-    shapes; K3's sums and its backward each at the main and the SR step's
-    HR shape, with the wrapper's host time per call (host_ms) and the kernels
+    the main serving shape, the translator's, the SR step's two HR shapes,
+    the I2D step's, the augmented main step's two and the translators'
+    serving shape (``launches_at_shape`` says which path runs each); K3's
+    sums and its backward each at the main step's two shapes and the SR
+    step's HR shape, with the wrapper's host time per call (host_ms) and the kernels
     a call launches; the sums rows also time the earlier two-launch design
     (desr_tpu_torch/tools/masked_loss_two_launch.cu, built in phase (a)) on
     the same inputs (two_launch_ms). Device times flush L2 before each call.
@@ -111,6 +140,15 @@ SR_TRANS_SHAPE = (1, 256, 320, 256)   # G_A_d's (replicate) and G_B_d's (reflect
 SR_LOSS_SHAPES = ((1, 1024, 1280), (1, 512, 640))  # K3's syn (HR) and real (LR) triplets
 SR_K1_PER_STEP = 42       # I2D_features 12 (LR) + Depth_f 12 (HR, with a backward) + G_A_d 18
 SR_K1_REC_PER_STEP = 78   # --use_rec_as_real_input: + G_B_d 18 + G_A_d 18 more
+# stage 1, stage 2 serving and the main step with its augmentation (384x512 crops)
+I2D_TRAIN_SHAPE = (24, 96, 128, 128)  # Image_f's ResnetBlocks, I2D step: batch 2B, B=12, 384x512
+AUG_SHAPE = (12, 96, 128, 128)        # I2D_features' and Depth_f's, main step on 384x512 crops
+AUG_TRANS_SHAPE = (6, 96, 128, 256)   # G_A_d's there
+TRANSLATE_SHAPE = (8, 128, 160, 256)  # G_A's or G_B's, serving a batch of 8 at 512x640
+AUG_LOSS_SHAPE = (6, 384, 512)        # K3's input, main step on 384x512 crops
+I2D_K1_PER_STEP = 12      # Image_f's 6 ResnetBlocks x 2 convs, on the 2B batch
+I2D_K1_PER_BATCH = 12     # the same, serving
+TRANSLATE_K1_PER_BATCH = 18  # 9 ResnetBlockT x 2 convs
 
 
 class SmokeFailure(RuntimeError):
@@ -292,18 +330,25 @@ def phase_kernels():
     from desr_tpu_torch.ops import conv3x3 as K
 
     worst = {"K1": 0.0, "K2": 0.0, "K1 translator": 0.0, "K1 SR LR": 0.0, "K1 SR HR": 0.0,
-             "K1 SR Depth_f": 0.0, "K1 SR translator": 0.0}
+             "K1 SR Depth_f": 0.0, "K1 SR translator": 0.0, "K1 I2D": 0.0, "K1 aug": 0.0,
+             "K1 aug translator": 0.0, "K1 translate": 0.0}
     # the serving path's variants and borders; the translator's ResnetBlockT
     # (G_A_d on the train path) runs stats, then norm+relu+stats, replicate;
     # the SR stage's ResnetBlocks at LR and HR, and its translators at HR
-    # (G_A_d replicate, G_B_d of --use_rec_as_real_input reflect)
+    # (G_A_d replicate, G_B_d of --use_rec_as_real_input reflect); then
+    # stage 1's Image_f in its train step, the main step's nets on 384x512
+    # crops, and the stage-2 translators serving
     for tag, shape, modes, variants in (
             ("", SERVE_SHAPE, ("reflect", "replicate", "zeros"), K1_VARIANTS),
             (" translator", TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
             (" SR LR", SR_LR_SHAPE, ("reflect",), K1_VARIANTS[:2]),
             (" SR HR", SR_SERVE_SHAPE, ("reflect",), K1_VARIANTS[:2]),
             (" SR Depth_f", SR_DEPTHF_SHAPE, ("reflect",), K1_VARIANTS[:2]),
-            (" SR translator", SR_TRANS_SHAPE, ("replicate", "reflect"), K1_VARIANTS[:2])):
+            (" SR translator", SR_TRANS_SHAPE, ("replicate", "reflect"), K1_VARIANTS[:2]),
+            (" I2D", I2D_TRAIN_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" aug", AUG_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" aug translator", AUG_TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" translate", TRANSLATE_SHAPE, ("replicate",), K1_VARIANTS[:2])):
         n_pix = shape[1] * shape[2]
         for dtype in (torch.float32, torch.bfloat16):
             x, w, scale, shift = _inputs(dtype, shape=shape)
@@ -424,7 +469,7 @@ def phase_masked_loss():
 
     worst, worst_bwd = {}, {}
     g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
-    for shape in (LOSS_SHAPE, *SR_LOSS_SHAPES, (3, 37, 41)):
+    for shape in (LOSS_SHAPE, AUG_LOSS_SHAPE, *SR_LOSS_SHAPES, (3, 37, 41)):
         for dtype in (torch.float32, torch.bfloat16):
             ins = _loss_inputs(shape, dtype, seed=sum(shape))
             got = torch.stack(K3.masked_loss_sums(*ins))
@@ -437,7 +482,7 @@ def phase_masked_loss():
             print(f"[b'] {name}: sums max |d| {err:.3g}, max rel {rel:.3g} (bound 1e-5), two "
                   f"launches bit-equal; backward max |d| {bwd:.3g}, {n_bits} values with other "
                   "bits than plain (dp, dt)")
-            if shape in (LOSS_SHAPE, SR_LOSS_SHAPES[0]) and dtype == torch.float32:
+            if shape in (LOSS_SHAPE, AUG_LOSS_SHAPE, SR_LOSS_SHAPES[0]) and dtype == torch.float32:
                 worst[shape], worst_bwd[shape] = err, bwd
             del ins
     # the ticket: the last block resets it, so launch after launch gives the same bits
@@ -601,7 +646,7 @@ def phase_serving(tmp):
           + ", ".join(f"{k[7:]} {v:.2f}" for k, v in report.items() if k.startswith("net_ms_")))
     report.update(_profile(lambda: model.serve_forward(batch), iters=3))
     print("[c] " + json.dumps(report))
-    return launches
+    return {"serve_main": launches}
 
 
 def _serve_checks(model, batch, tag, k2_route):
@@ -715,13 +760,15 @@ def _write_train_domain(root, dom, seed, n=12):
     return folder
 
 
-def _train_argv(tmp, name, extra=()):
+def _train_argv(tmp, name, extra=(), aug=False):
+    """The README's stage-3 flags (README.md:103-104); ``aug`` keeps its
+    augmentation (rotated 384x512 crops), else ``--no_aug`` (512x640)."""
     a, b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
     return ["--model_type", "main", "--name", name, "--checkpoints_dir", tmp,
-            # the README's stage-3 flags (README.md:103-104)
             "--do_train", "--continue_train", "--use_image_for_trans", "--use_masked",
             "--norm_loss", "--use_smooth_loss", "--batch_size", "6",
-            "--no_aug", "--compute_dtype", "bfloat16", "--image_and_depth", "--use_scannet",
+            *([] if aug else ["--no_aug"]),
+            "--compute_dtype", "bfloat16", "--image_and_depth", "--use_scannet",
             "--path_A", f"{a}/depth", "--A_add_paths", f"{a}/img",
             "--path_B", f"{b}/depth", "--B_add_paths", f"{b}/img",
             "--path_to_intr", os.path.join(tmp, "intr"), "--n_epochs", "1",
@@ -832,8 +879,47 @@ def phase_training(tmp):
           f"forward + losses alone {ms_fwd:.2f} ms; peak memory "
           f"{report['train_peak_mem_gib']:.2f} GiB")
     report.update(_profile(model.optimize_parameters, iters=3, tag="e", unit="step"))
+
+    # the README's command as it stands: no --no_aug, so rotated 384x512 crops
+    for n in model.model_names:
+        ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(tmp, "aug", "latest", n))
+    argv = _train_argv(tmp, "aug", aug=True)
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    aug_launches = _counts()
+    check(aug_launches == want, f"train.main (aug): launches {aug_launches}; want {want}")
+    check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
+          f"train.main (aug) losses: {losses}")
+    print(f"[e] train.main without --no_aug: 2 steps of batch 6 on rotated 384x512 crops in "
+          f"{wall:.1f} s host wall; launches {aug_launches}; losses "
+          + ", ".join(f"{k} {v:.4g}" for k, v in losses.items()))
+    opt_aug = train_options.parse(argv, print_options=False)
+    batch = next(iter(create_dataset(opt_aug, MainDataset)))
+    check(batch["A_d"].shape == (6, 384, 512, 1) and batch["B_i"].shape == (6, 384, 512, 3)
+          and (batch["crop_A"] == [0, 384, 0, 512]).all(),
+          f"augmented batch: A_d {batch['A_d'].shape}, B_i {batch['B_i'].shape}")
+    model.set_input(batch)
+    _reset_counts()
+    model.optimize_parameters()
+    c = _counts()
+    check((c["K1"], c["K3"], c["K3 backward"]) == (K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP),
+          f"augmented step: launches {c}")
+    check(bool(np.isfinite(float(model.metrics["G"]))), "augmented step: G not finite")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    report["aug_train_step_ms"] = ms
+    report["aug_train_pairs_per_s"] = 6000.0 / ms
+    report["aug_train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[e] train step bf16, batch 6 on 384x512 crops: {ms:.2f} ms per step, "
+          f"{report['aug_train_pairs_per_s']:.2f} pairs/s (CUDA events, 10 steps after 3); "
+          f"launches a step {c}; peak memory {report['aug_train_peak_mem_gib']:.2f} GiB")
+    report.update({f"aug_{k}": v for k, v in _profile(
+        model.optimize_parameters, iters=3, tag="e", unit="step").items()})
     print("[e] " + json.dumps(report))
-    return launches
+    return {"train_main": launches, "train_main_aug": aug_launches}
 
 
 def _train_parity(model_cls, opt32, small, tag, what):
@@ -862,7 +948,8 @@ def _train_parity(model_cls, opt32, small, tag, what):
     model.set_input(small)
 
     def step():
-        model.hole_generator.manual_seed(11)
+        if getattr(model, "hole_generator", None) is not None:
+            model.hole_generator.manual_seed(11)
         m = model.compute_grads()
         return m, {f"{n}.{k}": p.grad.clone() for n in model.trainable_nets
                    for k, p in model.nets[n].named_parameters()}
@@ -1003,7 +1090,7 @@ def phase_sr_serving(tmp):
           + ", ".join(f"{k[7:]} {v:.2f}" for k, v in report.items() if k.startswith("net_ms_")))
     report.update(_profile(lambda: model.serve_forward(batch), iters=3, tag="f"))
     print("[f] " + json.dumps(report))
-    return launches
+    return {"serve_sr": launches}
 
 
 # ------------------------------------------------------------------ (g)
@@ -1147,7 +1234,285 @@ def phase_sr_training(tmp):
           f"{report['sr_train_peak_mem_gib']:.2f} GiB")
     report.update(_profile(model.optimize_parameters, iters=3, tag="g", unit="step"))
     print("[g] " + json.dumps(report))
-    return launches
+    return {"train_sr": launches}
+
+
+# ------------------------------------------------------------------ (h)
+
+def _serve_cli(tmp, name, req, out, mode, batch_size=8):
+    """predict.main on one request folder in bf16; (host wall s, launches)."""
+    import torch
+
+    from desr_tpu_torch import predict
+
+    argv = ["--name", name, "--checkpoints_dir", tmp, *mode,
+            "--input_img", os.path.join(tmp, req, "img"), "--output", out,
+            "--batch_size", str(batch_size), "--compute_dtype", "bfloat16"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    predict.main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, _counts()
+
+
+def _net_times(report, fns):
+    """Each net alone on one batch's inputs (CUDA events), into ``report``."""
+    for name, fn in fns:
+        report[f"net_ms_{name}"] = cuda_ms(fn, iters=5, warmup=1)
+    return ", ".join(f"{k[7:]} {v:.2f}" for k, v in report.items() if k.startswith("net_ms_"))
+
+
+def phase_i2d_serving(tmp):
+    """Stage-1 serving: 8 synthetic 480x640 frames through ``predict.main
+    --I2D`` (RGB only, padded to 512x640) in bf16, seeded random weights at
+    the default widths (Image_f ngf 32 -> 16 features, Task ngf 64)."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import predict
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import NetOptions
+
+    _write_frames(os.path.join(tmp, "req"), 8, seed=60)
+    model = I2DModel(NetOptions(), device="cuda", generator=torch.Generator().manual_seed(3))
+    for name in model.model_names:
+        ckpt.save_net(model.nets[name], ckpt.net_ckpt_path(tmp, "i2d", "latest", name))
+    out = os.path.join(tmp, "out")
+    wall, launches = _serve_cli(tmp, "i2d", "req", out, ["--I2D"])
+    check(launches == {"K1": I2D_K1_PER_BATCH, "K2": 0, "K3": 0, "K3 backward": 0},
+          f"predict --I2D: launches {launches}; want K1 {I2D_K1_PER_BATCH} a batch")
+    outs = _read_outputs(out, 8)
+    check(int(outs.max()) > 0, "predict --I2D: an output is all zeros")
+    print(f"[h] predict --I2D: 8 frames 480x640 (RGB only) in {wall:.2f} s host wall (model "
+          f"build + .pth load + PNG I/O included), launches {launches}")
+
+    frames = [predict.decode_frame(None, os.path.join(tmp, "req", "img", f"f{i:02d}.png"),
+                                   5100.0) for i in range(8)]
+    batch = {"B_i": torch.from_numpy(np.stack([f[1] for f in frames])).cuda()}
+    _reset_counts()
+    pred = model.serve_forward(batch)
+    check(_counts()["K1"] == I2D_K1_PER_BATCH, f"I2D serve_forward: {_counts()}")
+    check(tuple(pred.shape) == (8, 512, 640) and bool(torch.isfinite(pred).all()),
+          f"I2D serve_forward: shape {tuple(pred.shape)} or non-finite values")
+    report = _serve_checks(model, batch, "h", k2_route=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: model.serve_forward(batch), iters=5, warmup=2)
+    report["i2d_serve_ms_per_batch8"] = ms
+    report["i2d_serve_frames_per_s"] = 8000.0 / ms
+    report["i2d_serve_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    img = batch["B_i"].to(torch.bfloat16).permute(0, 3, 1, 2)
+    feats = model.nets["Image_f"](img)
+    per_net = _net_times(report, (("Image_f", lambda: model.nets["Image_f"](img)),
+                                       ("Task", lambda: model.nets["Task"](feats))))
+    print(f"[h] I2D serve_forward bf16 batch 8 (512x640): {ms:.2f} ms per batch, "
+          f"{report['i2d_serve_frames_per_s']:.1f} frames/s (CUDA events, after warm-up); "
+          f"peak memory {report['i2d_serve_peak_mem_gib']:.2f} GiB; per net ms: {per_net}")
+    report.update(_profile(lambda: model.serve_forward(batch), iters=3, tag="h"))
+    print("[h] " + json.dumps(report))
+    return {"serve_i2d": launches}
+
+
+# ------------------------------------------------------------------ (i)
+
+def phase_translate_serving(tmp):
+    """Stage-2 serving: 8 synthetic 480x640 RGB-D frames through
+    ``predict.main --translate AtoB`` (G_A) and ``BtoA`` (G_B), bf16, padded
+    to 512x640; the hardcoded translator widths, seeded random weights."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import predict
+    from desr_tpu_torch.models.main_model import NetOptions
+    from desr_tpu_torch.models.translation_model import TranslationModel
+
+    _write_frames(os.path.join(tmp, "req"), 8, seed=70)
+    model = TranslationModel(NetOptions(), device="cuda",
+                             generator=torch.Generator().manual_seed(4))
+    for name in model.model_names:
+        ckpt.save_net(model.nets[name], ckpt.net_ckpt_path(tmp, "tr", "latest", name))
+    paths, outs = {}, {}
+    for direction in ("AtoB", "BtoA"):
+        out = os.path.join(tmp, f"out_{direction}")
+        wall, launches = _serve_cli(tmp, "tr", "req", out,
+                                    ["--translate", direction, "--input_depth",
+                                     os.path.join(tmp, "req", "depth")])
+        check(launches == {"K1": TRANSLATE_K1_PER_BATCH, "K2": 0, "K3": 0, "K3 backward": 0},
+              f"predict --translate {direction}: launches {launches}; want K1 "
+              f"{TRANSLATE_K1_PER_BATCH} a batch")
+        outs[direction] = _read_outputs(out, 8)
+        check(int(outs[direction].max()) > 0, f"--translate {direction}: all zeros")
+        paths[f"serve_translate_{direction}"] = launches
+        print(f"[i] predict --translate {direction}: 8 frames 480x640 in {wall:.2f} s host wall "
+              f"(model build + .pth load + PNG I/O included), launches {launches}")
+    check(bool((outs["AtoB"] != outs["BtoA"]).any()), "AtoB and BtoA wrote the same PNGs")
+
+    frames = [predict.decode_frame(os.path.join(tmp, "req", "depth", f"f{i:02d}.png"),
+                                   os.path.join(tmp, "req", "img", f"f{i:02d}.png"), 5100.0)
+              for i in range(8)]
+    batch = {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    report = {}
+    for direction in ("AtoB", "BtoA"):
+        model.direction = direction
+        _reset_counts()
+        pred = model.serve_forward(batch)
+        check(_counts()["K1"] == TRANSLATE_K1_PER_BATCH, f"{direction} forward: {_counts()}")
+        check(tuple(pred.shape) == (8, 512, 640) and bool(torch.isfinite(pred).all()),
+              f"{direction} forward: shape {tuple(pred.shape)} or non-finite values")
+        report.update({f"{direction}_{k}": v for k, v in
+                       _serve_checks(model, batch, "i", k2_route=False).items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model.serve_forward(batch), iters=5, warmup=2)
+        report[f"{direction}_serve_ms_per_batch8"] = ms
+        report[f"{direction}_serve_frames_per_s"] = 8000.0 / ms
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        report[f"{direction}_serve_peak_mem_gib"] = peak
+        print(f"[i] --translate {direction} serve_forward bf16 batch 8 (512x640): {ms:.2f} ms "
+              f"per batch, {8000.0 / ms:.1f} frames/s (CUDA events, after warm-up); peak "
+              f"memory {peak:.2f} GiB")
+    g = model.nets["G_A"]
+    dt = torch.bfloat16
+    depth = batch["B_d"].to(dt).permute(0, 3, 1, 2)
+    img = batch["B_i"].to(dt).permute(0, 3, 1, 2)
+    x = torch.cat([g.enc_depth(depth), g.enc_img(img)], 1)
+    mid = g.bottlenec(x)
+    per_net = _net_times(report, (
+        ("encoders", lambda: (g.enc_depth(depth), g.enc_img(img))),
+        ("bottleneck", lambda: g.bottlenec(x)), ("decoder", lambda: g.dec_depth(mid))))
+    print(f"[i] G_A's parts ms: {per_net}")
+    model.direction = "AtoB"
+    report.update(_profile(lambda: model.serve_forward(batch), iters=3, tag="i"))
+    print("[i] " + json.dumps(report))
+    return paths
+
+
+# ------------------------------------------------------------------ (j)
+
+def _i2d_train_argv(tmp, name, extra=()):
+    a, b = os.path.join(tmp, "A"), os.path.join(tmp, "B")
+    return ["--model_type", "I2D", "--name", name, "--checkpoints_dir", tmp,
+            # the README's stage-1 flags (README.md:90-93), epochs cut, plus --use_D
+            "--do_train", "--image_and_depth", "--use_scannet", "--batch_size", "12",
+            "--lr", "2e-4", "--use_D", "--continue_train", "--compute_dtype", "bfloat16",
+            "--path_A", f"{a}/depth", "--A_add_paths", f"{a}/img",
+            "--path_B", f"{b}/depth", "--B_add_paths", f"{b}/img", "--n_epochs", "1",
+            "--n_epochs_decay", "0", "--print_freq", "12", "--save_epoch_freq", "1",
+            "--num_threads", "0", *extra]
+
+
+def phase_i2d_training(tmp):
+    """The stage-1 train step at the README geometry: 24 synthetic 480x640
+    frames a domain through I2DDataset (ColorJitter, rotate, 384x512 crops),
+    batch 12 (2B = 24 through Image_f), lr 2e-4, --use_D, bf16."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import train
+    from desr_tpu_torch.data.i2d_dataset import I2DDataset
+    from desr_tpu_torch.data.loader import create_dataset
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.options import train_options
+
+    report = {}
+    _write_frames(os.path.join(tmp, "A"), 24, seed=80)
+    _write_frames(os.path.join(tmp, "B"), 24, seed=90)
+    argv = _i2d_train_argv(tmp, "i2d")
+    opt = train_options.parse(argv, print_options=False)
+    model = I2DModel(opt, device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                     generator=torch.Generator().manual_seed(5))
+    for n in model.model_names:
+        ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(tmp, "i2d", "latest", n))
+    before = _state(model, model.model_names)
+    print(f"[j] {sum(p.numel() for p in model.parameters())} parameters over "
+          f"{len(model.model_names)} nets at the default widths; G trains "
+          f"{model.trainable_nets}, D_depth its own Adam")
+
+    # the CLI, in-process: 24 pairs at batch 12 = 2 steps
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = {"K1": 2 * I2D_K1_PER_STEP, "K2": 0, "K3": 0, "K3 backward": 0}
+    check(launches == want, f"train.main I2D: launches {launches}; want {want} over 2 steps")
+    check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
+          f"train.main I2D losses: {losses}")
+    print(f"[j] train.main --model_type I2D --use_D: 2 steps of batch 12 in {wall:.1f} s host "
+          f"wall (model build, .pth load, PNG decode, jitter and rotate, checkpoint writes "
+          f"included); launches {launches}; losses "
+          + ", ".join(f"{k} {v:.4g}" for k, v in losses.items()))
+    trained = I2DModel(opt, device="cuda", is_train=True)
+    trained.load_networks(tmp, "i2d", "latest", verbose=False)
+    after = _state(trained, model.model_names)
+    for n in model.model_names:
+        same = all(torch.equal(after[n][k], before[n][k]) for k in before[n])
+        check(same == (n == "Image_f"), f"I2D {n}: weights {'unchanged' if same else 'changed'}")
+    print("[j] after train.main: Image_f bit-equal to its .pth file (the Task-only "
+          "optimizer); Task and D_depth moved")
+    del trained
+
+    batch = next(iter(create_dataset(opt, I2DDataset)))
+    check(batch["A_i"].shape == (12, 384, 512, 3) and batch["B_d"].shape == (12, 384, 512, 1),
+          f"I2DDataset batch: A_i {batch['A_i'].shape}, B_d {batch['B_d'].shape}")
+    model.set_input(batch)
+    _reset_counts()
+    model.optimize_parameters(12, 1)
+    c = _counts()
+    check(c["K1"] == I2D_K1_PER_STEP and "D_depth" in model.metrics,
+          f"I2D step: launches {c}, metrics {sorted(model.metrics)}")
+
+    # --i2d_train_features: K1's backward runs and Image_f moves
+    opt_f = train_options.parse(argv + ["--i2d_train_features"], print_options=False)
+    feat = I2DModel(opt_f, device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                    generator=torch.Generator().manual_seed(6))
+    feat.set_input(batch)
+    init = _state(feat, ["Image_f"])["Image_f"]
+    _reset_counts()
+    feat.compute_grads()
+    block_w = [p for k, p in feat.nets["Image_f"].named_parameters() if ".conv_block." in k
+               and k.endswith("weight")]
+    check(len(block_w) == I2D_K1_PER_STEP and all(
+        p.grad is not None and float(p.grad.abs().max()) > 0 for p in block_w),
+          "--i2d_train_features: a ResnetBlock conv of Image_f got no gradient")
+    feat.optimizer.step()
+    moved = [k for k, v in feat.nets["Image_f"].state_dict().items() if not torch.equal(v, init[k])]
+    check(len(moved) > 0 and _counts()["K1"] == I2D_K1_PER_STEP,
+          f"--i2d_train_features: Image_f moved in {len(moved)} tensors; launches {_counts()}")
+    print(f"[j] --i2d_train_features step: K1 {I2D_K1_PER_STEP} forward launches, all "
+          f"{len(block_w)} ResnetBlock conv weights of Image_f got gradients through K1's "
+          f"backward; {len(moved)} Image_f tensors moved")
+    del feat
+
+    # float32, kernels against their plain versions, at batch 2 (2B = 4)
+    # with the adversarial term into Image_f
+    opt32 = SimpleNamespace(**{**vars(opt_f), "batch_size": 2})
+    small = {k: v[:2] for k, v in batch.items() if not k.endswith("paths")}
+    report.update(_train_parity(I2DModel, opt32, small, "j",
+                                "I2D batch 2 at 384x512, --use_D --i2d_train_features"))
+
+    # time: bf16 step with the D step, batch 12 at 384x512, after warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: model.optimize_parameters(12, 1), iters=10, warmup=3)
+    report["i2d_train_step_ms"] = ms
+    report["i2d_train_pairs_per_s"] = 12000.0 / ms
+    report["i2d_train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_g = cuda_ms(lambda: (model.compute_grads(), model.optimizer.step()), iters=5, warmup=1)
+    report["i2d_train_g_step_ms"] = ms_g
+    print(f"[j] I2D train step bf16 with the D step, batch 12 at 384x512: {ms:.2f} ms per "
+          f"step, {report['i2d_train_pairs_per_s']:.2f} pairs/s (CUDA events, 10 steps after "
+          f"3); the G step alone {ms_g:.2f} ms; peak memory "
+          f"{report['i2d_train_peak_mem_gib']:.2f} GiB")
+    report.update(_profile(lambda: model.optimize_parameters(12, 1), iters=3, tag="j",
+                           unit="step"))
+    print("[j] " + json.dumps(report))
+    return {"train_i2d": launches}
 
 
 # ------------------------------------------------------------------ (d)
@@ -1178,17 +1543,32 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
 
     rows = []
     # K1 and K2 at the main serving shape (reflect), K1 at the translator's
-    # (replicate), and K1 at the SR step's two HR shapes: Depth_f's (reflect)
-    # and G_A_d's (replicate); each with its own bound. The per-shape counts
-    # are launches a train step makes at that shape.
+    # (replicate), at the SR step's two HR shapes: Depth_f's (reflect) and
+    # G_A_d's (replicate), at the I2D step's, the augmented main step's two and
+    # the translators' serving shape; each with its own bound.
+    # "launches_at_shape" says which path launches K1 at that shape, how often
     k1 = "desr_tpu/ops/pallas_conv.py:353"
-    for name, entry, shape, mode, replaces, per_step in (
-            ("conv3x3_fused", "K1", SERVE_SHAPE, "reflect", k1, None),
-            ("conv3x3_fused", "K1 translator", TRANS_SHAPE, "replicate", k1, K1_TRANS_PER_STEP),
-            ("conv3x3_fused", "K1 SR Depth_f", SR_DEPTHF_SHAPE, "reflect", k1, 12),
+    for name, entry, shape, mode, replaces, at_shape in (
+            ("conv3x3_fused", "K1", SERVE_SHAPE, "reflect", k1,
+             "main serving 24 a batch (I2D_features, Depth_f); I2D serving 12 (Image_f); "
+             "main step 24 at B=12"),
+            ("conv3x3_fused", "K1 translator", TRANS_SHAPE, "replicate", k1,
+             f"main step {K1_TRANS_PER_STEP} (G_A_d)"),
+            ("conv3x3_fused", "K1 SR Depth_f", SR_DEPTHF_SHAPE, "reflect", k1,
+             "SR step 12 (Depth_f, with a backward)"),
             ("conv3x3_fused", "K1 SR translator", SR_TRANS_SHAPE, "replicate", k1,
-             K1_TRANS_PER_STEP),
-            ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309", None)):
+             f"SR step {K1_TRANS_PER_STEP} (G_A_d)"),
+            ("conv3x3_fused", "K1 I2D", I2D_TRAIN_SHAPE, "reflect", k1,
+             f"I2D step {I2D_K1_PER_STEP} (Image_f; with a backward under "
+             "--i2d_train_features)"),
+            ("conv3x3_fused", "K1 aug", AUG_SHAPE, "reflect", k1,
+             "augmented main step 24 (I2D_features, Depth_f with a backward)"),
+            ("conv3x3_fused", "K1 aug translator", AUG_TRANS_SHAPE, "replicate", k1,
+             f"augmented main step {K1_TRANS_PER_STEP} (G_A_d)"),
+            ("conv3x3_fused", "K1 translate", TRANSLATE_SHAPE, "replicate", k1,
+             f"--translate serving {TRANSLATE_K1_PER_BATCH} a batch (G_A or G_B)"),
+            ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309",
+             "main serving --pallas_conv route 24 a batch")):
         b, h, w, c = shape
         x, wt, scale, shift = _inputs(torch.bfloat16, seed=1, shape=shape)
         if name == "conv3x3_fused":
@@ -1217,10 +1597,8 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
                      + (" norm+relu+stats" if name == "conv3x3_fused" else ""),
             "flops": flops,
         }
-        if per_step is not None:
-            # the kernel's counter is one for all shapes: the launches above
-            # are all of K1's; this many a (main or SR) train step are at this shape
-            row["launches_per_train_step_at_shape"] = per_step
+        # the kernel's counter is one for all shapes: "launches" are all of K1's
+        row["launches_at_shape"] = at_shape
         rows.append(row)
         del x, wt, scale, shift, xp, wb
     # K3 at the main train step's shape and at the SR step's HR one, f32
@@ -1229,7 +1607,9 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     # to show that the reading repeats; the two-launch design on the same
     # inputs, which must give the plain sums too
     g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
-    for shape, per_step in ((LOSS_SHAPE, K3_PER_STEP), (SR_LOSS_SHAPES[0], 1)):
+    for shape, at_shape in ((LOSS_SHAPE, f"main step {K3_PER_STEP} (--no_aug)"),
+                            (AUG_LOSS_SHAPE, f"augmented main step {K3_PER_STEP}"),
+                            (SR_LOSS_SHAPES[0], "SR step 1 (+1 at 1x512x640)")):
         ins = _loss_inputs(shape, torch.float32, seed=2)
         n = ins[0].numel()
         label = f"{'x'.join(map(str, shape))} f32 pred/target, f32 masks"
@@ -1247,7 +1627,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "name": "masked_loss_sums", "route": "cuda",
             "source": "desr_tpu_torch/csrc/masked_loss.cu",
             "replaces": "desr_tpu/ops/pallas_kernels.py:97", **counts("K3"),
-            "launches_per_train_step_at_shape": per_step, "max_abs_err": k3_err[shape],
+            "launches_at_shape": at_shape, "max_abs_err": k3_err[shape],
             **_device_stats(sums, "masked_loss_sums", repeats=3),
             "event_ms": cuda_ms(sums, iters=50, warmup=5),
             # back to back, inputs under the 50 MB L2 stay there
@@ -1268,7 +1648,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "name": "masked_loss_grads", "route": "cuda",
             "source": "desr_tpu_torch/csrc/masked_loss.cu",
             "replaces": "desr_tpu/ops/pallas_kernels.py:129 (_mls_bwd, the VJP of :120)",
-            **counts("K3 backward"), "launches_per_train_step_at_shape": per_step,
+            **counts("K3 backward"), "launches_at_shape": at_shape,
             "max_abs_err": k3_bwd_err[shape],
             **_device_stats(bwd, "masked_loss_grads", repeats=3),
             "event_ms": cuda_ms(bwd, iters=50, warmup=5),
@@ -1335,11 +1715,11 @@ def main():
     card, two_launch_so = phase_card_and_build()
     worst = phase_kernels()
     k3_err, k3_bwd_err = phase_masked_loss()
-    paths = {}
-    for path, phase in (("serve_main", phase_serving), ("train_main", phase_training),
-                        ("serve_sr", phase_sr_serving), ("train_sr", phase_sr_training)):
+    paths = {}  # each path's launches by kernel, from its phase's run of the entry point
+    for phase in (phase_serving, phase_training, phase_sr_serving, phase_sr_training,
+                  phase_i2d_serving, phase_translate_serving, phase_i2d_training):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
-            paths[path] = phase(tmp)
+            paths.update(phase(tmp))
         torch.cuda.empty_cache()
     rows = phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so)
     for r in rows:

@@ -46,6 +46,32 @@ def _read_split(split_dir, fname, base_dir):
     return existing
 
 
+def draw_geo_params(rng, p_rot, h, w, crop_h, crop_w):
+    """The geometric chain's draws, in the order of base_dataset.py:77-89:
+    the rotation gate, the angle (only when gated), crop y, crop x, the flip."""
+    did_rot = bool(rng.uniform() < p_rot)
+    angle = float(rng.uniform(-30, 30)) if did_rot else 0.0
+    y, x = T.random_crop_params(rng, h, w, crop_h, crop_w)
+    flip = bool(rng.uniform() < 0.5)
+    return did_rot, angle, y, x, flip
+
+
+def augment_pair(rng, p_rot, depth, img, crop_h, crop_w):
+    """Rotate (with probability ``p_rot``), crop and flip a normalised
+    depth/image pair jointly, on one draw of ``draw_geo_params``
+    (main_dataset.py:39-49, i2d_dataset.py:32-41). Not clipped: the caller
+    clips after the crop and the flip."""
+    h, w = img.shape[:2]
+    did_rot, angle, y, x, flip = draw_geo_params(rng, p_rot, h, w, crop_h, crop_w)
+    if did_rot:  # one warp of both: the same taps and weights for every channel
+        both = T.rotate(np.concatenate([img, depth[..., None]], axis=-1), angle)
+        img, depth = both[..., :-1], both[..., -1]
+    img, depth = T.crop(img, y, x, crop_h, crop_w), T.crop(depth, y, x, crop_h, crop_w)
+    if flip:
+        img, depth = T.hflip(img), T.hflip(depth)
+    return depth, img
+
+
 def normalize_pair(depth, img):
     """Image + depth normalisation (my_main_dataset.py:32-52)."""
     return T.normalize_depth_np(np.asarray(depth)), T.normalize_image_np(np.asarray(img))

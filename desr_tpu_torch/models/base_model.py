@@ -12,6 +12,9 @@ in ``trainable_nets`` have ``requires_grad``; the frozen ones run under
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -23,6 +26,7 @@ from desr_tpu_torch.ops import optim
 class BaseModel(nn.Module):
     model_names: tuple = ()
     trainable_nets: tuple = ()
+    _dump_rows = 16  # the rows --save_all crops off each side
 
     def __init__(self, opt, device=None, compute_dtype=torch.bfloat16):
         super().__init__()
@@ -32,17 +36,47 @@ class BaseModel(nn.Module):
         self.loss_names = []
         self.metrics = {}
         self.optimizer = None
+        self.optimizers = []
         self.lr = getattr(opt, "lr", 2e-4)
 
-    def split_trainable(self):
+    def split_trainable(self, betas=(0.9, 0.999)):
         """Freeze every net, then give ``requires_grad`` back to the trainable
-        ones and build Adam over them (main_model.py:386-388)."""
+        ones and build the generator's Adam over them, torch's default betas
+        unless told otherwise (main_model.py:386-388, i2d_model.py:178-179)."""
         self.requires_grad_(False)
+        self.optimizers = []
+        self.optimizer = self.add_optimizer(self.trainable_nets, betas)
+
+    def add_optimizer(self, net_names, betas):
+        """An Adam over the nets ``net_names`` (a discriminator's, beside the
+        generator's), at the model's LR; ``update_learning_rate`` steps it too.
+        Gives the nets ``requires_grad``."""
         params = []
-        for name in self.trainable_nets:
+        for name in net_names:
             self.nets[name].requires_grad_(True)
             params += list(self.nets[name].parameters())
-        self.optimizer = optim.adam(params, self.lr, betas=(0.9, 0.999))
+        optimizer = optim.adam(params, self.lr, betas=betas)
+        self.optimizers.append(optimizer)
+        return optimizer
+
+    # --direction BtoA swaps the syn and real domains: the image and depth
+    # tensors only; intrinsics, crop boxes and paths keep their keys
+    # (base_model.py:161-176)
+    _DIRECTION_SWAP = {"A_i": "B_i", "B_i": "A_i", "A_d": "B_d", "B_d": "A_d"}
+
+    def apply_direction(self, batch):
+        if getattr(self.opt, "direction", "AtoB") == "AtoB":
+            return batch
+        out = dict(batch)
+        for dst, src in self._DIRECTION_SWAP.items():
+            if src in batch:
+                out[dst] = batch[src]
+        return out
+
+    def pretrained_nets(self):
+        """The nets a new run loads from earlier stages' ``.pth`` files:
+        here every net it does not train."""
+        return [n for n in self.model_names if n not in self.trainable_nets]
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -60,7 +94,7 @@ class BaseModel(nn.Module):
         if getattr(opt, "continue_train", False) or not getattr(opt, "isTrain", True):
             names = self.model_names
         else:
-            names = [n for n in self.model_names if n not in self.trainable_nets]
+            names = self.pretrained_nets()
         self.load_networks(opt.checkpoints_dir, opt.name, suffix, names)
         self.print_networks(getattr(opt, "verbose", False))
 
@@ -96,9 +130,24 @@ class BaseModel(nn.Module):
         self.lr = optim.lr_schedule(opt.lr_policy, epoch, opt.lr, opt.n_epochs,
                                     opt.n_epochs_decay, epoch_count=opt.epoch_count,
                                     lr_decay_iters=opt.lr_decay_iters)
-        if self.optimizer is not None:
-            optim.set_lr(self.optimizer, self.lr)
+        for optimizer in self.optimizers:
+            optim.set_lr(optimizer, self.lr)
         return self.lr
+
+    def _dump_predictions(self, pred):
+        """uint16 PNG dump of ``pred`` (B, H, W), x5100, rows [r:-r] with
+        r = ``_dump_rows`` (main and I2D: 16, main_model.py:453-462,
+        i2d_model.py:268-278; SR: 32 of the HR prediction), one file per
+        B path's stem under ``--save_image_folder``."""
+        from desr_tpu_torch.utils.util import save_uint16_png
+
+        os.makedirs(self.opt.save_image_folder, exist_ok=True)
+        pred = pred.float().cpu().numpy()
+        r = self._dump_rows
+        for i, path in enumerate(self._paths.get("B_paths") or []):
+            stem = str(path).split("/")[-1].split(".")[0]
+            out = np.clip((pred[i, r:-r, :] + 1) / 2, 0, 1)
+            save_uint16_png(out, os.path.join(self.opt.save_image_folder, f"{stem}.png"))
 
     def get_current_losses(self):
         return {k: float(v) for k, v in self.metrics.items() if k in self.loss_names}

@@ -14,7 +14,6 @@ Serving (``is_train=False``) builds the four nets of the real branch only:
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -34,7 +33,8 @@ INPUT_KEYS = ("A_i", "B_i", "A_d", "B_d", "K_A", "K_B", "crop_A", "crop_B")
 @dataclasses.dataclass
 class NetOptions:
     """The net-width flags of TrainOptions (train_options.py:74-120) that the
-    serving nets read, with their defaults."""
+    serving nets read, with their defaults (stage 3's; ``Imagef_*`` are stage
+    1's, ``inp_B`` is stage 2's)."""
 
     ImageDepthf_outf: int = 128
     ImageDepthf_basef: int = 32
@@ -48,6 +48,11 @@ class NetOptions:
     Task_basef: int = 64
     Task_type: str = "unet_128"
     Task_ndown: int = 2
+    Imagef_outf: int = 16
+    Imagef_basef: int = 32
+    Imagef_type: str = "resnet_6blocks"
+    Imagef_ndown: int = 2
+    inp_B: str = "img_depth"
     norm: str = "instance"
     replace_transpose: bool = False
     init_type: str = "normal"
@@ -81,7 +86,7 @@ class MainModel(BaseModel):
     model_names = ("G_A_d", "I2D_features", "Image2Depth", "Task", "Depth_f")
     trainable_nets = ("Depth_f", "Task")
     _supports_rec_input = False  # --use_rec_as_real_input is the SR stage's (QUIRKS #31)
-    _dump_key, _dump_rows = "pred_real_depth", 16  # main_model.py:453-462
+    _dump_key = "pred_real_depth"  # main_model.py:453-462
     _hole_p, _hole_max_frac = (0.90, 0.90), 8      # train-time (real, syn) p, main_model.py:210-217
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16,
@@ -354,9 +359,7 @@ class MainModel(BaseModel):
     def set_input(self, batch):
         """Stage a host batch on the device (``--direction BtoA`` swaps the
         image and depth tensors only, base_model.py:161-176)."""
-        if getattr(self.opt, "direction", "AtoB") != "AtoB":
-            batch = dict(batch, A_i=batch["B_i"], B_i=batch["A_i"],
-                         A_d=batch["B_d"], B_d=batch["A_d"])
+        batch = self.apply_direction(batch)
         self._batch = {k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}
         self._paths = {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")}
 
@@ -383,16 +386,3 @@ class MainModel(BaseModel):
         self.metrics = m
         if getattr(self.opt, "save_all", False) and stage == "test":
             self._dump_predictions(f[self._dump_key])
-
-    def _dump_predictions(self, pred):
-        """uint16 PNG dump, x5100, of rows [r:-r] (main: 16, main_model.py:453-462;
-        SR: 32 of the HR prediction, main_sr_model.py:355-364)."""
-        from desr_tpu_torch.utils.util import save_uint16_png
-
-        os.makedirs(self.opt.save_image_folder, exist_ok=True)
-        pred = pred.float().cpu().numpy()
-        r = self._dump_rows
-        for i, path in enumerate(self._paths.get("B_paths") or []):
-            stem = str(path).split("/")[-1].split(".")[0]
-            out = np.clip((pred[i, r:-r, :] + 1) / 2, 0, 1)
-            save_uint16_png(out, os.path.join(self.opt.save_image_folder, f"{stem}.png"))

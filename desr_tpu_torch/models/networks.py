@@ -1,10 +1,12 @@
-"""Generator zoo A (pix2pix lineage): ResNet and U-Net generators, the U-Net
-with its SR head (counterpart of ``desr_tpu/models/networks.py``).
+"""Net zoo A (pix2pix lineage): ResNet and U-Net generators, the U-Net with
+its SR head, and the PatchGAN / pixel discriminators (counterpart of
+``desr_tpu/models/networks.py``).
 
 Attribute names reproduce the JAX ``Net.init`` keys exactly: ``model.N.…`` for
-the ResNet generator, ``model.N.conv_block.M.…`` inside its blocks and the
-nested ``model.model.1.model.…`` of the U-Net. So a JAX param dict (or a
-reference ``.pth``) loads with ``load_state_dict(strict=True)``.
+the ResNet generator and the PatchGAN, ``model.N.conv_block.M.…`` inside the
+ResNet's blocks, the nested ``model.model.1.model.…`` of the U-Net and
+``net.N.…`` for the pixel discriminator. So a JAX param dict (or a reference
+``.pth``) loads with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -224,6 +226,43 @@ class UnetGenerator(nn.Module):
         return self.model(x)
 
 
+class NLayerDiscriminator(nn.Module):
+    """PatchGAN with ``n_layers`` stride-2 convs (networks.py:249-268), keys
+    under ``model.``; returns one logit per patch, (B, 1, h, w)."""
+
+    def __init__(self, input_nc, ndf, n_layers, norm_layer, use_bias):
+        super().__init__()
+        seq = [Conv2d(input_nc, ndf, 4, stride=2, padding=1, bias=True), LeakyReLU(0.2)]
+        nf_mult = 1
+        for n in range(1, n_layers):
+            nf_mult_prev, nf_mult = nf_mult, min(2 ** n, 8)
+            seq += [Conv2d(ndf * nf_mult_prev, ndf * nf_mult, 4, stride=2, padding=1,
+                           bias=use_bias),
+                    norm_layer(ndf * nf_mult), LeakyReLU(0.2)]
+        nf_mult_prev, nf_mult = nf_mult, min(2 ** n_layers, 8)
+        seq += [Conv2d(ndf * nf_mult_prev, ndf * nf_mult, 4, stride=1, padding=1, bias=use_bias),
+                norm_layer(ndf * nf_mult), LeakyReLU(0.2),
+                Conv2d(ndf * nf_mult, 1, 4, stride=1, padding=1, bias=True)]
+        self.model = nn.Sequential(*seq)
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class PixelDiscriminator(nn.Module):
+    """1x1-conv pixel GAN (networks.py:271-280), keys under ``net.``."""
+
+    def __init__(self, input_nc, ndf, norm_layer, use_bias):
+        super().__init__()
+        self.net = nn.Sequential(
+            Conv2d(input_nc, ndf, 1, bias=True), LeakyReLU(0.2),
+            Conv2d(ndf, ndf * 2, 1, bias=use_bias), norm_layer(ndf * 2), LeakyReLU(0.2),
+            Conv2d(ndf * 2, 1, 1, bias=use_bias))
+
+    def forward(self, x):
+        return self.net(x)
+
+
 @torch.no_grad()
 def init_weights(net, init_type="normal", init_gain=0.02, generator=None):
     """Conv/convT weights ~ N(0, init_gain), biases 0 (layers.py:170-196,
@@ -268,6 +307,24 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
                             use_dropout, use_sr, fused)
     else:
         raise NotImplementedError(f"Generator model name [{netG}] is not recognized")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return init_weights(net, init_type, init_gain, generator)
+
+
+def define_D(input_nc, ndf, netD, n_layers_D=3, norm="instance", init_type="normal",
+             init_gain=0.02, generator=None) -> nn.Module:
+    """Mirror of define_D (networks.py:283-294), built on the CPU: ``basic``
+    (a 3-layer PatchGAN), ``n_layers`` (``n_layers_D`` of them) or ``pixel``.
+    ``generator`` seeds the weight init (a fresh one seeded 0 when None)."""
+    norm_layer, use_bias = get_norm_layer(norm)
+    if netD in ("basic", "n_layers"):
+        net = NLayerDiscriminator(input_nc, ndf, 3 if netD == "basic" else n_layers_D,
+                                  norm_layer, use_bias)
+    elif netD == "pixel":
+        net = PixelDiscriminator(input_nc, ndf, norm_layer, use_bias)
+    else:
+        raise NotImplementedError(f"Discriminator model name [{netD}] is not recognized")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_weights(net, init_type, init_gain, generator)

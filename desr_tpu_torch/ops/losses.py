@@ -1,4 +1,4 @@
-"""The stage-3 losses, planar (counterpart of ``desr_tpu/ops/losses.py``).
+"""The losses of stages 1 and 3, planar (counterpart of ``desr_tpu/ops/losses.py``).
 
 Depth maps are (B, H, W), normal and image maps (B, C, H, W); each loss
 returns a scalar. The masked (task, holes, holes_l2) triplets run on the K3
@@ -11,6 +11,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def l1_loss(x, y):
@@ -19,6 +20,19 @@ def l1_loss(x, y):
 
 def mse_loss(x, y):
     return (x - y).square().mean()
+
+
+def gan_loss(prediction, target_is_real, mode="lsgan"):
+    """The GAN objective on raw discriminator logits (losses.py:111-130):
+    lsgan = MSE against 1/0 labels, vanilla = BCE with logits, wgangp = -+mean."""
+    if mode == "lsgan":
+        return (prediction - (1.0 if target_is_real else 0.0)).square().mean()
+    if mode == "vanilla":
+        target = torch.full_like(prediction, 1.0 if target_is_real else 0.0)
+        return F.binary_cross_entropy_with_logits(prediction, target)
+    if mode == "wgangp":
+        return -prediction.mean() if target_is_real else prediction.mean()
+    raise NotImplementedError(f"gan mode {mode} not implemented")
 
 
 def tv_loss_planar(img):

@@ -1,6 +1,7 @@
 """Training options for ``python -m desr_tpu_torch.train`` (counterpart of
-``desr_tpu/options/{base,train}_options.py`` with the main stage's own flags,
-main_model.py:67-75); ``--SR`` trains the x2 SR fine-tune.
+``desr_tpu/options/{base,train}_options.py`` with the main and I2D stages'
+own flags, main_model.py:67-75, i2d_model.py:39-47): ``--model_type main``
+(``--SR`` trains the x2 SR fine-tune) or ``I2D``.
 
 Every flag of the JAX parser is known here, under its JAX name. Those the
 port honours keep the JAX defaults (several are read by no part of the main
@@ -69,10 +70,10 @@ _VALUED = [
     ("I2D_base", int, 64), ("I2D_type", str, "unet_128"), ("scale_G", float, 1.0),
     ("notscannet", bool, True), ("load_size_h", int, 480), ("load_size_w", int, 640),
     ("crop_size_h", int, 384), ("crop_size_w", int, 512),
-    # main_model.py:71-74
+    # main_model.py:71-74, i2d_model.py:43-46
     ("lambda_A", float, 10.0), ("lambda_B", float, 10.0), ("lambda_identity", float, 0.5),
 ]
-# store_true flags the port accepts (no_dropout defaults True in the main stage)
+# store_true flags the port accepts (no_dropout defaults True in the main and I2D stages)
 _SWITCHES = [
     "use_spnorm", "serial_batches", "no_flip", "verbose", "i2d_train_features", "fused_iter",
     "pallas_losses", "no_batched_branches", "no_html", "save_by_iter", "continue_train",
@@ -114,9 +115,9 @@ def parse(argv=None, print_options=True):
                 if name in NOT_PORTED else
                 f"--{name} steers XLA in desr_tpu and has no counterpart in desr_tpu_torch")
         delattr(opt, f"_refused_{name}")
-    if opt.model_type != "main":
+    if opt.model_type not in ("main", "I2D"):
         parser.error(f"--model_type {opt.model_type} is not yet ported to desr_tpu_torch "
-                     "(it trains --model_type main)")
+                     "(it trains --model_type main and I2D)")
     if opt.compute_dtype not in COMPUTE_DTYPES:
         parser.error(f"--compute_dtype must be one of {COMPUTE_DTYPES}")
     if opt.lr_policy not in ("linear", "step", "cosine"):

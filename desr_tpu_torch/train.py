@@ -1,9 +1,14 @@
-"""Training CLI for the stage-3 main model and its x2 SR fine-tune on the
-GPU (counterpart of the repository's ``main.py`` for ``--model_type main``).
+"""Training CLI for the stage-1 I2D model, the stage-3 main model and its
+x2 SR fine-tune on the GPU (counterpart of the repository's ``main.py`` for
+``--model_type I2D`` and ``main``).
+
+    python -m desr_tpu_torch.train --model_type I2D --do_train --do_test \
+        --image_and_depth --use_scannet --batch_size 12 --lr 2e-4 [--use_D] \
+        --path_A .../depth --A_add_paths .../img --path_B ... --B_add_paths ...
 
     python -m desr_tpu_torch.train --model_type main --do_train --do_test \
         --continue_train --use_image_for_trans --use_masked --norm_loss \
-        --use_smooth_loss --no_aug --batch_size 6 --name <exp> \
+        --use_smooth_loss --batch_size 6 --name <exp> \
         --path_A .../depth --A_add_paths .../img --path_B ... --B_add_paths ... \
         --path_to_intr <scannet root> [--compute_dtype bfloat16] [--device cuda]
 
@@ -11,14 +16,17 @@ With ``--SR`` (e.g. ``--batch_size 1 --crop_size_h 512 --crop_size_w 640
 --lr 2e-5``) it trains ``MainSRModel`` on ``NaiveSRDataset``'s HR crops
 (models/__init__.py:18-20).
 
+``--model_type I2D`` trains ``I2DModel`` on ``I2DDataset``'s jittered,
+rotated 384x512 crops (models/__init__.py:12-15, data/__init__.py:34-37).
+
 The epoch loop of main.py:72-178: with ``--do_train`` each batch takes one
-step (forward, loss_G backward, Adam on ``Depth_f`` and ``Task``), the losses
+step (``optimize_parameters(total_iters, --update_ratio)``), the losses
 print every ``--print_freq`` images (and go to ``loss_log.txt``), ``latest``
 checkpoints are written every ``--save_latest_freq`` batches and at each
 ``--save_epoch_freq``-th epoch end, and the LR steps per epoch; with
 ``--do_test`` an eval pass averages the test losses. Not yet ported: wandb,
-the HTML gallery, the profiler, ``--steps_per_call`` and the other
-stages (options/train_options.py lists what stops the run).
+the HTML gallery, the profiler, ``--steps_per_call`` and stage 2
+(options/train_options.py lists what stops the run).
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ def main(argv=None):
 
     from desr_tpu_torch import resolve_device
     from desr_tpu_torch.data.loader import create_dataset, dataset_for_model
+    from desr_tpu_torch.models.i2d_model import I2DModel
     from desr_tpu_torch.models.main_model import MainModel
     from desr_tpu_torch.models.main_sr_model import MainSRModel
     from desr_tpu_torch.options import train_options
@@ -60,7 +69,7 @@ def main(argv=None):
     except RuntimeError as e:
         train_options.build_parser().error(str(e))
     dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
-    model_cls = MainSRModel if opt.SR else MainModel
+    model_cls = I2DModel if opt.model_type == "I2D" else MainSRModel if opt.SR else MainModel
     model = model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
     print(f"model [{model_cls.__name__}] was created")
     dataset_cls = dataset_for_model(opt)

@@ -544,19 +544,19 @@ def test_loader_workers_give_the_inline_batches(tmp_path):
 
 
 def test_unported_dataset_branches_raise(tmp_path):
-    """The rotate + crop branch still raises; the resize to --load_size_h/_w
+    """A resize other than INTER_AREA still raises (the rotate + crop branch
+    is ported: tests/test_torch_augment.py); the resize to --load_size_h/_w
     (INTER_AREA, here 256x320 -> 240x320, then padded to 512x640) gives the
     JAX dataset's items within 1e-6, test and --no_aug train branches."""
     from desr_tpu.data.main_dataset import MainDataset as JaxDataset
     from desr_tpu.options.train_options import TrainOptions
+    from desr_tpu_torch.data import transforms as TT
     from desr_tpu_torch.data.main_dataset import MainDataset
 
     _write_folder(str(tmp_path), n=1)
     flags = _data_flags(str(tmp_path))
-    opt = train_options.parse(["--model_type", "main", *[a for a in flags if a != "--no_aug"]],
-                              print_options=False)
-    with pytest.raises(NotImplementedError, match="rotate"):
-        MainDataset(opt)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        TT.resize(np.zeros((4, 6), np.float32), 8, 12, interpolation=2)
     argv = ["--model_type", "main", "--name", "d", "--checkpoints_dir", str(tmp_path / "ck"),
             *flags[:-4], "--load_size_h", "240", "--load_size_w", "320"]
     for stage in ("test", "train"):
@@ -603,7 +603,7 @@ def test_every_port_flag_default_equals_jax():
 @pytest.mark.parametrize("flag,msg", [
     (["--device_aug"], "not yet ported"), (["--use_wandb"], "not yet ported"),
     (["--steps_per_call", "4"], "not yet ported"), (["--fold_norm"], "no counterpart"),
-    (["--model_type", "I2D"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
+    (["--model_type", "translation"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
 ])
 def test_train_cli_refuses_what_it_does_not_run(flag, msg, capsys):
     from desr_tpu_torch import train
