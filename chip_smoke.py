@@ -26,8 +26,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     give the same bits. Then K1 (stats only, normalise+ReLU+stats) at this
     slice's shapes: Image_f's in the I2D step (B=24, 96x128x128, reflect),
     the main step's on its 384x512 crops (B=12, 96x128x128, reflect; G_A_d
-    B=6, 96x128x256, replicate) and the translators serving (B=8,
-    128x160x256, replicate).
+    B=6, 96x128x256, replicate), the translators serving (B=8,
+    128x160x256, replicate) and training in stage 2 (B=6, 64x64x256,
+    replicate).
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -91,13 +92,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     gradient through K1's backward and Image_f moves; a float32
     kernel-vs-plain step with the adversarial term (phase (e)'s bounds); then
     times and profiles the bf16 step with its D step.
+(k) stage-2 training: 12 synthetic 480x640 RGB-D frames a domain in
+    <tmp>/train{A,B}/{img,depth}; ``train.main --model_type translation``
+    with the README's stage-2 flags (batch 6, 256x256 crops of the 320x320
+    Lanczos resize, --max_distance 5100, bf16) for 2 iterations: K1 216 an
+    iteration (18 a G apply, 4 applies a G step, 3 G steps), finite losses,
+    the six latest_net_*.pth files, which ``predict --translate AtoB`` then
+    serves (K1 18 a batch); one model-level iteration moves all six nets;
+    a float32 G step and D step at batch 2 through K1 against the same steps
+    through its plain version (phase (e)'s bounds, the four Ds' gradients
+    too); the bf16 iteration, its G and D steps timed and profiled (with the
+    replication_pad kernels' share: K1's backward and the replicate convs);
+    one untimed iteration each with --netD Gu
+    (BatchNorm counts 3 G applies + real + fake), --use_spnorm and --inp_B
+    depth.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path), error, time, the plain version's
     and the library call's times, its bound on this card and the share of it
     reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
     the main serving shape, the translator's, the SR step's two HR shapes,
-    the I2D step's, the augmented main step's two and the translators'
-    serving shape (``launches_at_shape`` says which path runs each); K3's
+    the I2D step's, the augmented main step's two, the translators' serving
+    shape and stage 2's (with the time of K1's backward there,
+    ``backward_ms`` by CUDA events and ``backward_device_ms`` by the
+    profiler, and cuDNN's conv backward alone, ``library_backward_ms`` and
+    ``library_backward_device_ms``)
+    (``launches_at_shape`` says which path runs each); K3's
     sums and its backward each at the main step's two shapes and the SR
     step's HR shape, with the wrapper's host time per call (host_ms) and the kernels
     a call launches; the sums rows also time the earlier two-launch design
@@ -149,6 +168,9 @@ AUG_LOSS_SHAPE = (6, 384, 512)        # K3's input, main step on 384x512 crops
 I2D_K1_PER_STEP = 12      # Image_f's 6 ResnetBlocks x 2 convs, on the 2B batch
 I2D_K1_PER_BATCH = 12     # the same, serving
 TRANSLATE_K1_PER_BATCH = 18  # 9 ResnetBlockT x 2 convs
+# stage 2 training: batch 6 of 256x256 crops, G_A's and G_B's ResnetBlockT
+STAGE2_SHAPE = (6, 64, 64, 256)
+STAGE2_K1_PER_ITER = 216  # 18 a G apply x 4 live applies a G step x 3 G steps
 
 
 class SmokeFailure(RuntimeError):
@@ -331,13 +353,13 @@ def phase_kernels():
 
     worst = {"K1": 0.0, "K2": 0.0, "K1 translator": 0.0, "K1 SR LR": 0.0, "K1 SR HR": 0.0,
              "K1 SR Depth_f": 0.0, "K1 SR translator": 0.0, "K1 I2D": 0.0, "K1 aug": 0.0,
-             "K1 aug translator": 0.0, "K1 translate": 0.0}
+             "K1 aug translator": 0.0, "K1 translate": 0.0, "K1 stage2": 0.0}
     # the serving path's variants and borders; the translator's ResnetBlockT
     # (G_A_d on the train path) runs stats, then norm+relu+stats, replicate;
     # the SR stage's ResnetBlocks at LR and HR, and its translators at HR
     # (G_A_d replicate, G_B_d of --use_rec_as_real_input reflect); then
     # stage 1's Image_f in its train step, the main step's nets on 384x512
-    # crops, and the stage-2 translators serving
+    # crops, the stage-2 translators serving and training
     for tag, shape, modes, variants in (
             ("", SERVE_SHAPE, ("reflect", "replicate", "zeros"), K1_VARIANTS),
             (" translator", TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
@@ -348,7 +370,8 @@ def phase_kernels():
             (" I2D", I2D_TRAIN_SHAPE, ("reflect",), K1_VARIANTS[:2]),
             (" aug", AUG_SHAPE, ("reflect",), K1_VARIANTS[:2]),
             (" aug translator", AUG_TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
-            (" translate", TRANSLATE_SHAPE, ("replicate",), K1_VARIANTS[:2])):
+            (" translate", TRANSLATE_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" stage2", STAGE2_SHAPE, ("replicate",), K1_VARIANTS[:2])):
         n_pix = shape[1] * shape[2]
         for dtype in (torch.float32, torch.bfloat16):
             x, w, scale, shift = _inputs(dtype, shape=shape)
@@ -734,7 +757,8 @@ def _profile(fn, iters, tag="c", unit="batch"):
         print(f"[{tag}]   {t / iters:8.3f}  {name[:110]}")
     out = {f"profile_device_ms_per_{unit}": device_ms / iters,
            "profile_busy_share": device_ms / wall_ms}
-    for short, key in (("conv3x3", "conv3x3"), ("masked_loss", "masked_loss")):
+    for short, key in (("conv3x3", "conv3x3"), ("masked_loss", "masked_loss"),
+                       ("replication_pad", "replication_pad")):
         out[f"profile_{short}_ms_per_{unit}"] = sum(
             t for n, t in by_kernel.items() if key in n) / iters
     return out
@@ -922,17 +946,20 @@ def phase_training(tmp):
     return {"train_main": launches, "train_main_aug": aug_launches}
 
 
-def _train_parity(model_cls, opt32, small, tag, what):
+def _train_parity(model_cls, opt32, small, tag, what, run=None):
     """Float32, TF32 off, on the reduced batch ``small``: one step of
     ``model_cls(opt32)`` through the kernels against the same step with both
-    kernels swapped for their plain versions.
+    kernels swapped for their plain versions. ``run(model)`` takes the step
+    and returns (loss terms, the nets whose gradients it left); by default
+    ``compute_grads`` and the trainable nets.
 
     Loss terms within 1e-4 relative. The step's gradients are ill-conditioned
     at a random init (on the CPU a 1e-7 relative perturbation of K1's outputs
     moves some weight gradients by 2e-3 of their largest entry), so the
     yardstick is the plain route's own sensitivity: the plain step again
-    with K1's outputs and moments perturbed by 1e-6 relative noise, the scale
-    of the kernels' f32 summation-order differences. Per weight tensor, the
+    with K1's outputs perturbed by 1e-6 relative noise and its moments by
+    1e-6 of the sums of their terms' magnitudes (sum |acc|, sum acc^2), the
+    scale of the kernels' f32 summation-order differences. Per weight tensor, the
     kernel route's gap to the plain route (relative L2) must be at most
     max(1e-3, 3x that perturbation's gap). Conv biases that feed a norm have
     an exact gradient of 0 (the norm subtracts them again): each bias's gap
@@ -947,11 +974,14 @@ def _train_parity(model_cls, opt32, small, tag, what):
                       generator=torch.Generator().manual_seed(8))
     model.set_input(small)
 
-    def step():
+    def default_run(model):
         if getattr(model, "hole_generator", None) is not None:
             model.hole_generator.manual_seed(11)
-        m = model.compute_grads()
-        return m, {f"{n}.{k}": p.grad.clone() for n in model.trainable_nets
+        return model.compute_grads(), model.trainable_nets
+
+    def step():
+        m, nets = (run or default_run)(model)
+        return m, {f"{n}.{k}": p.grad.clone() for n in nets
                    for k, p in model.nets[n].named_parameters()}
 
     def plain_conv(x, w, sc, sh, pad_mode, relu, stats):
@@ -959,12 +989,18 @@ def _train_parity(model_cls, opt32, small, tag, what):
 
     noise = torch.Generator(device="cuda").manual_seed(12)
 
+    def jitter(t):
+        return 1e-6 * torch.randn(t.shape, generator=noise, device="cuda")
+
     def noisy_conv(*args):
         res = plain_conv(*args)
-        res = res if isinstance(res, tuple) else (res,)
-        res = tuple(t * (1 + 1e-6 * torch.randn(t.shape, generator=noise, device="cuda"))
-                    for t in res)
-        return res if len(res) > 1 else res[0]
+        if not isinstance(res, tuple):
+            return res * (1 + jitter(res))
+        # the moments' summation-order error scales with the sum of the
+        # terms' magnitudes, sum |acc| and sum acc^2, not with the sum itself
+        out, s, s2 = res
+        mag = out.float().abs().sum(dim=(1, 2))
+        return out * (1 + jitter(out)), s + mag * jitter(s), s2 * (1 + jitter(s2))
 
     m_k, g_k = step()
     with mock.patch.object(K3, "_forward", K3.masked_loss_sums_plain), \
@@ -978,7 +1014,7 @@ def _train_parity(model_cls, opt32, small, tag, what):
           f"[{tag}] float32 step: a loss term off by {worst_loss:.3g} relative (bound 1e-4)")
     net_scale = {n: max(float(g.norm()) for k, g in g_p.items()
                         if k.startswith(n + ".") and not k.endswith("bias"))
-                 for n in model.trainable_nets}
+                 for n in {k.split(".")[0] for k in g_p}}
     gaps, bad = {}, []
     for k in g_p:
         scale = net_scale[k.split(".")[0]] if k.endswith("bias") else float(g_p[k].norm())
@@ -1515,6 +1551,166 @@ def phase_i2d_training(tmp):
     return {"train_i2d": launches}
 
 
+# ------------------------------------------------------------------ (k)
+
+def _translation_argv(tmp, name, extra=()):
+    """The README's stage-2 flags (README.md:97-99), epochs cut."""
+    return ["--model_type", "translation", "--name", name, "--checkpoints_dir", tmp,
+            "--dataroot", tmp, "--do_train", "--batch_size", "6", "--crop_size_h", "256",
+            "--crop_size_w", "256", "--max_distance", "5100", "--compute_dtype", "bfloat16",
+            "--n_epochs", "1", "--n_epochs_decay", "0", "--print_freq", "6",
+            "--save_epoch_freq", "1", "--num_threads", "0", *extra]
+
+
+def _translation_run(model):
+    """One G step's gradients, then the D step's on its feed (the grads of
+    both are left on the nets): the terms of both, and the nets."""
+    m, feed = model.compute_grads()
+    m.update(model.d_grads(feed))
+    return m, model.trainable_nets + model.disc_names
+
+
+def phase_translation_training(tmp):
+    """Stage-2 training at the README geometry: 12 synthetic 480x640 frames a
+    domain through TranslationDataset (Lanczos to 320x320, 256x256 crops),
+    batch 6, --max_distance 5100, bf16; the hardcoded translators (32+32
+    channels, 9 ResnetBlockT at 256) and the four basic Ds at ndf 64."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import train
+    from desr_tpu_torch.data.loader import create_dataset
+    from desr_tpu_torch.data.translation_dataset import TranslationDataset
+    from desr_tpu_torch.models.translation_model import TranslationModel
+    from desr_tpu_torch.options import train_options
+
+    report = {}
+    for dom, seed in (("A", 100), ("B", 110)):
+        _write_frames(os.path.join(tmp, f"train{dom}"), 12, seed=seed)
+    argv = _translation_argv(tmp, "tr2")
+
+    # the CLI, in-process: 12 pairs at batch 6 = 2 iterations
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = {"K1": 2 * STAGE2_K1_PER_ITER, "K2": 0, "K3": 0, "K3 backward": 0}
+    check(launches == want, f"train.main translation: launches {launches}; want {want}")
+    check(all(np.isfinite(list(losses.values()))), f"train.main translation losses: {losses}")
+    names = ("G_A", "G_B", "D_A_depth", "D_B_depth", "D_A_normal", "D_B_normal")
+    files = [os.path.join(tmp, "tr2", f"latest_net_{n}.pth") for n in names]
+    check(all(os.path.exists(f) for f in files), "train.main translation: a .pth file is missing")
+    print(f"[k] train.main --model_type translation: 2 iterations of batch 6 in {wall:.1f} s host "
+          f"wall (model build, PNG decode, Lanczos, checkpoint writes included); launches "
+          f"{launches}; the six latest_net_*.pth written; losses "
+          + ", ".join(f"{k} {v:.4g}" for k, v in losses.items()))
+
+    # serve the trained G_A from those files
+    paths = {"train_translation": launches}
+    out = os.path.join(tmp, "out")
+    swall, slaunch = _serve_cli(tmp, "tr2", "trainA", out,
+                                ["--translate", "AtoB", "--input_depth",
+                                 os.path.join(tmp, "trainA", "depth")], batch_size=6)
+    check(slaunch == {"K1": 2 * TRANSLATE_K1_PER_BATCH, "K2": 0, "K3": 0, "K3 backward": 0},
+          f"predict --translate from the trained G_A: launches {slaunch}")
+    check(int(_read_outputs(out, 12).max()) > 0, "predict from the trained G_A: all zeros")
+    paths["serve_translate_trained"] = slaunch
+    print(f"[k] predict --translate AtoB from the trained latest_net_G_A.pth: 12 frames in two "
+          f"batches of 6 in {swall:.2f} s host wall; launches {slaunch}")
+
+    # model level: K1 launches per iteration, finite terms, every net moved
+    opt = train_options.parse(argv, print_options=False)
+    model = TranslationModel(opt, device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                             generator=torch.Generator().manual_seed(9))
+    batch = next(iter(create_dataset(opt, TranslationDataset)))
+    check(batch["A_depth"].shape == (6, 256, 256, 1) and batch["B_img"].shape == (6, 256, 256, 3),
+          f"TranslationDataset batch: A_depth {batch['A_depth'].shape}")
+    model.set_input(batch)
+    before = _state(model, model.model_names)
+    _reset_counts()
+    model.optimize_parameters()
+    c = _counts()
+    check(c["K1"] == STAGE2_K1_PER_ITER and c["K3"] == 0,
+          f"stage-2 iteration: launches {c}; want K1 {STAGE2_K1_PER_ITER}")
+    check(all(bool(torch.isfinite(v).all()) for v in model.metrics.values()),
+          f"stage-2 iteration: terms {model.metrics}")
+    after = _state(model, model.model_names)
+    moved = [n for n in model.model_names
+             if any(not torch.equal(after[n][k], before[n][k]) for k in before[n])]
+    check(moved == list(model.model_names), f"stage-2 iteration: only {moved} moved")
+    print(f"[k] one iteration (3 G steps, 1 D step): K1 {c['K1']} launches "
+          f"({c['K1'] // 12} a G apply, 4 applies a G step); all six nets moved; terms "
+          + ", ".join(f"{k} {float(v):.4g}" for k, v in model.metrics.items()))
+
+    # float32, kernels against their plain versions: a G step and a D step at batch 2
+    opt32 = SimpleNamespace(**{**vars(opt), "batch_size": 2})
+    small = {k: v[:2] for k, v in batch.items() if not k.endswith("name")}
+    report.update(_train_parity(TranslationModel, opt32, small, "k",
+                                "stage 2 batch 2 at 256x256, a G step and a D step",
+                                run=_translation_run))
+
+    # time: bf16 iteration at batch 6, and its G and D steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    report["stage2_iter_ms"] = ms
+    report["stage2_pairs_per_s"] = 6000.0 / ms
+    report["stage2_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    feed = {}
+
+    def g_step():
+        feed.update(model.compute_grads()[1])
+        model.optimizer.step()
+
+    report["stage2_g_step_ms"] = cuda_ms(g_step, iters=5, warmup=1)
+    report["stage2_d_step_ms"] = cuda_ms(lambda: (model.d_grads(feed), model.optimizer_D.step()),
+                                         iters=5, warmup=1)
+    print(f"[k] stage-2 iteration bf16, batch 6 at 256x256: {ms:.2f} ms per iteration, "
+          f"{report['stage2_pairs_per_s']:.2f} pairs/s (CUDA events, 10 iterations after 3); "
+          f"a G step {report['stage2_g_step_ms']:.2f} ms, a D step "
+          f"{report['stage2_d_step_ms']:.2f} ms; peak memory "
+          f"{report['stage2_peak_mem_gib']:.2f} GiB")
+    prof = _profile(model.optimize_parameters, iters=3, tag="k", unit="iteration")
+    report.update(prof)
+    if prof.get("profile_device_ms_per_iteration"):
+        report["stage2_replication_pad_share"] = (
+            prof["profile_replication_pad_ms_per_iteration"]
+            / prof["profile_device_ms_per_iteration"])
+        print(f"[k] replication_pad kernels, forward and backward (K1's backward pads its "
+              f"recomputed input and takes the pad's adjoint; the encoders' and head's "
+              f"replicate convs copy theirs): {prof['profile_replication_pad_ms_per_iteration']:.2f}"
+              f" ms per iteration, {100 * report['stage2_replication_pad_share']:.1f}% of device "
+              "time")
+    del model
+
+    # one untimed iteration each: BatchNorm Ds, spectral-norm Ds, a depth-only G_B
+    for extra, what in ((["--netD", "Gu"], "--netD Gu"), (["--use_spnorm"], "--use_spnorm"),
+                        (["--inp_B", "depth"], "--inp_B depth")):
+        opt_x = train_options.parse(argv + extra, print_options=False)
+        m = TranslationModel(opt_x, device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                             generator=torch.Generator().manual_seed(10))
+        m.set_input(batch)
+        _reset_counts()
+        m.optimize_parameters()
+        c = _counts()
+        check(c["K1"] == STAGE2_K1_PER_ITER and all(
+            bool(torch.isfinite(v).all()) for v in m.metrics.values()),
+              f"{what} iteration: launches {c}, terms {m.metrics}")
+        note = ""
+        if "--netD" in extra:
+            tracked = {int(v) for n in m.disc_names for k, v in m.nets[n].state_dict().items()
+                       if k.endswith("num_batches_tracked")}
+            check(tracked == {opt_x.num_iter_gen + 2},
+                  f"--netD Gu: BatchNorm counted {tracked} batches, want 3 G applies + 2")
+            note = f"; each BatchNorm counted {tracked.pop()} batches (3 G steps, real, fake)"
+        print(f"[k] {what}: one iteration, K1 {c['K1']}, terms finite{note}")
+        del m
+    print("[k] " + json.dumps(report))
+    return paths
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -1567,6 +1763,9 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
              f"augmented main step {K1_TRANS_PER_STEP} (G_A_d)"),
             ("conv3x3_fused", "K1 translate", TRANSLATE_SHAPE, "replicate", k1,
              f"--translate serving {TRANSLATE_K1_PER_BATCH} a batch (G_A or G_B)"),
+            ("conv3x3_fused", "K1 stage2", STAGE2_SHAPE, "replicate", k1,
+             f"stage-2 iteration {STAGE2_K1_PER_ITER} (G_A, G_B: 18 an apply, 4 applies a "
+             "G step, 3 G steps; each with a backward)"),
             ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309",
              "main serving --pallas_conv route 24 a batch")):
         b, h, w, c = shape
@@ -1599,6 +1798,13 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
         }
         # the kernel's counter is one for all shapes: "launches" are all of K1's
         row["launches_at_shape"] = at_shape
+        if entry == "K1 stage2":
+            row.update(_k1_backward_ms(x, wt, scale, shift, xp, wb, mode))
+            print(f"[d] K1 composition's backward at {row['shape']}: {row['backward_ms']:.4g} "
+                  f"ms a call by CUDA events, {row['backward_device_ms']} ms of device time "
+                  f"(cuDNN's conv backward alone {row['library_backward_ms']:.4g} / "
+                  f"{row['library_backward_device_ms']} ms); the forward "
+                  f"{row['event_ms']:.4g} / {row['device_ms']} ms")
         rows.append(row)
         del x, wt, scale, shift, xp, wb
     # K3 at the main train step's shape and at the SR step's HR one, f32
@@ -1679,6 +1885,41 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     return rows
 
 
+def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode):
+    """Times of the backward of one ``conv3x3_fused`` launch (norm+relu+stats)
+    on these inputs, whose graph is kept: the stats' cotangents folded into
+    the output's, ``aten.convolution_backward`` on the recomputed padded
+    input, the pad's and the prologue's adjoints; and of cuDNN's backward
+    of ``F.conv2d`` on the padded input alone. CUDA events over back-to-back
+    calls (host time included) and the profiler's device time a call (all
+    its kernels, L2 not flushed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    ins = [t.detach().requires_grad_(True) for t in (x, wt, scale, shift)]
+    outs = K.conv3x3_fused(*ins, mode, True, True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gouts = [torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype) for t in outs]
+    xpl, wbl = xp.detach().requires_grad_(True), wb.detach().requires_grad_(True)
+    y = F.conv2d(xpl, wbl)
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+
+    def bwd():
+        return torch.autograd.grad(outs, ins, gouts, retain_graph=True)
+
+    def lib():
+        return torch.autograd.grad(y, (xpl, wbl), gy, retain_graph=True)
+
+    return {"backward_ms": cuda_ms(bwd, iters=10),
+            "backward_device_ms": _profile(bwd, iters=10, tag="d", unit="call")[
+                "profile_device_ms_per_call"],
+            "library_backward_ms": cuda_ms(lib, iters=10),
+            "library_backward_device_ms": _profile(lib, iters=10, tag="d", unit="call")[
+                "profile_device_ms_per_call"]}
+
+
 def _device_stats(fn, key, repeats=1):
     """``device_ms`` over ``repeats`` rounds: the median of the rounds'
     medians, the least and most call, each round's median and traced count."""
@@ -1717,7 +1958,8 @@ def main():
     k3_err, k3_bwd_err = phase_masked_loss()
     paths = {}  # each path's launches by kernel, from its phase's run of the entry point
     for phase in (phase_serving, phase_training, phase_sr_serving, phase_sr_training,
-                  phase_i2d_serving, phase_translate_serving, phase_i2d_training):
+                  phase_i2d_serving, phase_translate_serving, phase_i2d_training,
+                  phase_translation_training):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
             paths.update(phase(tmp))
         torch.cuda.empty_cache()

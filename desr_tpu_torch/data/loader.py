@@ -29,13 +29,17 @@ def collate(samples):
 
 def dataset_for_model(opt):
     """The dataset class of ``--model_type`` (data/__init__.py:34-42):
-    I2DDataset for I2D; for main, NaiveSRDataset under --SR, else MainDataset."""
+    I2DDataset for I2D, TranslationDataset for translation; for main,
+    NaiveSRDataset under --SR, else MainDataset."""
     from desr_tpu_torch.data.i2d_dataset import I2DDataset
     from desr_tpu_torch.data.main_dataset import MainDataset
     from desr_tpu_torch.data.sr_dataset import NaiveSRDataset
+    from desr_tpu_torch.data.translation_dataset import TranslationDataset
 
     if opt.model_type == "I2D":
         return I2DDataset
+    if opt.model_type == "translation":
+        return TranslationDataset
     return NaiveSRDataset if getattr(opt, "SR", False) else MainDataset
 
 

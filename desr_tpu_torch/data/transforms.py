@@ -2,8 +2,8 @@
 
 The JAX package calls cv2 with albumentations 0.4.6 semantics; the card's
 machine has no cv2, so the port writes the branches it runs in numpy:
-Resize with interpolation 3 (cv2 INTER_AREA, through the matrices of
-``ops/resize.py``), PadIfNeeded (centred, border REFLECT_101, which is
+Resize with interpolation 3 (cv2 INTER_AREA) and 4 (cv2 INTER_LANCZOS4), both
+through the matrices of ``ops/resize.py``, PadIfNeeded (centred, border REFLECT_101, which is
 numpy's "reflect"), Rotate (cv2's bilinear ``warpAffine``, border
 REFLECT_101), RandomCrop, the horizontal flip and ColorJitter, whose hue step
 is cv2's uint8 RGB<->HSV round trip written as arithmetic. The other
@@ -14,21 +14,23 @@ from __future__ import annotations
 
 import numpy as np
 
-from desr_tpu_torch.ops.resize import resize_cv2_inter_area_np
+from desr_tpu_torch.ops.resize import resize_cv2_inter_area_np, resize_cv2_lanczos4_np
 
 INTER_AREA = 3
+INTER_LANCZOS4 = 4
+_RESIZES = {INTER_AREA: resize_cv2_inter_area_np, INTER_LANCZOS4: resize_cv2_lanczos4_np}
 
 
 def resize(img, height, width, interpolation=INTER_AREA):
     """cv2.resize of a float HW or HWC array to (height, width)
-    (transforms.py:44-47); only INTER_AREA is ported."""
+    (transforms.py:44-47); INTER_AREA and INTER_LANCZOS4 are ported."""
     if img.shape[0] == height and img.shape[1] == width:
         return img
-    if interpolation != INTER_AREA:
+    if interpolation not in _RESIZES:
         raise NotImplementedError(
             f"resizing with cv2 interpolation {interpolation} (transforms.py:44-47): "
-            "not yet ported; INTER_AREA (3) is")
-    return resize_cv2_inter_area_np(img, (height, width))
+            "not yet ported; INTER_AREA (3) and INTER_LANCZOS4 (4) are")
+    return _RESIZES[interpolation](img, (height, width))
 
 
 def pad_if_needed(img, min_h, min_w):

@@ -39,15 +39,16 @@ class BaseModel(nn.Module):
         self.optimizers = []
         self.lr = getattr(opt, "lr", 2e-4)
 
-    def split_trainable(self, betas=(0.9, 0.999)):
+    def split_trainable(self, betas=(0.9, 0.999), weight_decay=0.0):
         """Freeze every net, then give ``requires_grad`` back to the trainable
         ones and build the generator's Adam over them, torch's default betas
-        unless told otherwise (main_model.py:386-388, i2d_model.py:178-179)."""
+        and no decay unless told otherwise (main_model.py:386-388,
+        i2d_model.py:178-179, translation_model.py:372-374)."""
         self.requires_grad_(False)
         self.optimizers = []
-        self.optimizer = self.add_optimizer(self.trainable_nets, betas)
+        self.optimizer = self.add_optimizer(self.trainable_nets, betas, weight_decay)
 
-    def add_optimizer(self, net_names, betas):
+    def add_optimizer(self, net_names, betas, weight_decay=0.0):
         """An Adam over the nets ``net_names`` (a discriminator's, beside the
         generator's), at the model's LR; ``update_learning_rate`` steps it too.
         Gives the nets ``requires_grad``."""
@@ -55,7 +56,7 @@ class BaseModel(nn.Module):
         for name in net_names:
             self.nets[name].requires_grad_(True)
             params += list(self.nets[name].parameters())
-        optimizer = optim.adam(params, self.lr, betas=betas)
+        optimizer = optim.adam(params, self.lr, betas=betas, weight_decay=weight_decay)
         self.optimizers.append(optimizer)
         return optimizer
 

@@ -7,7 +7,10 @@ the dtype of what it is given. Conv weights are OIHW and transposed-conv
 weights IOHW, so ``state_dict`` keys and shapes equal the JAX param dicts.
 
 Plain ``torch.nn`` modules are used where they already have the semantics
-(ReLU, LeakyReLU, Tanh, the pads, nearest Upsample, Dropout). The JAX package's
+(ReLU, LeakyReLU, Tanh, the pads, Dropout, and Upsample: nearest, and bilinear
+with align_corners=False, which is the JAX layer's ``resize_bilinear``). The
+translation discriminators' BatchNorm and spectral-norm conv follow the JAX
+layers rather than ``torch.nn``'s (see each). The JAX package's
 XLA-steering variants of the same functions (ring_pad, tap_conv, split_conv,
 fused_pad, phase_convt, row_tap, fold_norm) are not ported.
 """
@@ -142,13 +145,99 @@ def norm_vectors(norm, s, s2, n, bias=None):
     return scale, shift
 
 
+class BatchNorm2d(nn.Module):
+    """affine BatchNorm with running statistics (layers.py:1251-1308).
+
+    In training mode it normalises with the batch's mean and biased variance
+    and moves the running statistics by torch's momentum 0.1, the running
+    variance from the unbiased batch variance; in eval mode it uses the
+    running statistics. The statistics and the affine run in f32 and the
+    result is rounded to the input's dtype. Keys ``weight``, ``bias``,
+    ``running_mean``, ``running_var`` and ``num_batches_tracked`` (int64).
+    """
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__()
+        self.c, self.eps, self.momentum = num_features, eps, momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+
+    def forward(self, x):
+        x32 = x.float()
+        if self.training:
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            with torch.no_grad():
+                n = x32.numel() // self.c
+                unbiased = var * (n / (n - 1)) if n > 1 else var
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        out = (x32 - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+        return (out * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+
+class SpectralNormConv2d(nn.Module):
+    """Conv2d (zeros padding) with its weight divided by its largest singular
+    value, as the JAX layer computes it (layers.py:1419-1472), which is not
+    ``torch.nn.utils.spectral_norm``: each forward runs ``n_iters`` = 3 power
+    iterations from the STORED ``weight_u`` under no-grad and never writes u
+    back, then sigma = u . (W v) with the gradient through W alone. Keys
+    ``weight_orig``, ``bias``, ``weight_u`` and ``weight_v``; ``reset_uv``
+    converges u and v for a fresh weight, as the JAX init does.
+    """
+
+    n_iters = 3
+    n_init_iters = 30
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, bias=True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight_orig = nn.Parameter(torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.register_buffer("weight_u", torch.zeros(out_ch))
+        self.register_buffer("weight_v", torch.zeros(in_ch * kernel_size * kernel_size))
+
+    @staticmethod
+    def _power(wm, u, iters):
+        for _ in range(iters):
+            v = F.normalize(wm.t() @ u, dim=0, eps=1e-12)
+            u = F.normalize(wm @ v, dim=0, eps=1e-12)
+        return u, v
+
+    @torch.no_grad()
+    def reset_uv(self, generator=None):
+        """u from N(0, 1), normalised, then ``n_init_iters`` power iterations."""
+        wm = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
+        u = torch.randn(wm.shape[0], generator=generator).to(wm.device)
+        u, v = self._power(wm, u / u.norm(), self.n_init_iters)
+        self.weight_u.copy_(u)
+        self.weight_v.copy_(v)
+
+    def forward(self, x):
+        w = self.weight_orig
+        wm = w.reshape(w.shape[0], -1)
+        with torch.no_grad():
+            u, v = self._power(wm, self.weight_u, self.n_iters)
+        w_sn = w / (u @ (wm @ v))
+        return F.conv2d(x, w_sn.to(x.dtype), _cast(self.bias, x), self.stride, self.padding)
+
+
 def get_norm_layer(norm_type, lineage="pix2pix"):
     """(factory(ch) -> module, use_bias for convs) (layers.py:1393).
 
     Convs carry a bias only with instance norm (or none). GroupNorm has 8
     groups, affine in the translation lineage and not in the pix2pix one.
-    BatchNorm comes with a later slice.
+    BatchNorm is the JAX layer's; only the translation discriminators build
+    it (zoo A's ``define_G`` and ``define_D`` refuse it).
     """
+    if norm_type == "batch":
+        return BatchNorm2d, False
     if norm_type == "instance":
         return InstanceNorm2d, True
     if norm_type == "none":
@@ -156,6 +245,4 @@ def get_norm_layer(norm_type, lineage="pix2pix"):
     if norm_type == "group":
         affine = lineage == "translation"
         return (lambda ch: GroupNorm(8, ch, affine=affine)), False
-    if norm_type == "batch":
-        raise NotImplementedError(f"norm {norm_type!r}: not yet ported")
     raise NotImplementedError(f"norm layer {norm_type}")

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from desr_tpu_torch.models.layers import (
+    BatchNorm2d,
     Conv2d,
     ConvTranspose2d,
     Dropout,
@@ -24,6 +25,7 @@ from desr_tpu_torch.models.layers import (
     ReflectionPad2d,
     ReLU,
     ReplicationPad2d,
+    SpectralNormConv2d,
     Tanh,
     Upsample,
     get_norm_layer,
@@ -228,21 +230,24 @@ class UnetGenerator(nn.Module):
 
 class NLayerDiscriminator(nn.Module):
     """PatchGAN with ``n_layers`` stride-2 convs (networks.py:249-268), keys
-    under ``model.``; returns one logit per patch, (B, 1, h, w)."""
+    under ``model.``; returns one logit per patch, (B, 1, h, w). The
+    translation lineage builds it with its own norm and bias rule and, under
+    --use_spnorm, ``conv_cls`` = SpectralNormConv2d (translation_networks.py:325)."""
 
-    def __init__(self, input_nc, ndf, n_layers, norm_layer, use_bias):
+    def __init__(self, input_nc, ndf, n_layers, norm_layer, use_bias, conv_cls=Conv2d):
         super().__init__()
-        seq = [Conv2d(input_nc, ndf, 4, stride=2, padding=1, bias=True), LeakyReLU(0.2)]
+        seq = [conv_cls(input_nc, ndf, 4, stride=2, padding=1, bias=True), LeakyReLU(0.2)]
         nf_mult = 1
         for n in range(1, n_layers):
             nf_mult_prev, nf_mult = nf_mult, min(2 ** n, 8)
-            seq += [Conv2d(ndf * nf_mult_prev, ndf * nf_mult, 4, stride=2, padding=1,
-                           bias=use_bias),
+            seq += [conv_cls(ndf * nf_mult_prev, ndf * nf_mult, 4, stride=2, padding=1,
+                             bias=use_bias),
                     norm_layer(ndf * nf_mult), LeakyReLU(0.2)]
         nf_mult_prev, nf_mult = nf_mult, min(2 ** n_layers, 8)
-        seq += [Conv2d(ndf * nf_mult_prev, ndf * nf_mult, 4, stride=1, padding=1, bias=use_bias),
+        seq += [conv_cls(ndf * nf_mult_prev, ndf * nf_mult, 4, stride=1, padding=1,
+                         bias=use_bias),
                 norm_layer(ndf * nf_mult), LeakyReLU(0.2),
-                Conv2d(ndf * nf_mult, 1, 4, stride=1, padding=1, bias=True)]
+                conv_cls(ndf * nf_mult, 1, 4, stride=1, padding=1, bias=True)]
         self.model = nn.Sequential(*seq)
 
     def forward(self, x):
@@ -266,7 +271,9 @@ class PixelDiscriminator(nn.Module):
 @torch.no_grad()
 def init_weights(net, init_type="normal", init_gain=0.02, generator=None):
     """Conv/convT weights ~ N(0, init_gain), biases 0 (layers.py:170-196,
-    "normal"); affine GroupNorm weights ~ N(1, 0.02), biases 0 (:1213-1220).
+    "normal"); affine GroupNorm and BatchNorm weights ~ N(1, 0.02), biases 0
+    (:1213-1220, :1272-1276); a spectral-norm conv's u and v converged for its
+    weight (:1439-1461).
 
     The translation lineage's "normal" init (``gain_from_nonlinearity``) is
     the same with init_gain 0.02.
@@ -278,10 +285,22 @@ def init_weights(net, init_type="normal", init_gain=0.02, generator=None):
             m.weight.normal_(0.0, init_gain, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, GroupNorm) and m.affine:
+        elif isinstance(m, SpectralNormConv2d):
+            m.weight_orig.normal_(0.0, init_gain, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+            m.reset_uv(generator)
+        elif isinstance(m, BatchNorm2d) or (isinstance(m, GroupNorm) and m.affine):
             m.weight.normal_(1.0, 0.02, generator=generator)
             m.bias.zero_()
     return net
+
+
+def _refuse_batch(norm):
+    # the main and I2D models hold their nets in eval mode, where a BatchNorm
+    # would normalise with its running statistics instead of the batch's
+    if norm == "batch":
+        raise NotImplementedError("--norm batch in the main and I2D nets: not yet ported")
 
 
 def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
@@ -296,6 +315,7 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
     """
     if use_old and norm == "group":
         raise NotImplementedError("use_old GroupNorm(1): not yet ported")
+    _refuse_batch(norm)
     norm_layer, use_bias = get_norm_layer(norm)
     if netG in ("resnet_9blocks", "resnet_6blocks"):
         n_blocks = 9 if netG == "resnet_9blocks" else 6
@@ -317,6 +337,7 @@ def define_D(input_nc, ndf, netD, n_layers_D=3, norm="instance", init_type="norm
     """Mirror of define_D (networks.py:283-294), built on the CPU: ``basic``
     (a 3-layer PatchGAN), ``n_layers`` (``n_layers_D`` of them) or ``pixel``.
     ``generator`` seeds the weight init (a fresh one seeded 0 when None)."""
+    _refuse_batch(norm)
     norm_layer, use_bias = get_norm_layer(norm)
     if netD in ("basic", "n_layers"):
         net = NLayerDiscriminator(input_nc, ndf, 3 if netD == "basic" else n_layers_D,

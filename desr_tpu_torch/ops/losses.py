@@ -1,8 +1,9 @@
-"""The losses of stages 1 and 3, planar (counterpart of ``desr_tpu/ops/losses.py``).
+"""The losses of stages 1, 2 and 3, planar (counterpart of ``desr_tpu/ops/losses.py``).
 
 Depth maps are (B, H, W), normal and image maps (B, C, H, W); each loss
-returns a scalar. The masked (task, holes, holes_l2) triplets run on the K3
-kernel (``ops/masked_loss.py``).
+returns a scalar. The masked (task, holes, holes_l2) triplets of stage 3 run
+on the K3 kernel (``ops/masked_loss.py``); stage 2's masked L1s are plain
+sums, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from desr_tpu_torch.ops.normals import safe_norm
+
 
 def l1_loss(x, y):
     return (x - y).abs().mean()
@@ -20,6 +23,41 @@ def l1_loss(x, y):
 
 def mse_loss(x, y):
     return (x - y).square().mean()
+
+
+def masked_l1_loss(x, y, mask, eps=1e-6):
+    """sum(|y - x| * mask) / (sum(mask) + eps) (losses.py:31)."""
+    mask = mask.to(x.dtype)
+    return ((y - x).abs() * mask).sum() / (mask.sum() + eps)
+
+
+def tv_norm_planar(x):
+    """TV_norm of (B, C, H, W) maps over their first two channels, divided by
+    their size (losses.py:226)."""
+    x = x[:, :2]
+    tv_h = (x[..., 1:, :] - x[..., :-1, :]).square().sum()
+    tv_w = (x[..., :, 1:] - x[..., :, :-1]).square().sum()
+    return (tv_h + tv_w) / x.numel()
+
+
+def _cos_planar(x, y, eps):
+    nx = torch.clamp(safe_norm(x, dim=1, keepdim=False), min=eps)
+    ny = torch.clamp(safe_norm(y, dim=1, keepdim=False), min=eps)
+    return (x * y).sum(dim=1) / (nx * ny)
+
+
+def cos_sim_loss_planar(x, y, eps=1e-8):
+    """mean(1 - cos) over channel axis 1 of (B, C, H, W) maps (losses.py:236)."""
+    return (1.0 - _cos_planar(x, y, eps)).mean()
+
+
+def masked_cos_sim_loss_planar(x, y, mask_b3hw, eps=1e-8):
+    """sum((1 - cos) * mask) / (sum(mask) + 1e6) on (B, C, H, W) maps with a
+    (B, C, H, W) mask (losses.py:246, the as-shipped ``compat_bug=True``
+    denominator)."""
+    loss = (1.0 - _cos_planar(x, y, eps))[:, None]
+    mask = mask_b3hw.to(x.dtype)
+    return (loss * mask).sum() / (mask.sum() + 1e6)
 
 
 def gan_loss(prediction, target_is_real, mode="lsgan"):

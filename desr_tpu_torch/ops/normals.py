@@ -5,12 +5,17 @@
   central differences (normals.py:56);
 - ``surface_normals_from_K_planar``: intrinsics-based normals of the
   K-unprojected point cloud (normals.py:192), in float32 by default as in the
-  JAX package.
+  JAX package;
+- ``surface_normals_fov_planar``: the translation stage's fixed-60-degree-FOV
+  camera-grid normals (normals.py:97).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 
 def safe_norm(x, dim=-1, keepdim=True):
@@ -86,3 +91,32 @@ def surface_normals_from_K_planar(depth_bhw, K, crop, shift=0.5, dtype=torch.flo
     (B, 3, H, W) float32, computed in ``dtype``."""
     d = (depth_bhw.to(dtype) + 1.0) / 2.0
     return points_to_normals_planar(depth_to_points_planar(d, K, crop, shift)).float()
+
+
+def _fov_grid(h, w, fov_deg, dtype, device):
+    """The fixed camera grid (H, W, 3) of normals.py:80-89."""
+    t = math.tan(fov_deg / 2.0 / 180.0 * math.pi)
+    x = (torch.arange(1, w + 1, dtype=dtype, device=device) - (w + 1) / 2.0) / (w / 2.0) * t
+    y = -(torch.arange(1, h + 1, dtype=dtype, device=device) - (h + 1) / 2.0) / (h / 2.0) \
+        * t * (h / w)
+    return torch.stack([x[None, :].expand(h, w), y[:, None].expand(h, w),
+                        torch.ones((h, w), dtype=dtype, device=device)], dim=-1)
+
+
+def surface_normals_fov_planar(depth_bhw, fov_deg=60.0, canvas_hw=(482, 642), eps=1e-8):
+    """Fixed-FOV normals of the translation stage: (B, H, W) -> (B, 3, H, W)
+    (normals.py:92-117), with the as-shipped quirks: the crop into the
+    482x642 canvas starts at ``p + 1``, one past centre, and the two
+    difference windows over the reflect pad are offset by one row (gx) and one
+    column (gy), so the first gy row is exactly zero (``safe_norm`` keeps its
+    gradient finite)."""
+    b, h, w = depth_bhw.shape
+    ch, cw = canvas_hw
+    grid = _fov_grid(ch, cw, fov_deg, depth_bhw.dtype, depth_bhw.device)
+    ph, pw = (ch - h) // 2, (cw - w) // 2
+    grid = grid[ph + 1:ph + 1 + h, pw + 1:pw + 1 + w].permute(2, 0, 1)
+    pv = F.pad(depth_bhw[:, None] * grid[None], (1, 1, 1, 1), mode="reflect")
+    gx = (pv[:, :, 0:h, 0:w] - pv[:, :, 0:h, 2:2 + w]) / 2.0
+    gy = (pv[:, :, 2:2 + h, 0:w] - pv[:, :, 0:h, 0:w]) / 2.0
+    crs = torch.linalg.cross(gx, gy, dim=1)
+    return -crs / torch.clamp(safe_norm(crs, dim=1), min=eps)

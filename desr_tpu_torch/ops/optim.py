@@ -15,10 +15,12 @@ import math
 import torch
 
 
-def adam(params, lr, betas):
-    """torch.optim.Adam over ``params``, eps 1e-8, no weight decay; the main
-    stage passes betas (0.9, 0.999), torch's defaults (main_model.py:386-388)."""
-    return torch.optim.Adam(params, lr=lr, betas=betas)
+def adam(params, lr, betas, weight_decay=0.0):
+    """torch.optim.Adam over ``params``, eps 1e-8. The main stage passes betas
+    (0.9, 0.999), torch's defaults (main_model.py:386-388); stage 2's G passes
+    (--beta1, 0.999) and ``weight_decay`` --w_decay_G, which torch adds to the
+    raw gradient as ``adam_update`` does (optim.py:51-52)."""
+    return torch.optim.Adam(params, lr=lr, betas=betas, weight_decay=weight_decay)
 
 
 def set_lr(optimizer, lr):

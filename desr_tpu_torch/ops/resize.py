@@ -11,8 +11,9 @@ resize computes in float32 and casts back to the input's dtype, as
 ``_apply_separable`` does (resize.py:93-117).
 
 The host data path resizes with the JAX package's numpy matrices of cv2's
-INTER_AREA (``resize_matrix``, ``resize_cv2_inter_area_np``): the card's
-machine has no cv2.
+INTER_AREA (``resize_matrix``, ``resize_cv2_inter_area_np``) and with the
+matrices of cv2's INTER_LANCZOS4 (``lanczos4_matrix``,
+``resize_cv2_lanczos4_np``): the card's machine has no cv2.
 """
 
 from __future__ import annotations
@@ -132,4 +133,38 @@ def resize_cv2_inter_area_np(img, out_hw):
         x = np.tensordot(resize_matrix(h, oh, mode), x, axes=(1, 0))
     if ow != w:
         x = np.moveaxis(np.tensordot(resize_matrix(w, ow, mode), x, axes=(1, 1)), 0, 1)
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def lanczos4_matrix(in_size, out_size):
+    """(out_size, in_size) float64 matrix of cv2's INTER_LANCZOS4 along one
+    axis, as cv2's resizeGeneric builds it: output j reads source position
+    f = float32((j + 0.5) * in / out - 0.5), the 8 taps floor(f) - 3 ..
+    floor(f) + 4 weighted by sinc(z) sinc(z / 4) at z = frac(f) + 3 - k,
+    normalised to sum 1 (interpolateLanczos4), taps past either edge clamped
+    to it. The kernel does not widen when it shrinks, so a downscale aliases
+    as cv2's does. Cached: treat the result as read-only."""
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    src = ((np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5).astype(np.float32)
+    sx = np.floor(src).astype(np.int64)
+    z = (src - sx).astype(np.float64)[:, None] + 3.0 - np.arange(8)[None, :]
+    c = np.sinc(z) * np.sinc(z / 4.0)
+    c /= c.sum(axis=1, keepdims=True)
+    taps = np.clip(sx[:, None] - 3 + np.arange(8)[None, :], 0, in_size - 1)
+    np.add.at(m, (np.repeat(np.arange(out_size), 8), taps.reshape(-1)), c.reshape(-1))
+    return m
+
+
+def resize_cv2_lanczos4_np(img, out_hw):
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LANCZOS4)`` of a
+    float (H, W) or (H, W, C) numpy array, in float32 (the translation
+    dataset's Resize(320, 320, interpolation=4))."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    x = np.asarray(img, dtype=np.float64)
+    if ow != w:
+        x = np.moveaxis(np.tensordot(lanczos4_matrix(w, ow), x, axes=(1, 1)), 0, 1)
+    if oh != h:
+        x = np.tensordot(lanczos4_matrix(h, oh), x, axes=(1, 0))
     return np.ascontiguousarray(x, dtype=np.float32)

@@ -1,7 +1,8 @@
 """Training options for ``python -m desr_tpu_torch.train`` (counterpart of
-``desr_tpu/options/{base,train}_options.py`` with the main and I2D stages'
-own flags, main_model.py:67-75, i2d_model.py:39-47): ``--model_type main``
-(``--SR`` trains the x2 SR fine-tune) or ``I2D``.
+``desr_tpu/options/{base,train}_options.py`` with the stages' own flags,
+main_model.py:67-75, i2d_model.py:39-47, translation_model.py:49-74):
+``--model_type main`` (``--SR`` trains the x2 SR fine-tune), ``I2D`` or
+``translation``.
 
 Every flag of the JAX parser is known here, under its JAX name. Those the
 port honours keep the JAX defaults (several are read by no part of the main
@@ -72,6 +73,17 @@ _VALUED = [
     ("crop_size_h", int, 384), ("crop_size_w", int, 512),
     # main_model.py:71-74, i2d_model.py:43-46
     ("lambda_A", float, 10.0), ("lambda_B", float, 10.0), ("lambda_identity", float, 0.5),
+    # translation_model.py:49-74 (--max_distance keeps its default 10 there
+    # too, :75-80: the README's stage-2 command passes 5100)
+    ("l_cycle_A_begin", float, 10.0), ("l_cycle_A_end", float, 10.0),
+    ("l_cycle_B_begin", float, 5.0), ("l_cycle_B_end", float, 5.0),
+    ("l_identity", float, 1.0), ("l_normal", float, 1.0),
+    ("l_reconstruction_semantic", float, 0.0), ("l_depth_A_begin", float, 5.0),
+    ("l_depth_A_end", float, 0.0), ("l_depth_B_begin", float, 5.0),
+    ("l_depth_B_end", float, 0.0), ("l_mean_A", float, 0.0), ("l_mean_B", float, 0.0),
+    ("l_tv_A", float, 0.0), ("l_max_iter", int, 5000), ("l_num_iter", int, 5000),
+    ("num_iter_gen", int, 3), ("num_iter_dis", int, 1), ("inp_B", str, "img_depth"),
+    ("norm_d", str, "none"), ("w_decay_G", float, 0.0001),
 ]
 # store_true flags the port accepts (no_dropout defaults True in the main and I2D stages)
 _SWITCHES = [
@@ -92,6 +104,10 @@ def build_parser():
     for name in _SWITCHES:
         p.add_argument(f"--{name}", action="store_true")
     p.add_argument("--no_dropout", action="store_true", default=True)
+    # store_true flags that default to True (translation_model.py:67-71)
+    for name in ("no_idt_A", "use_cycle_B", "disc_for_normals", "disc_for_depth"):
+        p.add_argument(f"--{name}", action="store_true", default=True)
+    p.add_argument("--use_cycle_A", action="store_true")
     # the K2 route of the ResnetBlocks (the JAX per-stage default: off)
     p.add_argument("--pallas_conv", dest="pallas_conv", action="store_true", default=None)
     p.add_argument("--no_pallas_conv", dest="pallas_conv", action="store_false")
@@ -115,9 +131,9 @@ def parse(argv=None, print_options=True):
                 if name in NOT_PORTED else
                 f"--{name} steers XLA in desr_tpu and has no counterpart in desr_tpu_torch")
         delattr(opt, f"_refused_{name}")
-    if opt.model_type not in ("main", "I2D"):
-        parser.error(f"--model_type {opt.model_type} is not yet ported to desr_tpu_torch "
-                     "(it trains --model_type main and I2D)")
+    if opt.model_type not in ("main", "I2D", "translation"):
+        parser.error(f"--model_type {opt.model_type} is not known to desr_tpu_torch "
+                     "(it trains --model_type main, I2D and translation)")
     if opt.compute_dtype not in COMPUTE_DTYPES:
         parser.error(f"--compute_dtype must be one of {COMPUTE_DTYPES}")
     if opt.lr_policy not in ("linear", "step", "cosine"):

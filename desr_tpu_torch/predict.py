@@ -18,7 +18,8 @@ default), ``--SR``, ``--I2D`` and ``--translate AtoB|BtoA``:
   ``--I2D`` predicts depth from the image alone: ``--input_depth`` may be
   left out, and the output names then come from the images. ``--translate``
   writes ``fake_depth_B`` = G_A(depth, image) (AtoB) or ``fake_depth_A`` =
-  G_B(depth, image) (BtoA) (predict.py:241-263);
+  G_B(depth, image) (BtoA), G_B(depth) under ``--net_args --inp_B depth``
+  (predict.py:241-263);
 - writes ``<stem>.png``, ``clip((p + 1) / 2)`` as x5100 uint16 PNGs.
 
 Usage:

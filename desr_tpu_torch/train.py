@@ -1,6 +1,6 @@
-"""Training CLI for the stage-1 I2D model, the stage-3 main model and its
-x2 SR fine-tune on the GPU (counterpart of the repository's ``main.py`` for
-``--model_type I2D`` and ``main``).
+"""Training CLI for the stage-1 I2D model, the stage-2 translation model, the
+stage-3 main model and its x2 SR fine-tune on the GPU (counterpart of the
+repository's ``main.py`` for ``--model_type I2D``, ``translation`` and ``main``).
 
     python -m desr_tpu_torch.train --model_type I2D --do_train --do_test \
         --image_and_depth --use_scannet --batch_size 12 --lr 2e-4 [--use_D] \
@@ -19,13 +19,21 @@ With ``--SR`` (e.g. ``--batch_size 1 --crop_size_h 512 --crop_size_w 640
 ``--model_type I2D`` trains ``I2DModel`` on ``I2DDataset``'s jittered,
 rotated 384x512 crops (models/__init__.py:12-15, data/__init__.py:34-37).
 
+``--model_type translation`` trains ``TranslationModel`` on
+``TranslationDataset``'s ``<dataroot>/train{A,B}/{img,depth}`` PNG frames
+(Lanczos to 320x320, random crops); the README's stage-2 command:
+
+    python -m desr_tpu_torch.train --model_type translation --do_train --do_test \
+        --dataroot <root> --name <exp> --batch_size 6 --crop_size_h 256 \
+        --crop_size_w 256 --max_distance 5100
+
 The epoch loop of main.py:72-178: with ``--do_train`` each batch takes one
 step (``optimize_parameters(total_iters, --update_ratio)``), the losses
 print every ``--print_freq`` images (and go to ``loss_log.txt``), ``latest``
 checkpoints are written every ``--save_latest_freq`` batches and at each
 ``--save_epoch_freq``-th epoch end, and the LR steps per epoch; with
 ``--do_test`` an eval pass averages the test losses. Not yet ported: wandb,
-the HTML gallery, the profiler, ``--steps_per_call`` and stage 2
+the HTML gallery, the profiler and ``--steps_per_call``
 (options/train_options.py lists what stops the run).
 """
 
@@ -61,6 +69,7 @@ def main(argv=None):
     from desr_tpu_torch.models.i2d_model import I2DModel
     from desr_tpu_torch.models.main_model import MainModel
     from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
     from desr_tpu_torch.options import train_options
 
     opt = train_options.parse(argv)
@@ -69,7 +78,8 @@ def main(argv=None):
     except RuntimeError as e:
         train_options.build_parser().error(str(e))
     dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
-    model_cls = I2DModel if opt.model_type == "I2D" else MainSRModel if opt.SR else MainModel
+    model_cls = {"I2D": I2DModel, "translation": TranslationModel}.get(
+        opt.model_type, MainSRModel if opt.SR else MainModel)
     model = model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
     print(f"model [{model_cls.__name__}] was created")
     dataset_cls = dataset_for_model(opt)

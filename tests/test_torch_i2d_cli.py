@@ -113,8 +113,8 @@ def test_predict_refuses_what_it_does_not_serve(tmp_path, capsys):
     for extra, msg in ((["--translate", "AtoB"], "--input_depth is required"),
                        (["--I2D", "--SR"], "standalone"),
                        (["--translate", "BtoA", "--I2D"], "standalone"),
-                       (["--input_depth", str(tmp_path), "--translate", "AtoB", "--net_args",
-                         "--inp_B", "depth"], "not yet ported")):
+                       (["--input_depth", str(tmp_path), "--translate", "AtoB", "--export",
+                         str(tmp_path / "x")], "not yet ported")):
         with pytest.raises((SystemExit, NotImplementedError)) as e:
             predict.main(base + extra)
         text = str(e.value) + capsys.readouterr().err

@@ -33,7 +33,8 @@ def test_importing_the_port_loads_neither_jax_nor_desr_tpu():
                   for p in _sources() if p.endswith(".py") and "desr_tpu_torch" in p)
     assert {"desr_tpu_torch.models.main_sr_model", "desr_tpu_torch.ops.resize",
             "desr_tpu_torch.models.i2d_model", "desr_tpu_torch.models.translation_model",
-            "desr_tpu_torch.data.i2d_dataset", "desr_tpu_torch.utils.image_pool"} <= set(mods)
+            "desr_tpu_torch.data.i2d_dataset", "desr_tpu_torch.utils.image_pool",
+            "desr_tpu_torch.data.translation_dataset"} <= set(mods)
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'desr_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -80,13 +80,10 @@ def test_norm_vectors_match_jax(with_bias):
 def test_get_norm_layer_bias_rule():
     for norm in ("instance", "none", "batch", "group"):
         _, jax_bias = JL.get_norm_layer(norm)
-        if norm == "batch":
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                TL.get_norm_layer(norm)
-            continue
         factory, bias = TL.get_norm_layer(norm)
         assert bias == jax_bias
-        want = {"instance": TL.InstanceNorm2d, "none": TL.Identity, "group": TL.GroupNorm}[norm]
+        want = {"instance": TL.InstanceNorm2d, "none": TL.Identity, "group": TL.GroupNorm,
+                "batch": TL.BatchNorm2d}[norm]
         assert isinstance(factory(8), want)
     # GroupNorm(8): affine in the translation lineage only, as in the JAX package
     for lineage in ("pix2pix", "translation"):

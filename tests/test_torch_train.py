@@ -603,7 +603,7 @@ def test_every_port_flag_default_equals_jax():
 @pytest.mark.parametrize("flag,msg", [
     (["--device_aug"], "not yet ported"), (["--use_wandb"], "not yet ported"),
     (["--steps_per_call", "4"], "not yet ported"), (["--fold_norm"], "no counterpart"),
-    (["--model_type", "translation"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
+    (["--lr_policy", "plateau"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
 ])
 def test_train_cli_refuses_what_it_does_not_run(flag, msg, capsys):
     from desr_tpu_torch import train
