@@ -106,6 +106,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     one untimed iteration each with --netD Gu
     (BatchNorm counts 3 G applies + real + fake), --use_spnorm and --inp_B
     depth.
+(l) --device_aug at the README geometry: 528 synthetic 480x640 frames a
+    domain with intrinsics (24 written, the rest hard links to them), and
+    44 with 968x1296 colour (ScanNet's; 8 written) for SR.
+    For main (batch 6, 384x512 crops), I2D (batch 12) and SR (batch 1, LR
+    512x640): one host batch of the --device_aug dataset through its
+    device_finish on the card against the same function on the CPU (main
+    within 2e-3 and its unrotated frames bit-equal; I2D's images within the
+    ColorJitter bounds of tests/test_device_aug.py widened by 2e-3 x 127.5,
+    its depths within 2e-3; SR within 1e-5), the upload from pinned memory
+    and device_finish's time by CUDA events and by the profiler; then the
+    train CLI with 4 loader workers and TF32 as the CLI leaves it (PyTorch's
+    defaults), host augmentation and then --device_aug, 44 steps each:
+    launches per step as in (e), (g), (j), finite losses; after the
+    loader's first 8 batches (2 a worker, all queued when the epoch starts)
+    the wall of 20 steps (5 rounds of the 4 workers) unprofiled gives the
+    step's time and pairs/s with the feed (with the host's time inside the
+    steps and the spread of the rounds), and the next 8 steps under a
+    CUDA-only profiler the card's busy share (kernels and copies over their
+    wall) and the profiled step's time; the epoch's last 8 steps, which the
+    workers feed back to back, are not read; then 2 I2D steps
+    with --profile_dir, whose trace must hold the train_step and
+    device_finish spans and K1's kernels.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path), error, time, the plain version's
     and the library call's times, its bound on this card and the share of it
@@ -121,7 +143,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     step's HR shape, with the wrapper's host time per call (host_ms) and the kernels
     a call launches; the sums rows also time the earlier two-launch design
     (desr_tpu_torch/tools/masked_loss_two_launch.cu, built in phase (a)) on
-    the same inputs (two_launch_ms). Device times flush L2 before each call.
+    the same inputs (two_launch_ms). Device times flush L2 before each call;
+    a profiler round that traced no kernel is run again (the profiler can
+    miss a whole round).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}. Without a
 CUDA device, or without the rest of the repository beside it, the script exits
@@ -131,6 +155,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -546,19 +571,21 @@ def phase_masked_loss():
 
 # ------------------------------------------------------------------ (c)
 
-def _write_frames(folder, n, seed=0, hw=(480, 640)):
-    """n seeded frames of hw: smooth RGB with noise, uint16 mm depth with holes."""
+def _write_frames(folder, n, seed=0, hw=(480, 640), img_hw=None):
+    """n seeded frames of hw: smooth RGB with noise, uint16 mm depth with holes;
+    the RGB of img_hw when given (ScanNet's colour frames are 968x1296)."""
     import numpy as np
 
     from desr_tpu_torch.data.png import write_png
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float32)
+    iy, ix = (yy, xx) if img_hw is None else np.mgrid[0:img_hw[0], 0:img_hw[1]].astype(np.float32)
     for sub in ("depth", "img"):
         os.makedirs(os.path.join(folder, sub), exist_ok=True)
     for i in range(n):
         a, b, c = rng.uniform(0.005, 0.03, 3)
-        img = np.stack([np.sin(a * xx + i), np.cos(b * yy), np.sin(c * (xx + yy))], -1)
+        img = np.stack([np.sin(a * ix + i), np.cos(b * iy), np.sin(c * (ix + iy))], -1)
         img = 127.5 + 100 * img + rng.normal(0, 10, img.shape)
         depth = 1500 + 1000 * np.sin(a * xx) * np.cos(b * yy) + 0.5 * yy
         depth += rng.normal(0, 20, depth.shape)
@@ -758,7 +785,7 @@ def _profile(fn, iters, tag="c", unit="batch"):
     out = {f"profile_device_ms_per_{unit}": device_ms / iters,
            "profile_busy_share": device_ms / wall_ms}
     for short, key in (("conv3x3", "conv3x3"), ("masked_loss", "masked_loss"),
-                       ("replication_pad", "replication_pad")):
+                       ("replication_pad", "replication_pad"), ("memcpy", "Memcpy")):
         out[f"profile_{short}_ms_per_{unit}"] = sum(
             t for n, t in by_kernel.items() if key in n) / iters
     return out
@@ -766,12 +793,18 @@ def _profile(fn, iters, tag="c", unit="batch"):
 
 # ------------------------------------------------------------------ (e)
 
-def _write_train_domain(root, dom, seed, n=12):
-    """n 480x640 frames of phase (c)'s kind, each its own scene with intrinsics."""
+def _write_train_domain(root, dom, seed, n=12, img_hw=None, unique=None):
+    """n 480x640 frames of phase (c)'s kind, each its own scene with intrinsics;
+    with ``unique``, that many are written and frame i is a hard link to
+    frame i % unique."""
     import numpy as np
 
     folder = os.path.join(root, dom)
-    _write_frames(folder, n, seed=seed)
+    _write_frames(folder, min(n, unique or n), seed=seed, img_hw=img_hw)
+    for sub in ("depth", "img"):
+        for i in range(unique or n, n):
+            os.link(os.path.join(folder, sub, f"f{i % unique:02d}.png"),
+                    os.path.join(folder, sub, f"f{i:02d}.png"))
     for i in range(n):
         kdir = os.path.join(root, "intr", f"{dom}{i:02d}", "intrinsic")
         os.makedirs(kdir, exist_ok=True)
@@ -953,13 +986,16 @@ def _train_parity(model_cls, opt32, small, tag, what, run=None):
     and returns (loss terms, the nets whose gradients it left); by default
     ``compute_grads`` and the trainable nets.
 
-    Loss terms within 1e-4 relative. The step's gradients are ill-conditioned
+    The steps run with cuDNN's deterministic algorithms. Loss terms within
+    1e-4 relative. The step's gradients are ill-conditioned
     at a random init (on the CPU a 1e-7 relative perturbation of K1's outputs
     moves some weight gradients by 2e-3 of their largest entry), so the
     yardstick is the plain route's own sensitivity: the plain step again
     with K1's outputs perturbed by 1e-6 relative noise and its moments by
     1e-6 of the sums of their terms' magnitudes (sum |acc|, sum acc^2), the
-    scale of the kernels' f32 summation-order differences. Per weight tensor, the
+    scale of the kernels' f32 summation-order differences. The plain step
+    runs twice: the gap between those two, printed beside, is the floor
+    under which the check cannot tell the kernels from the plain route. Per weight tensor, the
     kernel route's gap to the plain route (relative L2) must be at most
     max(1e-3, 3x that perturbation's gap). Conv biases that feed a norm have
     an exact gradient of 0 (the norm subtracts them again): each bias's gap
@@ -1002,13 +1038,23 @@ def _train_parity(model_cls, opt32, small, tag, what, run=None):
         mag = out.float().abs().sum(dim=(1, 2))
         return out * (1 + jitter(out)), s + mag * jitter(s), s2 * (1 + jitter(s2))
 
-    m_k, g_k = step()
-    with mock.patch.object(K3, "_forward", K3.masked_loss_sums_plain), \
-            mock.patch.object(K3, "masked_loss_grads", K3.masked_loss_grads_plain):
-        with mock.patch.object(K, "_fused_forward", plain_conv):
-            m_p, g_p = step()
-        with mock.patch.object(K, "_fused_forward", noisy_conv):
-            _, g_n = step()
+    # cuDNN's default backward algorithms add in a run-dependent order: two
+    # runs of one stage-2 step then differ by up to ~2e-3 relative L2 in the
+    # median weight gradient (H100 80GB HBM3), which the check would charge
+    # to the kernels; with deterministic algorithms they agree to ~3e-7
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m_k, g_k = step()
+        with mock.patch.object(K3, "_forward", K3.masked_loss_sums_plain), \
+                mock.patch.object(K3, "masked_loss_grads", K3.masked_loss_grads_plain):
+            with mock.patch.object(K, "_fused_forward", plain_conv):
+                m_p, g_p = step()
+                _, g_p2 = step()  # the plain route's run-to-run floor
+            with mock.patch.object(K, "_fused_forward", noisy_conv):
+                _, g_n = step()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     worst_loss = max(float((m_k[k] - m_p[k]).abs() / (m_p[k].abs() + 1e-12)) for k in m_p)
     check(all(float((m_k[k] - m_p[k]).abs()) <= 1e-4 * float(m_p[k].abs()) + 1e-7 for k in m_p),
           f"[{tag}] float32 step: a loss term off by {worst_loss:.3g} relative (bound 1e-4)")
@@ -1021,10 +1067,11 @@ def _train_parity(model_cls, opt32, small, tag, what, run=None):
         gk = float((g_k[k] - g_p[k]).norm()) / scale
         gn = float((g_n[k] - g_p[k]).norm()) / scale
         bound = 1e-3 if k.endswith("bias") else max(1e-3, 3 * gn)
-        gaps[k] = (gk, gn, bound)
+        gaps[k] = (gk, gn, bound, float((g_p2[k] - g_p[k]).norm()) / scale)
         if gk > bound:
             bad.append(k)
     weights = sorted((v[0], v[1], k) for k, v in gaps.items() if not k.endswith("bias"))
+    floor = sorted(v[3] for k, v in gaps.items() if not k.endswith("bias"))
     print(f"[{tag}] float32 {what}, kernels vs plain: loss terms max rel "
           f"{worst_loss:.3g} (bound 1e-4); weight grads, relative L2 gap (kernel / 1e-6 "
           f"perturbation): median {weights[len(weights) // 2][0]:.3g} / "
@@ -1032,13 +1079,17 @@ def _train_parity(model_cls, opt32, small, tag, what, run=None):
           f"{weights[-1][1]:.3g} at {weights[-1][2]}; biases worst "
           f"{max(v[0] for k, v in gaps.items() if k.endswith('bias')):.3g} of the net's "
           "largest weight gradient (bound 1e-3)")
+    print(f"[{tag}] float32 {what}, plain vs plain (the floor): weight grads median "
+          f"{floor[len(floor) // 2]:.3g}, worst {floor[-1]:.3g}")
     for gk, gn, k in weights[-5:]:
         print(f"[{tag}]   {k}: kernel {gk:.3g}, perturbation {gn:.3g}")
     check(not bad, f"[{tag}] float32 step: grads off in "
           + ", ".join(f"{k} ({gaps[k][0]:.3g} > {gaps[k][2]:.3g})" for k in bad[:5]))
     return {"f32_loss_max_rel": worst_loss, "f32_weight_grad_worst_gap": weights[-1][0],
             "f32_weight_grad_median_gap": weights[len(weights) // 2][0],
-            "f32_weight_grad_worst_perturbation_gap": max(w[1] for w in weights)}
+            "f32_weight_grad_worst_perturbation_gap": max(w[1] for w in weights),
+            "f32_weight_grad_median_floor": floor[len(floor) // 2],
+            "f32_weight_grad_worst_floor": floor[-1]}
 
 
 # ------------------------------------------------------------------ (f)
@@ -1711,6 +1762,246 @@ def phase_translation_training(tmp):
     return paths
 
 
+# ------------------------------------------------------------------ (l)
+
+ROT_TOL = 2e-3              # the three-shear warp's bound (tests/test_device_aug.py:22)
+FED_WORKERS = 4             # the loader's default --num_threads
+# the fed loop: the loader keeps 2 batches a worker in flight (DataLoader's
+# default prefetch_factor), all queued when the epoch starts; the timed and
+# profiled windows open after those, each a whole number of rounds of the
+# workers, and close before the epoch's last 2 * FED_WORKERS batches, whose
+# indices are all handed out at once: a worker then runs its last two
+# batches back to back, faster than mid-epoch, where it waits on the
+# in-order consumer for its next index
+FED_WARM = 2 * FED_WORKERS
+FED_TIMED, FED_PROFILED = 5 * FED_WORKERS, 2 * FED_WORKERS
+FED_STEPS = FED_WARM + FED_TIMED + FED_PROFILED + FED_WARM
+FED_UNIQUE = 24             # frames written a domain (~0.7 s each); the rest are hard links
+JIT_BOUNDS = (10.0, 1e-4, 2e-3)  # ColorJitter, 0-255 scale: max, share above 1, above 1e-3
+
+
+def _aug_parity(tag, ds, n):
+    """One host batch of n items of ``ds`` (a --device_aug dataset) through
+    its device_finish to the CPU and to the card; the upload from pinned
+    memory alone and device_finish (upload and augmenter) by CUDA events, and
+    device_finish's device time by the profiler, copies apart. Returns the
+    report, the gaps, the two outputs and the batch."""
+    import torch
+
+    from desr_tpu_torch.data.loader import collate_tensors, to_device
+
+    batch = collate_tensors([ds[i] for i in range(n)])
+    cpu = ds.device_finish(batch, "cpu")
+    pinned = {k: v.pin_memory() if torch.is_tensor(v) else v for k, v in batch.items()}
+    card = ds.device_finish(pinned, "cuda")
+    torch.cuda.synchronize()
+    keys = ("A_i", "A_d", "B_i", "B_d")
+    for k in keys:
+        check(card[k].is_cuda and card[k].shape == cpu[k].shape,
+              f"[{tag}] device_finish {k}: {card[k].device} {tuple(card[k].shape)}")
+    gaps = {k: (card[k].cpu() - cpu[k]).abs() for k in keys}
+    rep = {"upload_ms": cuda_ms(lambda: to_device(pinned, "cuda"), iters=10, warmup=2),
+           "finish_event_ms": cuda_ms(lambda: ds.device_finish(pinned, "cuda"), iters=10,
+                                      warmup=2)}
+    prof = _profile(lambda: ds.device_finish(pinned, "cuda"), iters=5, tag="l", unit="batch")
+    total = prof["profile_device_ms_per_batch"]
+    rep["augment_device_ms"] = (None if total is None
+                                else total - prof["profile_memcpy_ms_per_batch"])
+    rep["host_bytes"] = sum(v.numel() * v.element_size() for v in batch.values()
+                            if torch.is_tensor(v))
+    rep["max_abs_gap"] = {k: float(g.max()) for k, g in gaps.items()}
+    return rep, gaps, cpu, card, batch
+
+
+def _fed_run(argv, model_cls):
+    """train.main(argv) for FED_STEPS steps, ``optimize_parameters`` wrapped:
+    a sync and a host timestamp after step FED_WARM, after FED_TIMED more and
+    after FED_PROFILED more; those FED_PROFILED steps under torch.profiler
+    (CUDA activity: kernels and copies) for the card's busy share. Inside the
+    timed window, without syncs: the host time spent inside the steps (the
+    rest of the wall is the wait for the loader, ``device_finish`` and
+    ``set_input``), and a host timestamp after each round of FED_WORKERS
+    steps, whose spread shows how steady the window was. TF32 as the train
+    CLI leaves it: PyTorch's defaults (cuDNN's convolutions on, matmul
+    off)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from desr_tpu_torch import train
+
+    orig = model_cls.optimize_parameters
+    marks = (FED_WARM, FED_WARM + FED_TIMED, FED_WARM + FED_TIMED + FED_PROFILED)
+    st = {"n": 0, "in_step": 0.0}
+
+    def step(self, *a, **k):
+        t_in = time.perf_counter()
+        out = orig(self, *a, **k)
+        st["n"] += 1
+        if marks[0] < st["n"] <= marks[1]:
+            st["in_step"] += time.perf_counter() - t_in
+            if st["n"] < marks[1] and (st["n"] - marks[0]) % FED_WORKERS == 0:
+                st[st["n"]] = time.perf_counter()
+        if st["n"] in marks:
+            torch.cuda.synchronize()
+            st[st["n"]] = time.perf_counter()
+            if st["n"] == marks[1]:
+                st["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                st["prof"].start()
+            elif st["n"] == marks[2]:
+                st["prof"].stop()
+        return out
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    _reset_counts()
+    try:
+        with mock.patch.object(model_cls, "optimize_parameters", step):
+            losses = train.main(argv)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = _counts()
+    check(st["n"] == FED_STEPS, f"fed loop: {st['n']} steps, want {FED_STEPS}")
+    timed = (st[marks[1]] - st[marks[0]]) * 1e3
+    profiled = (st[marks[2]] - st[marks[1]]) * 1e3
+    busy = sum(ev.time_range.elapsed_us() for ev in st["prof"].events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    bounds = range(marks[0], marks[1] + 1, FED_WORKERS)
+    rounds = [(st[b] - st[a]) * 1e3 / FED_WORKERS for a, b in zip(bounds, bounds[1:])]
+    return {"step_ms": timed / FED_TIMED, "in_step_ms": st["in_step"] * 1e3 / FED_TIMED,
+            "round_step_ms": rounds,
+            "profiled_step_ms": profiled / FED_PROFILED, "busy_share": busy / profiled,
+            "losses_finite": bool(all(math.isfinite(v) for v in losses.values()))}, launches
+
+
+def phase_device_aug(tmp):
+    """--device_aug at the README geometry: the augmenter on the card against
+    the same function on the CPU, its device ms per batch, and the fed train
+    loop (4 loader workers) with the host augmentation and with --device_aug,
+    one after the other, for main, I2D and SR; then a --profile_dir run."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch.data.i2d_dataset import I2DDataset
+    from desr_tpu_torch.data.main_dataset import MainDataset
+    from desr_tpu_torch.data.sr_dataset import NaiveSRDataset
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.options import train_options
+
+    report = {"host_cpus": len(os.sched_getaffinity(0))}
+    n_frames = FED_STEPS * 12  # the I2D loop's; main takes half of them
+    _write_train_domain(tmp, "A", seed=120, n=n_frames, unique=FED_UNIQUE)
+    _write_train_domain(tmp, "B", seed=130, n=n_frames, unique=FED_UNIQUE)
+    sr_root = os.path.join(tmp, "sr")
+    _write_train_domain(sr_root, "A", seed=140, n=FED_STEPS, img_hw=(968, 1296), unique=8)
+    _write_train_domain(sr_root, "B", seed=150, n=FED_STEPS, img_hw=(968, 1296), unique=8)
+    fed = ["--num_threads", str(FED_WORKERS), "--print_freq", "1000000",
+           "--save_epoch_freq", "1000"]
+    stages = {  # stage: (argv, model class, dataset class, batch, launches a step)
+        "main": (_train_argv(tmp, "fed_main", aug=True) + fed
+                 + ["--max_dataset_size", str(FED_STEPS * 6)], MainModel, MainDataset, 6,
+                 {"K1": K1_PER_STEP, "K2": 0, "K3": K3_PER_STEP, "K3 backward": K3_BWD_PER_STEP}),
+        "I2D": (_i2d_train_argv(tmp, "fed_i2d") + fed, I2DModel, I2DDataset, 12,
+                {"K1": I2D_K1_PER_STEP, "K2": 0, "K3": 0, "K3 backward": 0}),
+        "SR": (_sr_train_argv(sr_root, "fed_sr") + fed
+               + ["--max_dataset_size", str(FED_STEPS)], MainSRModel, NaiveSRDataset, 1,
+               {"K1": SR_K1_PER_STEP, "K2": 0, "K3": K3_PER_STEP,
+                "K3 backward": K3_BWD_PER_STEP}),
+    }
+    paths = {}
+    for stage, (argv, model_cls, ds_cls, bs, per_step) in stages.items():
+        opt = train_options.parse(argv + ["--device_aug"], print_options=False)
+        model = model_cls(opt, device="cuda", compute_dtype=torch.bfloat16, is_train=True,
+                          generator=torch.Generator().manual_seed(11))
+        for n in model.model_names:
+            ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(opt.checkpoints_dir, opt.name,
+                                                            "latest", n))
+        del model
+
+        # the augmenter: card against CPU on one host batch, and its time
+        ds = ds_cls(opt, stage="train")
+        check(ds.device_aug_active(), f"[l] {stage}: --device_aug inactive")
+        rep, gaps, cpu, card, batch = _aug_parity("l", ds, bs)
+        if stage == "main":
+            unrotated = [(d, b) for d in "AB" for b in range(bs)
+                         if float(batch[f"{d}_aug"][b, 0]) == 0.0]
+            check(all(torch.equal(card[f"{d}_{k}"][b].cpu(), cpu[f"{d}_{k}"][b])
+                      for d, b in unrotated for k in "id"),
+                  "[l] main: an unrotated sample differs between card and CPU")
+            check(all(float(g.max()) <= ROT_TOL for g in gaps.values()),
+                  f"[l] main augmenter card vs CPU: {rep['max_abs_gap']} > {ROT_TOL}")
+            rep["unrotated_bit_equal"] = len(unrotated)
+        elif stage == "I2D":
+            warp = ROT_TOL * 127.5
+            for k in ("A_i", "B_i"):
+                d = gaps[k] * 127.5
+                share1, share_eps = float((d > 1 + warp).float().mean()), float(
+                    (d > 1e-3 + warp).float().mean())
+                rep[f"{k}_jitter_gap"] = [float(d.max()), share1, share_eps]
+                check(float(d.max()) <= JIT_BOUNDS[0] + warp and share1 < JIT_BOUNDS[1]
+                      and share_eps < JIT_BOUNDS[2],
+                      f"[l] I2D {k} card vs CPU: {rep[f'{k}_jitter_gap']}")
+            check(max(float(gaps[k].max()) for k in ("A_d", "B_d")) <= ROT_TOL,
+                  f"[l] I2D depths card vs CPU: {rep['max_abs_gap']}")
+        else:
+            check(all(float(g.max()) <= 1e-5 for g in gaps.values()),
+                  f"[l] SR finisher card vs CPU: {rep['max_abs_gap']} > 1e-5")
+        del cpu, card, batch, gaps
+        print(f"[l] {stage} augmenter, batch {bs}: card vs CPU max |d| "
+              f"{ {k: f'{v:.3g}' for k, v in rep['max_abs_gap'].items()} }; upload "
+              f"{rep['upload_ms']:.3f} ms ({rep['host_bytes'] / 2 ** 20:.1f} MiB pinned), "
+              f"device_finish {rep['finish_event_ms']:.3f} ms by CUDA events, "
+              f"augmenter {rep['augment_device_ms']} ms of device time (copies apart)")
+
+        # the fed loop: the host path, then --device_aug
+        for mode in ("host", "device_aug"):
+            r, launches = _fed_run(argv + (["--device_aug"] if mode == "device_aug" else []),
+                                   model_cls)
+            want = {k: v * FED_STEPS for k, v in per_step.items()}
+            check(launches == want and r["losses_finite"],
+                  f"[l] {stage} fed loop ({mode}): launches {launches}, want {want}; {r}")
+            paths[f"train_fed_{stage}_{mode}"] = launches
+            rep[f"fed_{mode}_step_ms"] = r["step_ms"]
+            rep[f"fed_{mode}_pairs_per_s"] = bs * 1000 / r["step_ms"]
+            rep[f"fed_{mode}_in_step_ms"] = r["in_step_ms"]
+            rep[f"fed_{mode}_round_step_ms"] = r["round_step_ms"]
+            rep[f"fed_{mode}_profiled_step_ms"] = r["profiled_step_ms"]
+            rep[f"fed_{mode}_busy_share"] = r["busy_share"]
+            print(f"[l] {stage} fed loop, {mode}, batch {bs}, {FED_WORKERS} workers: "
+                  f"{r['step_ms']:.2f} ms a step ({rep[f'fed_{mode}_pairs_per_s']:.2f} pairs/s "
+                  f"with the feed) over {FED_TIMED} steps after {FED_WARM} (host inside the "
+                  f"step {r['in_step_ms']:.2f} ms; by round of {FED_WORKERS} "
+                  f"{min(r['round_step_ms']):.2f}-{max(r['round_step_ms']):.2f}); the next "
+                  f"{FED_PROFILED} profiled: {r['profiled_step_ms']:.2f} ms a step, card busy "
+                  f"{100 * r['busy_share']:.1f}%")
+        if rep["augment_device_ms"] is not None:
+            rep["augment_share_of_fed_step"] = (rep["augment_device_ms"]
+                                                / rep["fed_device_aug_step_ms"])
+        report[stage] = rep
+
+    # --profile_dir: two I2D steps under --device_aug write a trace
+    prof_dir = os.path.join(tmp, "prof")
+    _reset_counts()
+    from desr_tpu_torch import train
+
+    train.main(stages["I2D"][0] + ["--device_aug", "--num_threads", "0",
+                                   "--max_dataset_size", "24", "--profile_dir", prof_dir])
+    paths["train_i2d_profiled"] = _counts()
+    trace = os.path.join(prof_dir, "trace.json")
+    check(os.path.exists(trace) and os.path.getsize(trace) > 0, f"--profile_dir: no {trace}")
+    with open(trace) as f:
+        names = {ev.get("name", "") for ev in json.load(f).get("traceEvents", [])}
+    check({"train_step", "device_finish"} <= names and any("conv3x3" in n for n in names),
+          "--profile_dir: the trace lacks train_step, device_finish or K1's kernel")
+    report["profile_trace_mib"] = os.path.getsize(trace) / 2 ** 20
+    print(f"[l] --profile_dir: {trace} ({report['profile_trace_mib']:.1f} MiB) holds the "
+          f"train_step and device_finish spans and K1's kernels")
+    print("[l] " + json.dumps(report))
+    return paths
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -1837,7 +2128,8 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             **_device_stats(sums, "masked_loss_sums", repeats=3),
             "event_ms": cuda_ms(sums, iters=50, warmup=5),
             # back to back, inputs under the 50 MB L2 stay there
-            "device_ms_l2_warm": device_ms(sums, "masked_loss_sums", flush_l2=False)["median"],
+            "device_ms_l2_warm": _device_stats(sums, "masked_loss_sums",
+                                               flush_l2=False)["device_ms"],
             "host_ms": host_ms(sums),
             "plain_ms": cuda_ms(lambda: K3.masked_loss_sums_plain(*ins), iters=20),
             "bound_ms": max(t_ops, t_bytes),
@@ -1920,13 +2212,21 @@ def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode):
                 "profile_device_ms_per_call"]}
 
 
-def _device_stats(fn, key, repeats=1):
-    """``device_ms`` over ``repeats`` rounds: the median of the rounds'
-    medians, the least and most call, each round's median and traced count."""
+def _device_stats(fn, key, repeats=1, flush_l2=True):
+    """``device_ms`` over ``repeats`` rounds that traced the kernels: the
+    median of the rounds' medians, the least and most call, each round's
+    median and traced count. The profiler can miss a whole round, so up to
+    2 * repeats + 1 rounds are run; None only when none traced them."""
     import statistics
 
-    rounds = [device_ms(fn, key) for _ in range(repeats)]
-    if any(r is None for r in rounds):
+    rounds = []
+    for _ in range(2 * repeats + 1):
+        r = device_ms(fn, key, flush_l2=flush_l2)
+        if r is not None:
+            rounds.append(r)
+        if len(rounds) == repeats:
+            break
+    if not rounds:
         return {"device_ms": None}
     return {"device_ms": statistics.median(r["median"] for r in rounds),
             "device_ms_min": min(r["min"] for r in rounds),
@@ -1959,10 +2259,12 @@ def main():
     paths = {}  # each path's launches by kernel, from its phase's run of the entry point
     for phase in (phase_serving, phase_training, phase_sr_serving, phase_sr_training,
                   phase_i2d_serving, phase_translate_serving, phase_i2d_training,
-                  phase_translation_training):
+                  phase_translation_training, phase_device_aug):
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
             paths.update(phase(tmp))
         torch.cuda.empty_cache()
+        print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     rows = phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so)
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} was launched on no path")

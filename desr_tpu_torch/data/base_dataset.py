@@ -1,5 +1,7 @@
 """Frame loaders and the unpaired folder dataset (counterpart of
-``desr_tpu/data/base_dataset.py``), on the package's own PNG codec."""
+``desr_tpu/data/base_dataset.py``), on the package's own PNG codec, with the
+host half of ``--device_aug`` (``prepare_full``) and its card half
+(``device_finish``, over ``ops/device_aug.py``)."""
 
 from __future__ import annotations
 
@@ -159,6 +161,55 @@ class UnpairedFolderDataset:
 
     def interiornet_K(self):
         return np.asarray([[600.0, 0, 320], [0, 600, 240], [0, 0, 1]])
+
+    # -- --device_aug (base_dataset.py:182-238) --------------------------------
+
+    def device_aug_active(self):
+        """Whether items ship the device half; subclasses narrow it."""
+        return self.train and getattr(self.opt, "device_aug", False)
+
+    def aug_geometry(self):
+        """(load_h, load_w, crop_h, crop_w) of the geometric chain."""
+        opt = self.opt
+        return opt.load_size_h, opt.load_size_w, opt.crop_size_h, opt.crop_size_w
+
+    def prepare_full(self, rng, depth, img, raw_img=False):
+        """The host half of ``--device_aug``: normalise and resize to the load
+        size, draw the host path's geometric parameters from ``rng``, and
+        return the (H, W, 4) image + depth stack, unclipped (the warp clips
+        after the crop, as the host path does), with its [angle, cy, cx,
+        flip] row. ``raw_img`` keeps the image in [0, 255] for the card's
+        ColorJitter (I2D)."""
+        lh, lw, ch, cw = self.aug_geometry()
+        if raw_img:
+            depth, img = T.normalize_depth_np(np.asarray(depth)), np.asarray(img, np.float32)
+        else:
+            depth, img = normalize_pair(depth, img)
+        img, depth = T.resize(img, lh, lw), T.resize(depth, lh, lw)
+        _, angle, y, x, flip = draw_geo_params(rng, self.P_ROT, lh, lw, ch, cw)
+        full = np.concatenate([img, depth[..., None]], axis=-1).astype(np.float32)
+        return full, np.array([angle, y, x, float(flip)], np.float32)
+
+    def device_finish(self, batch, device):
+        """The card's half of a ``--device_aug`` batch: ``batch`` is the
+        collated host batch (pinned on a CUDA run); its tensors go to
+        ``device`` without blocking, and one warp per domain (with
+        ColorJitter when the batch has ``A_jit``, its rounds sized from the
+        host's rows) replaces ``A_full``, ``A_aug`` (and ``A_jit``) and B's
+        by the model's input keys at crop size."""
+        from desr_tpu_torch.data.loader import to_device
+        from desr_tpu_torch.ops.device_aug import augment_stack, jitter_round_sizes, model_inputs
+
+        out = to_device(batch, device)
+        _, _, ch, cw = self.aug_geometry()
+        stacks = []
+        for d in "AB":
+            jit = out.pop(f"{d}_jit", None)
+            sizes = None if jit is None else jitter_round_sizes(batch[f"{d}_jit"][:, 4:8])
+            stacks.append(augment_stack(out.pop(f"{d}_full"), out.pop(f"{d}_aug"), ch, cw,
+                                        jit, sizes))
+        out.update(model_inputs(*stacks))
+        return out
 
     def __len__(self):
         return min(self.A_size, self.B_size)

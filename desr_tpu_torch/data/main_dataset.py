@@ -4,8 +4,10 @@ Geometry: Resize to load_size (INTER_AREA), then train: Rotate(±30°,
 p 0.9) + RandomCrop(crop_size_h, crop_size_w) + HFlip, or with ``--no_aug``
 PadIfNeeded(512, 640) + HFlip with p 0.5; test: PadIfNeeded(512, 640)
 (main_dataset.py:28-55). Emits per-sample intrinsics K_A/K_B and the crop
-boxes the K-based normals read. The host path only: ``--device_aug`` is
-refused by the options.
+boxes the K-based normals read. Under ``--device_aug`` (without ``--no_aug``,
+whose pad and flip stay on the host) an item ships the load-size stacks and
+their parameter rows, and ``device_finish`` warps the batch where the step
+runs (main_dataset.py:23-26,79-83).
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ class MainDataset(UnpairedFolderDataset):
     @property
     def augments(self):
         return self.train and not self.opt.no_aug
+
+    def device_aug_active(self):
+        return self.augments and getattr(self.opt, "device_aug", False)
 
     def _transform_pair(self, rng, depth, img):
         opt = self.opt
@@ -60,9 +65,13 @@ class MainDataset(UnpairedFolderDataset):
         K_B = self.get_intrinsics(B_path)
         K_A = self.interiornet_K() if self.opt.interiornet else self.get_intrinsics(A_path)
         crop_A, crop_B = self.crop_boxes()
-        A_d, A_i = self._transform_pair(rng, A_depth, A_img)
-        B_d, B_i = self._transform_pair(rng, B_depth, B_img)
-        return {"A_i": A_i, "B_i": B_i, "A_d": A_d, "B_d": B_d,
-                "A_paths": str(A_path), "B_paths": str(B_path),
+        meta = {"A_paths": str(A_path), "B_paths": str(B_path),
                 "K_A": K_A.astype(np.float32), "K_B": K_B.astype(np.float32),
                 "crop_A": crop_A, "crop_B": crop_B}
+        if self.device_aug_active():
+            A_full, A_aug = self.prepare_full(rng, A_depth, A_img)
+            B_full, B_aug = self.prepare_full(rng, B_depth, B_img)
+            return {"A_full": A_full, "A_aug": A_aug, "B_full": B_full, "B_aug": B_aug, **meta}
+        A_d, A_i = self._transform_pair(rng, A_depth, A_img)
+        B_d, B_i = self._transform_pair(rng, B_depth, B_img)
+        return {"A_i": A_i, "B_i": B_i, "A_d": A_d, "B_d": B_d, **meta}

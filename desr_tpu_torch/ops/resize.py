@@ -13,7 +13,9 @@ resize computes in float32 and casts back to the input's dtype, as
 The host data path resizes with the JAX package's numpy matrices of cv2's
 INTER_AREA (``resize_matrix``, ``resize_cv2_inter_area_np``) and with the
 matrices of cv2's INTER_LANCZOS4 (``lanczos4_matrix``,
-``resize_cv2_lanczos4_np``): the card's machine has no cv2.
+``resize_cv2_lanczos4_np``): the card's machine has no cv2. The SR stage's
+``--device_aug`` half resizes on the card with the same INTER_AREA weights
+(``resize_cv2_inter_area``).
 """
 
 from __future__ import annotations
@@ -118,6 +120,33 @@ def resize_bilinear_planar(x, out_hw):
 
 def resize_nearest_planar(x, out_hw):
     return _resize_planar(x, out_hw, "nearest")
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_on(in_size, out_size, mode, device):
+    """``resize_matrix`` as a tensor on ``device``, made once per size: a
+    host-to-device copy per call would wait for the device's queue to drain."""
+    return torch.from_numpy(resize_matrix(in_size, out_size, mode)).to(device)
+
+
+def resize_cv2_inter_area(img, out_hw):
+    """``cv2.resize(..., interpolation=cv2.INTER_AREA)`` of an NHWC tensor,
+    in float32 (resize.py:148-161): the rows, then the columns, each one
+    matmul with ``resize_matrix``'s weights, as ``resize_cv2_inter_area_np``.
+    The columns' matmul takes W first: with C innermost, (W, C) slices
+    would make one thin product per row."""
+    b, h, w, c = img.shape
+    oh, ow = out_hw
+    mode = "cv2_area" if (h >= oh and w >= ow) else "cv2_area_up"
+    x = img.float()
+    if oh != h:
+        x = torch.matmul(_resize_matrix_on(h, oh, mode, x.device),
+                         x.reshape(b, h, w * c)).reshape(b, oh, w, c)
+    if ow != w:
+        x = torch.matmul(_resize_matrix_on(w, ow, mode, x.device),
+                         x.permute(2, 0, 1, 3).reshape(w, b * oh * c))
+        x = x.reshape(ow, b, oh, c).permute(1, 2, 0, 3)
+    return x
 
 
 def resize_cv2_inter_area_np(img, out_hw):

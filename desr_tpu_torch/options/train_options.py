@@ -19,7 +19,7 @@ import argparse
 import os
 
 # flags of the JAX parser that change what its main stage does, not ported yet
-NOT_PORTED = ("use_wandb", "profile_dir", "steps_per_call", "device_aug", "remat",
+NOT_PORTED = ("use_wandb", "steps_per_call", "remat",
               "remat_tails", "no_remat_tails", "remat_blocks", "spatial_devices",
               "num_devices", "compiler_option", "no_donate", "compile_cache_dir")
 # XLA-lowering switches of the JAX package (layers.py Ctx): same math there
@@ -41,7 +41,7 @@ _VALUED = [
     ("load_size", int, 286), ("crop_size", int, 256), ("max_dataset_size", int, 2 ** 31),
     ("preprocess", str, "resize_and_crop"), ("display_winsize", int, 256),
     ("epoch", str, "latest"), ("load_iter", int, 0), ("suffix", str, ""),
-    ("compute_dtype", str, "bfloat16"), ("seed", int, 0),
+    ("compute_dtype", str, "bfloat16"), ("seed", int, 0), ("profile_dir", str, ""),
     # train_options.py:12-136
     ("display_freq", int, 400), ("display_ncols", int, 4), ("display_id", int, 1),
     ("display_server", str, "http://localhost"), ("display_env", str, "main"),
@@ -93,7 +93,7 @@ _SWITCHES = [
     "cat", "use_rec_masks", "use_idt_masks", "save_all", "use_rec_iou_error",
     "back_rec_iou_error", "use_rec_as_real_input", "use_image_for_trans", "norm_loss",
     "use_smooth_loss", "use_D", "use_edge", "use_masked", "use_scannet", "use_tv", "do_train",
-    "do_test", "interiornet", "no_aug", "use_i2d_in_input", "SR",
+    "do_test", "interiornet", "no_aug", "use_i2d_in_input", "SR", "device_aug",
 ]
 
 

@@ -32,9 +32,20 @@ step (``optimize_parameters(total_iters, --update_ratio)``), the losses
 print every ``--print_freq`` images (and go to ``loss_log.txt``), ``latest``
 checkpoints are written every ``--save_latest_freq`` batches and at each
 ``--save_epoch_freq``-th epoch end, and the LR steps per epoch; with
-``--do_test`` an eval pass averages the test losses. Not yet ported: wandb,
-the HTML gallery, the profiler and ``--steps_per_call``
-(options/train_options.py lists what stops the run).
+``--do_test`` an eval pass averages the test losses.
+
+``--device_aug`` (main without ``--no_aug``, ``--SR``, I2D; no effect on
+translation, as in JAX) moves the train augmentation onto the card: the
+loader's workers decode, resize and draw the parameters, and the trainer's
+process uploads each batch and warps it there (``data/loader.py:
+DeviceLoader``, ``ops/device_aug.py``). Rotations follow the JAX package's
+three-shear map, not cv2's warp. ``--profile_dir <dir>`` records the
+epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
+trace format), with a ``train_step`` span around each step and a
+``device_finish`` span around each batch's upload and warp (main.py:43-47,
+180-184). Still refused: wandb, ``--steps_per_call``, the remat and
+multi-device flags (``options/train_options.py:NOT_PORTED``); the HTML
+gallery is not written.
 """
 
 from __future__ import annotations
@@ -83,7 +94,7 @@ def main(argv=None):
     model = model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
     print(f"model [{model_cls.__name__}] was created")
     dataset_cls = dataset_for_model(opt)
-    dataset = create_dataset(opt, dataset_cls) if opt.do_train else None
+    dataset = create_dataset(opt, dataset_cls, device=device) if opt.do_train else None
     test_dataset = create_dataset(opt, dataset_cls, stage="test") if opt.do_test else None
     if dataset is not None:
         print("The number of training images = %d" % len(dataset.dataset))
@@ -92,6 +103,13 @@ def main(argv=None):
     with open(log_name, "a") as f:
         f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
 
+    profiler = None
+    if opt.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        profiler = profile(activities=[ProfilerActivity.CPU]
+                           + ([ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        profiler.start()
     total_iters = opt.start_iter
     losses = {}
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + opt.epoch_count):
@@ -102,8 +120,9 @@ def main(argv=None):
                 iter_start = time.time()
                 t_data = iter_start - iter_data_time
                 total_iters += opt.batch_size
-                model.set_input(data)
-                model.optimize_parameters(total_iters, opt.update_ratio)
+                with torch.profiler.record_function("train_step"):
+                    model.set_input(data)
+                    model.optimize_parameters(total_iters, opt.update_ratio)
                 if (total_iters - opt.start_iter) % opt.print_freq == 0:
                     losses = model.get_current_losses()
                     t_comp = (time.time() - iter_start) / opt.batch_size
@@ -138,6 +157,12 @@ def main(argv=None):
                 losses = dict(mean_losses)
         if not opt.do_train:
             break
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(opt.profile_dir, exist_ok=True)
+        trace = os.path.join(opt.profile_dir, "trace.json")
+        profiler.export_chrome_trace(trace)
+        print(f"profiler trace written to {trace}")
     return losses
 
 

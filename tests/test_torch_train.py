@@ -583,8 +583,8 @@ def _jax_parser():
 
 def test_every_port_flag_default_equals_jax():
     """Each flag the port runs has the JAX TrainOptions default (main stage
-    included); every JAX flag is known to the port, so none gets argparse's
-    unknown-flag error."""
+    included), --device_aug and --profile_dir among them; every JAX flag is
+    known to the port, so none gets argparse's unknown-flag error."""
     jp, tp = _jax_parser(), train_options.build_parser()
     port = {s: a for a in tp._actions for s in a.option_strings}
     refused = {f"--{n}" for n in train_options.NOT_PORTED + train_options.XLA_ONLY}
@@ -598,10 +598,11 @@ def test_every_port_flag_default_equals_jax():
                 assert (port[s].dest, port[s].default) == (a.dest, a.default), s
                 checked += 1
     assert checked > 150
+    assert {"--device_aug", "--profile_dir"} <= set(port) - refused
 
 
 @pytest.mark.parametrize("flag,msg", [
-    (["--device_aug"], "not yet ported"), (["--use_wandb"], "not yet ported"),
+    (["--remat"], "not yet ported"), (["--use_wandb"], "not yet ported"),
     (["--steps_per_call", "4"], "not yet ported"), (["--fold_norm"], "no counterpart"),
     (["--lr_policy", "plateau"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
 ])
