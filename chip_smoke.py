@@ -63,6 +63,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     512x640). Checks the 960x1280 PNGs, K1 at 24 launches per batch, and one
     batch's ``serve_forward`` against the same model with K1 swapped for its
     plain version (phase (c)'s bounds); times the batch and each net.
+(m) deployment, on (c)'s and (f)'s checkpoints and frames: ``predict.main
+    --export`` of main (batch 8, 480x640 padded to 512x640), ``--SR`` (batch
+    4, 960x1280 padded to 1024x1280) and the --pallas_conv route, bf16, with
+    torch.export's and its save's seconds; each saved program holds 24
+    desr::conv3x3_fused nodes (desr::conv3x3 under --pallas_conv) and as
+    many library conv nodes as the nets have other convs, and loads (seconds
+    printed); ``--from_export`` serves (c)'s 16 and (f)'s 8 frames (the
+    --pallas_conv route (c)'s first 8) with K1 (K2) at 24 a batch and PNGs
+    equal to the live CLI's or within (c)'s bf16 bound; the artifact's batch
+    against the live serve_forward's (max |d|, device ms by CUDA events, live,
+    artifact, artifact, live; equal under cuDNN's deterministic algorithms),
+    the artifact profiled; the CLI's host wall over 64 frames (main; 32 under
+    --SR; hard links) at --num_workers 0 and 4;
+    ``desr_tpu_torch.metrics.main`` on (c)'s predictions against their
+    inputs with the holes filled, with intrinsics: nine finite values, the
+    same at --n_cpus 1 and 4, seconds a frame at each; ``ops/ssim.py`` on
+    the card against the CPU within 1e-5.
 (g) SR training: 4 synthetic 480x640 frames per domain through
     NaiveSRDataset (INTER_AREA x2, pad to 1024x1280, the whole canvas as the
     crop); ``train.main --SR`` with the README's SR flags and bench.py's loss
@@ -129,7 +146,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     with --profile_dir, whose trace must hold the train_step and
     device_finish spans and K1's kernels.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
-    serving and train paths (and by path), error, time, the plain version's
+    serving and train paths (and by path; ``launches_artifact``: phase (m)'s
+    runs of the exported programs), error, time, the wrapper's host time a
+    call (``host_ms``; for K1/K2 the issue time of calls queued behind each
+    other), the plain version's
     and the library call's times, its bound on this card and the share of it
     reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
     the main serving shape, the translator's, the SR step's two HR shapes,
@@ -157,6 +177,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -221,6 +242,22 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def issue_ms(fn, calls=50):
+    """The host's time to issue one call of fn in ms: ``calls`` calls queued
+    back to back while the card runs behind, timed before the sync
+    (perf_counter); for calls that keep the card busier than the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def host_ms(fn, calls=200):
@@ -696,6 +733,8 @@ def phase_serving(tmp):
           + ", ".join(f"{k[7:]} {v:.2f}" for k, v in report.items() if k.startswith("net_ms_")))
     report.update(_profile(lambda: model.serve_forward(batch), iters=3))
     print("[c] " + json.dumps(report))
+    with open(os.path.join(tmp, "report.json"), "w") as f:  # phase (m) reads its bound
+        json.dump(report, f)
     return {"serve_main": launches}
 
 
@@ -1177,6 +1216,8 @@ def phase_sr_serving(tmp):
           + ", ".join(f"{k[7:]} {v:.2f}" for k, v in report.items() if k.startswith("net_ms_")))
     report.update(_profile(lambda: model.serve_forward(batch), iters=3, tag="f"))
     print("[f] " + json.dumps(report))
+    with open(os.path.join(tmp, "report.json"), "w") as f:  # phase (m) reads its bound
+        json.dump(report, f)
     return {"serve_sr": launches}
 
 
@@ -2002,6 +2043,316 @@ def phase_device_aug(tmp):
     return paths
 
 
+# ------------------------------------------------------------------ (m)
+
+CLI_FRAMES = {"main": 64, "SR": 32}  # the CLI's wall over this many frames (hard links)
+CLI_WORKERS = (0, 4)     # --num_workers: inline, and a spawned pool of 4
+
+
+def _deploy_cli(argv):
+    """predict.main in-process, synchronised at the end: (host wall s, launches)."""
+    import torch
+
+    from desr_tpu_torch import predict
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    predict.main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, _counts()
+
+
+def _export_cli(argv):
+    """predict.main --export: (manifest, seconds of the CLI, of torch.export.export
+    and of torch.export.save)."""
+    import torch
+
+    from desr_tpu_torch import predict
+
+    secs = {}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs[key] = time.perf_counter() - t0
+        return run
+
+    t0 = time.perf_counter()
+    with mock.patch.object(torch.export, "export", timed(torch.export.export, "export")), \
+            mock.patch.object(torch.export, "save", timed(torch.export.save, "save")):
+        manifest = predict.main(argv)
+    return manifest, time.perf_counter() - t0, secs["export"], secs["save"]
+
+
+def _check_graph(tag, art, kernel):
+    """The saved program holds one ``kernel`` node per ResnetBlock conv and,
+    beside them, exactly as many library conv nodes as the nets have other
+    convs: no plain version stands in for a kernel. Returns the seconds of
+    torch.export.load."""
+    import collections
+
+    import torch
+
+    t0 = time.perf_counter()
+    program = torch.export.load(os.path.join(art, "serving.pt2"))
+    secs = time.perf_counter() - t0
+    ops = collections.Counter(str(n.target) for n in program.graph.nodes
+                              if n.op == "call_function")
+    convs = [k for k, v in program.state_dict.items() if v.dim() == 4]
+    in_blocks = sum("conv_block" in k for k in convs)
+    library = sum(v for k, v in ops.items() if k.startswith("aten.conv"))
+    other = ({"desr.conv3x3_fused.default", "desr.conv3x3.default"} - {kernel}).pop()
+    check(ops[kernel] == in_blocks == LAUNCHES_PER_BATCH and ops[other] == 0,
+          f"[m] {tag}: {ops[kernel]} {kernel} and {ops[other]} {other} nodes for "
+          f"{in_blocks} ResnetBlock convs; want {LAUNCHES_PER_BATCH} and 0")
+    check(library == len(convs) - in_blocks,
+          f"[m] {tag}: {library} library conv nodes for the nets' {len(convs) - in_blocks} "
+          "other convs")
+    print(f"[m] {tag}: {ops[kernel]} {kernel} nodes (one a ResnetBlock conv), {library} "
+          f"library conv nodes for the nets' {library} other convs, {len(program.graph.nodes)} "
+          f"nodes in all; torch.export.load {secs:.2f} s")
+    return secs
+
+
+def _compare_pngs(tag, got_dir, want_dir, n, hw, noise):
+    """The artifact's PNGs against the live CLI's: the same kernels and
+    library convs on the same inputs, but cuDNN's default forward algorithms
+    need not repeat bit for bit (``_artifact_vs_live`` shows the live route
+    against itself), so the bound is ``_serve_checks``'s: mean |d| within
+    1.5x the plain bf16 convs' mean |d| from float32 (``noise`` on [-1, 1];
+    2550 mm a unit)."""
+    import numpy as np
+
+    d = np.abs(_read_outputs(got_dir, n, hw) - _read_outputs(want_dir, n, hw))
+    equal = float((d == 0).mean())
+    print(f"[m] {tag}: PNGs against the live CLI's: max |d| {int(d.max())} mm, mean "
+          f"{float(d.mean()):.4f} mm, {100 * equal:.4f}% of pixels equal (bound: mean within "
+          f"{1.5 * 2550 * noise:.3f} mm)")
+    check(float(d.mean()) <= 1.5 * 2550 * noise,
+          f"[m] {tag}: mean |d| {float(d.mean()):.4f} mm over the bound")
+    return {"max_abs_mm": int(d.max()), "equal_share": equal}
+
+
+def _link_frames(src_dirs, dst, n):
+    """n frames under dst/{depth,img}, hard links cycling through src_dirs' frames."""
+    srcs = [(os.path.join(d, "depth", f), os.path.join(d, "img", f))
+            for d in src_dirs for f in sorted(os.listdir(os.path.join(d, "depth")))]
+    for sub in ("depth", "img"):
+        os.makedirs(os.path.join(dst, sub))
+    for i in range(n):
+        for sub, src in zip(("depth", "img"), srcs[i % len(srcs)]):
+            os.link(src, os.path.join(dst, sub, f"g{i:03d}.png"))
+    return dst
+
+
+def _artifact_vs_live(tag, art, model, batch, frames):
+    """The artifact's batch against the live serve_forward's on the same
+    device tensors: max |d| beside live against itself (cuDNN's default
+    forward algorithms need not repeat bit for bit, which bf16 rounding
+    turns into ~3e-2), and with cuDNN's deterministic algorithms, where the
+    two must be equal; then device ms by CUDA events in the order live,
+    artifact, artifact, live."""
+    import torch
+
+    from desr_tpu_torch.serving import load_serving
+
+    t0 = time.perf_counter()
+    fn, params, _ = load_serving(art)
+    load_s = time.perf_counter() - t0
+
+    def exp():
+        return fn(params, batch)
+
+    def live():
+        return model.serve_forward(batch)
+
+    diff = float((exp() - live()).abs().max())
+    floor = float((live() - live()).abs().max())
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exact = float((exp() - live()).abs().max())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(exact == 0.0, f"[m] {tag}: artifact against live under deterministic cuDNN: max |d| "
+          f"{exact:.3g}, want 0")
+    times = {"live": [], "artifact": []}
+    for name in ("live", "artifact", "artifact", "live"):
+        times[name].append(cuda_ms(live if name == "live" else exp, iters=5, warmup=2))
+    torch.cuda.synchronize()
+    out = {f"{k}_ms": sum(v) / len(v) for k, v in times.items()}
+    out.update({f"{k}_ms_runs": v for k, v in times.items()}, max_abs_diff=diff,
+               live_floor_max_abs_diff=floor, load_serving_s=load_s)
+    print(f"[m] {tag}: batch of {frames}, artifact against live serve_forward: max |d| "
+          f"{diff:.3g} (live against itself {floor:.3g}; both under deterministic cuDNN "
+          f"{exact:.3g}); device ms (CUDA events, 5 after 2, live/artifact/artifact/live) "
+          f"live {out['live_ms']:.2f} ({frames * 1e3 / out['live_ms']:.1f} frames/s), artifact "
+          f"{out['artifact_ms']:.2f} ({frames * 1e3 / out['artifact_ms']:.1f} frames/s); "
+          f"load_serving {load_s:.2f} s")
+    return out, exp
+
+
+def phase_deployment(tmp, serve_dir, sr_dir):
+    """Deployment and evaluation on (c)'s and (f)'s checkpoints and frames:
+    predict --export / --from_export (main, --SR, the --pallas_conv route),
+    the CLI's host wall at --num_workers 0 and 4, the offline metrics and
+    SSIM on the card."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import metrics, predict, serving
+    from desr_tpu_torch.data.png import read_png, write_png
+    from desr_tpu_torch.models.main_model import MainModel, NetOptions
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.ops.ssim import ssim
+    from desr_tpu_torch.serving import load_serving
+
+    report = {}
+    noise = {}
+    for tag, d in (("c", serve_dir), ("f", sr_dir)):
+        with open(os.path.join(d, "report.json")) as f:
+            noise[tag] = json.load(f)["bf16_plain_mean_abs_diff"]
+    paths = {"serve_artifact": {"K1": 0, "K2": 0}, "serve_artifact_k2": {"K1": 0, "K2": 0}}
+    routes = (  # tag, checkpoints, flags, frames a request, output grid, (c)/(f) live PNGs
+        ("main", serve_dir, "smoke", [], 8, (480, 640), "out{r}"),
+        ("SR", sr_dir, "sr", ["--SR"], 4, (960, 1280), "out{r}"),
+        ("--pallas_conv", serve_dir, "smoke", ["--net_args", "--pallas_conv"], 8, (480, 640),
+         "out0_k2"))
+    arts = {}
+    for tag, root, name, flags, bsz, hw, live_out in routes:
+        art = os.path.join(tmp, f"art_{tag.strip('-')}")
+        arts[tag] = art
+        argv = ["--name", name, "--checkpoints_dir", root,
+                "--input_depth", os.path.join(root, "req0", "depth"),
+                "--input_img", os.path.join(root, "req0", "img"),
+                "--output", os.path.join(tmp, "unused"), "--batch_size", str(bsz),
+                "--compute_dtype", "bfloat16", "--export", art, *flags]
+        manifest, cli_s, export_s, save_s = _export_cli(argv)
+        check(not os.path.exists(os.path.join(tmp, "unused")), "--export wrote PNGs")
+        mult = 256 if tag == "SR" else 128
+        check(manifest["batch"]["B_d"][0] == [bsz, *(-(-x // mult) * mult for x in hw), 1],
+              f"[m] {tag}: manifest batch {manifest['batch']}")
+        print(f"[m] {tag}: predict --export in {cli_s:.2f} s (model build, .pth load, decode "
+              f"included): torch.export.export {export_s:.2f} s, torch.export.save "
+              f"{save_s:.2f} s; manifest batch {json.dumps(manifest['batch'])}, compute dtype "
+              f"{manifest['compute_dtype']}, platforms {manifest['platforms']}")
+        kernel = "desr.conv3x3.default" if "--pallas_conv" in flags else \
+            "desr.conv3x3_fused.default"
+        load_s = _check_graph(tag, art, kernel)
+        report[f"{tag}_export_s"], report[f"{tag}_load_s"] = export_s, load_s
+        requests = 1 if "--pallas_conv" in flags else 2
+        for r in range(requests):
+            out = os.path.join(tmp, f"exp_{tag.strip('-')}{r}")
+            wall, c = _deploy_cli(["--input_depth", os.path.join(root, f"req{r}", "depth"),
+                                   "--input_img", os.path.join(root, f"req{r}", "img"),
+                                   "--output", out, "--from_export", art])
+            k = "K2" if "--pallas_conv" in flags else "K1"
+            check(c[k] == LAUNCHES_PER_BATCH and sum(c.values()) == LAUNCHES_PER_BATCH,
+                  f"[m] {tag} --from_export request {r}: launches {c}; want {k} "
+                  f"{LAUNCHES_PER_BATCH}")
+            path = "serve_artifact_k2" if k == "K2" else "serve_artifact"
+            paths[path][k] += c[k]
+            cmp = _compare_pngs(f"{tag} --from_export request {r} ({wall:.2f} s host wall, "
+                                f"{k} {c[k]})", out, os.path.join(root, live_out.format(r=r)),
+                                bsz, hw, noise["f" if tag == "SR" else "c"])
+            report[f"{tag}_request{r}"] = dict(cmp, wall_s=wall)
+
+    # the artifact's batch against the live forward's, on the device
+    for tag, root, name, model in (
+            ("main", serve_dir, "smoke", MainModel(NetOptions(), device="cuda")),
+            ("SR", sr_dir, "sr", MainSRModel(NetOptions(crop_size_h=512, crop_size_w=640),
+                                              device="cuda"))):
+        model.load_networks(root, name, "latest")
+        n = 4 if tag == "SR" else 8
+        frames = [predict.decode_frame(os.path.join(root, "req0", "depth", f"f{i:02d}.png"),
+                                       os.path.join(root, "req0", "img", f"f{i:02d}.png"),
+                                       5100.0, 256 if tag == "SR" else 128) for i in range(n)]
+        batch = {k: torch.from_numpy(np.stack([f[j] for f in frames])).cuda()
+                 for j, k in enumerate(("B_d", "B_i"))}
+        out, exp = _artifact_vs_live(tag, arts[tag], model, batch, n)
+        report[f"{tag}_device"] = out
+        if tag == "main":
+            report["main_artifact_profile"] = _profile(exp, iters=3, tag="m")
+        del model, batch, exp
+        torch.cuda.empty_cache()
+
+    # the CLI as a user runs it: --from_export over CLI_FRAMES frames
+    for tag, srcs, bsz, hw in (
+            ("main", [os.path.join(serve_dir, f"req{r}") for r in range(2)], 8, (480, 640)),
+            ("SR", [os.path.join(sr_dir, f"req{r}") for r in range(2)], 4, (960, 1280))):
+        n = CLI_FRAMES[tag]
+        req = _link_frames(srcs, os.path.join(tmp, f"many_{tag}"), n)
+        for workers in CLI_WORKERS:
+            out = os.path.join(tmp, f"many_{tag}_out{workers}")
+            load = {}
+
+            def timed_load(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return load_serving(*a, **k)
+                finally:
+                    load["s"] = time.perf_counter() - t0
+
+            with mock.patch.object(serving, "load_serving", timed_load):
+                wall, c = _deploy_cli(["--input_depth", os.path.join(req, "depth"),
+                                       "--input_img", os.path.join(req, "img"), "--output",
+                                       out, "--from_export", arts[tag], "--num_workers",
+                                       str(workers)])
+            check(c["K1"] == LAUNCHES_PER_BATCH * n // bsz,
+                  f"[m] {tag} CLI over {n} frames: launches {c}")
+            check(len(os.listdir(out)) == n and read_png(
+                os.path.join(out, "g000.png")).shape == hw, f"[m] {tag}: CLI outputs")
+            report[f"{tag}_cli_workers{workers}_s"] = wall
+            report[f"{tag}_cli_workers{workers}_load_s"] = load["s"]
+            print(f"[m] {tag}: predict --from_export over {n} frames at --num_workers "
+                  f"{workers}: {wall:.2f} s host wall, {n / wall:.2f} frames/s (the pool's "
+                  f"start, PNG decode and write included); the artifact's load {load['s']:.2f} s "
+                  f"of it, {n / (wall - load['s']):.2f} frames/s after it")
+            shutil.rmtree(out)
+
+    # the offline metrics on (c)'s predictions; targets: the input frames
+    # with their holes filled, each frame its own scene with intrinsics
+    target = os.path.join(tmp, "target")
+    os.makedirs(target)
+    for f in sorted(os.listdir(os.path.join(serve_dir, "req0", "depth"))):
+        d = read_png(os.path.join(serve_dir, "req0", "depth", f))
+        write_png(os.path.join(target, f), np.where(d == 0, 1500, d).astype(np.uint16))
+        kdir = os.path.join(tmp, "intr", metrics.filter_basename(f)[:12], "intrinsic")
+        os.makedirs(kdir)
+        np.savetxt(os.path.join(kdir, "intrinsic_depth.txt"),
+                   [[577.87, 0, 319.5, 0], [0, 577.87, 239.5, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    argv = ["--input_path", os.path.join(serve_dir, "req0", "depth"),
+            "--pred_path", os.path.join(serve_dir, "out0"), "--target_path", target,
+            "--intr_root", os.path.join(tmp, "intr")]
+    vals = {}
+    for n_cpus in (1, 4):
+        t0 = time.perf_counter()
+        vals[n_cpus] = metrics.main(argv + ["--n_cpus", str(n_cpus)])
+        report[f"metrics_s_per_frame_cpus{n_cpus}"] = (time.perf_counter() - t0) / 8
+    check(sorted(vals[1]) == sorted(metrics.DEFAULT_METRICS)
+          and all(math.isfinite(v) for v in vals[1].values()) and vals[1] == vals[4],
+          f"[m] metrics: {vals}")
+    report["metrics"] = vals[1]
+    print(f"[m] desr_tpu_torch.metrics on (c)'s 8 predictions against the hole-filled inputs: "
+          + ", ".join(f"{k} {v:.5g}" for k, v in vals[1].items())
+          + f"; {report['metrics_s_per_frame_cpus1']:.3f} s a frame at --n_cpus 1, "
+          f"{report['metrics_s_per_frame_cpus4']:.3f} at 4 (spawned pool start included)")
+
+    # SSIM on the card against the CPU on the same predictions and targets
+    pred = torch.from_numpy(_read_outputs(os.path.join(serve_dir, "out0"), 8)[..., None] / 5100.0)
+    tgt = torch.from_numpy(np.stack([read_png(os.path.join(target, f))
+                                     for f in sorted(os.listdir(target))])[..., None] / 5100.0)
+    on_card, on_cpu = float(ssim(pred.cuda(), tgt.cuda())), float(ssim(pred, tgt))
+    check(abs(on_card - on_cpu) <= 1e-5, f"[m] ssim card {on_card} against CPU {on_cpu}")
+    report.update(ssim_card=on_card, ssim_cpu=on_cpu)
+    print(f"[m] ops/ssim.py on (8, 480, 640, 1): card {on_card:.7f}, CPU {on_cpu:.7f}")
+    print("[m] " + json.dumps(report))
+    return paths
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -2025,8 +2376,10 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
         by_path = {p: c.get(kernel, 0) for p, c in paths.items()}
         serving = sum(v for p, v in by_path.items() if p.startswith("serve"))
         train = sum(v for p, v in by_path.items() if p.startswith("train"))
+        artifact = sum(v for p, v in by_path.items() if p.startswith("serve_artifact"))
         return {"launches": serving + train, "launches_serving": serving,
-                "launches_train": train, "launches_by_path": by_path}
+                "launches_train": train, "launches_artifact": artifact,
+                "launches_by_path": by_path}
 
     rows = []
     # K1 and K2 at the main serving shape (reflect), K1 at the translator's
@@ -2080,6 +2433,8 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "replaces": replaces, **counts(entry.split()[0]),
             "max_abs_err": worst[entry],
             "event_ms": cuda_ms(fn), **_device_stats(fn, "conv3x3"),
+            # the wrapper and the desr:: operator's dispatch, per call
+            "host_ms": issue_ms(fn),
             "plain_ms": cuda_ms(plain, iters=5),
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": cuda_ms(lambda: F.conv2d(xp, wb)),
@@ -2204,12 +2559,18 @@ def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode):
     def lib():
         return torch.autograd.grad(y, (xpl, wbl), gy, retain_graph=True)
 
-    return {"backward_ms": cuda_ms(bwd, iters=10),
-            "backward_device_ms": _profile(bwd, iters=10, tag="d", unit="call")[
-                "profile_device_ms_per_call"],
+    def device(fn):
+        # the profiler can trace nothing in a round (it once missed
+        # cuDNN's backward alone): up to three rounds
+        for _ in range(3):
+            ms = _profile(fn, iters=10, tag="d", unit="call")["profile_device_ms_per_call"]
+            if ms is not None:
+                return ms
+        return None
+
+    return {"backward_ms": cuda_ms(bwd, iters=10), "backward_device_ms": device(bwd),
             "library_backward_ms": cuda_ms(lib, iters=10),
-            "library_backward_device_ms": _profile(lib, iters=10, tag="d", unit="call")[
-                "profile_device_ms_per_call"]}
+            "library_backward_device_ms": device(lib)}
 
 
 def _device_stats(fn, key, repeats=1, flush_l2=True):
@@ -2257,14 +2618,24 @@ def main():
     worst = phase_kernels()
     k3_err, k3_bwd_err = phase_masked_loss()
     paths = {}  # each path's launches by kernel, from its phase's run of the entry point
-    for phase in (phase_serving, phase_training, phase_sr_serving, phase_sr_training,
-                  phase_i2d_serving, phase_translate_serving, phase_i2d_training,
-                  phase_translation_training, phase_device_aug):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
-            paths.update(phase(tmp))
-        torch.cuda.empty_cache()
-        print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
+        for phase in (phase_serving, phase_training, phase_sr_serving, phase_deployment,
+                      phase_sr_training, phase_i2d_serving, phase_translate_serving,
+                      phase_i2d_training, phase_translation_training, phase_device_aug):
+            t0 = time.perf_counter()
+            tmp = os.path.join(root, phase.__name__)
+            os.makedirs(tmp)
+            if phase is phase_deployment:  # serves (c)'s and (f)'s checkpoints and frames
+                served = [os.path.join(root, p.__name__) for p in (phase_serving, phase_sr_serving)]
+                paths.update(phase(tmp, *served))
+                for d in served:
+                    shutil.rmtree(d)
+            else:
+                paths.update(phase(tmp))
+            if phase not in (phase_serving, phase_sr_serving):
+                shutil.rmtree(tmp)
+            torch.cuda.empty_cache()
+            print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     rows = phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so)
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} was launched on no path")

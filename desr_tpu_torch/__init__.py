@@ -16,6 +16,9 @@ layout so each counterpart is found under the same path:
                                the main dataset and its loader.
 - ``desr_tpu_torch.options`` — the train CLI's flags (the JAX names and defaults).
 - ``desr_tpu_torch.predict`` — ``python -m desr_tpu_torch.predict``.
+- ``desr_tpu_torch.serving`` — the exported serving artifact (``--export``,
+                               ``--from_export``).
+- ``desr_tpu_torch.metrics`` — ``python -m desr_tpu_torch.metrics``.
 - ``desr_tpu_torch.train``   — ``python -m desr_tpu_torch.train``.
 
 The package imports nothing of ``desr_tpu`` and nothing of JAX. Entry points
@@ -25,14 +28,18 @@ raise instead of carrying on on the CPU.
 
 from __future__ import annotations
 
-import torch
+# torch is imported where it is used: the serving CLI's and the metrics'
+# spawned workers import this package for its host modules alone
 
-def resolve_device(device=None) -> torch.device:
+
+def resolve_device(device=None):
     """The device an entry point runs on: ``cuda`` unless ``"cpu"`` is asked for.
 
     Raises RuntimeError when a CUDA device is asked for (the default) and
     none is present, so that nothing silently runs on the CPU.
     """
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

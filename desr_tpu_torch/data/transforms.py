@@ -14,11 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from desr_tpu_torch.ops.resize import resize_cv2_inter_area_np, resize_cv2_lanczos4_np
-
 INTER_AREA = 3
 INTER_LANCZOS4 = 4
-_RESIZES = {INTER_AREA: resize_cv2_inter_area_np, INTER_LANCZOS4: resize_cv2_lanczos4_np}
 
 
 def resize(img, height, width, interpolation=INTER_AREA):
@@ -26,11 +23,16 @@ def resize(img, height, width, interpolation=INTER_AREA):
     (transforms.py:44-47); INTER_AREA and INTER_LANCZOS4 are ported."""
     if img.shape[0] == height and img.shape[1] == width:
         return img
-    if interpolation not in _RESIZES:
+    if interpolation not in (INTER_AREA, INTER_LANCZOS4):
         raise NotImplementedError(
             f"resizing with cv2 interpolation {interpolation} (transforms.py:44-47): "
             "not yet ported; INTER_AREA (3) and INTER_LANCZOS4 (4) are")
-    return _RESIZES[interpolation](img, (height, width))
+    # imported here: ops.resize imports torch, which the serving CLI's
+    # decode workers (this module's other users) do without
+    from desr_tpu_torch.ops import resize as R
+
+    fn = R.resize_cv2_inter_area_np if interpolation == INTER_AREA else R.resize_cv2_lanczos4_np
+    return fn(img, (height, width))
 
 
 def pad_if_needed(img, min_h, min_w):

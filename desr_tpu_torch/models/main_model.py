@@ -71,6 +71,46 @@ def _to_device(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+class ServingForward(torch.nn.Module):
+    """The real branch of the eval forward as one module: the JAX package's
+    ``_forward_fn`` (main_model.py:146) read at ``pred_real_depth``.
+
+    ``forward(B_d, B_i)`` takes the (B, H, W, 1) depth and (B, H, W, 3) image
+    in [-1, 1], NHWC tensors on the nets' device, and returns the (B, H, W)
+    float32 prediction. Live serving (``MainModel.serve_forward``) and the
+    exported artifact (``desr_tpu_torch/serving.py``) both run it. It holds
+    the four serving nets (shared with the model, not copied), so its
+    parameters are named ``<net>.<torch key>``.
+    """
+
+    def __init__(self, nets, compute_dtype):
+        super().__init__()
+        for name in NET_NAMES:
+            self.add_module(name, nets[name])
+        self.compute_dtype = compute_dtype
+
+    def guidance(self, images):
+        """(features, depth prior) of the frozen image nets: compute-dtype
+        NCHW features and a float32 (B, H, W) depth, on the images' grid."""
+        feats = self.I2D_features(images)
+        return feats, self.Image2Depth(feats)[:, 0].float()
+
+    def forward(self, B_d, B_i):  # noqa: N803  (the batch keys)
+        dt = self.compute_dtype
+        # an NHWC tensor permuted to NCHW is a channels_last NCHW tensor
+        real_image = B_i.to(dt).permute(0, 3, 1, 2)
+        # eval draws no holes: with p=0 the hole mask is all ones
+        # (depth.py:117), so the masked depth is the depth itself
+        real_depth = B_d[..., 0].float()
+        feats_real, real_dbi = self.guidance(real_image)
+        real_pair = torch.stack([real_depth, real_dbi], dim=1).to(dt)
+        real_pair = real_pair.contiguous(memory_format=torch.channels_last)
+        feat_real_d = self.Depth_f(real_pair)
+        # channel order of main_model.py:237 (apply_parts is the same function)
+        task_in = torch.cat([feats_real, feat_real_d, real_pair, real_image], dim=1)
+        return self.Task(task_in)[:, 0].float()
+
+
 class MainModel(BaseModel):
     """MainModel (main_model.py:59-463) on one device.
 
@@ -176,38 +216,26 @@ class MainModel(BaseModel):
 
     # ------------------------------------------------------------------
 
+    def serving_module(self):
+        """The real branch of the eval forward over this model's serving nets
+        (``ServingForward``), in its compute dtype."""
+        return ServingForward(self.nets, self.compute_dtype)
+
     @torch.no_grad()
     def serve_forward(self, batch):
         """``pred_real_depth`` (B, H, W) float32 of the eval forward's real branch.
 
         ``batch``: "B_i" (B, H, W, 3) image and "B_d" (B, H, W, 1) depth, both
-        in [-1, 1], numpy arrays or tensors (the JAX package's NHWC layout).
+        in [-1, 1], numpy arrays or tensors (the JAX package's NHWC layout),
+        uploaded to the model's device for ``serving_module()``.
         """
-        dt = self.compute_dtype
-        # an NHWC tensor permuted to NCHW is a channels_last NCHW tensor
-        real_image = _to_device(batch["B_i"], self.device).to(dt).permute(0, 3, 1, 2)
-        real_depth = _to_device(batch["B_d"], self.device)[..., 0].float()
-        if self.use_masked:
-            # eval draws no holes (p=0): the mask is all ones (depth.py:117)
-            real_mask = DPT.valid_mask(real_depth, BORDER)
-            gt_mask_real = DPT.random_rect_holes(real_mask, n_max=11, p=0.0)
-            depth_masked = DPT.punch_holes(real_depth, gt_mask_real)
-        else:
-            depth_masked = real_depth
-        nets = self.nets
-        feats_real, real_dbi = self._guidance(real_image)
-        real_pair = torch.stack([depth_masked, real_dbi], dim=1).to(dt)
-        real_pair = real_pair.contiguous(memory_format=torch.channels_last)
-        feat_real_d = nets["Depth_f"](real_pair)
-        # channel order of main_model.py:237 (apply_parts is the same function)
-        task_in = torch.cat([feats_real, feat_real_d, real_pair, real_image], dim=1)
-        return nets["Task"](task_in)[:, 0].float()
+        return self.serving_module()(_to_device(batch["B_d"], self.device),
+                                     _to_device(batch["B_i"], self.device))
 
     def _guidance(self, images):
         """(features, depth prior) of the frozen image nets: compute-dtype
         NCHW features and a float32 (B, H, W) depth, on the images' grid."""
-        feats = self.nets["I2D_features"](images)
-        return feats, self.nets["Image2Depth"](feats)[:, 0].float()
+        return self.serving_module().guidance(images)
 
     def _real_input_depth(self, batch, real_depth, real_image):
         """The real depth the holes are punched into (main: the input's own)."""

@@ -29,11 +29,30 @@ from __future__ import annotations
 import torch
 
 from desr_tpu_torch.models import networks
-from desr_tpu_torch.models.main_model import BORDER, MainModel
+from desr_tpu_torch.models.main_model import BORDER, MainModel, ServingForward
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
 from desr_tpu_torch.ops.masked_loss import fused_hole_means
 from desr_tpu_torch.ops.resize import resize_bicubic_planar, resize_nearest_planar
+
+
+class SRServingForward(ServingForward):
+    """``ServingForward`` of the SR stage (the JAX ``_forward_fn``,
+    main_sr_model.py:108, read at ``pred_real_depth_hr``): the input grid is
+    the HR one, ``hr_hw``; the image guidance runs at ``lr_hw``."""
+
+    def __init__(self, nets, compute_dtype, lr_hw, hr_hw):
+        super().__init__(nets, compute_dtype)
+        self.lr_hw, self.hr_hw = tuple(lr_hw), tuple(hr_hw)
+
+    def guidance(self, images):
+        """LR guidance, upsampled to HR (main_sr_model.py:166-172): the casts
+        to the compute dtype after each resize are the JAX package's."""
+        dt = self.compute_dtype
+        lr_img = resize_bicubic_planar(images.float(), self.lr_hw).to(dt)
+        feats, dbi = super().guidance(lr_img)
+        return (resize_bicubic_planar(feats.float(), self.hr_hw).to(dt),
+                resize_bicubic_planar(dbi, self.hr_hw))
 
 
 class MainSRModel(MainModel):
@@ -62,14 +81,9 @@ class MainSRModel(MainModel):
         return {"G_B_d": networks.define_G(4, 1, opt.ngf, opt.netG,
                                            **dict(common, use_dropout=not opt.no_dropout))}
 
-    def _guidance(self, images):
-        """LR guidance, upsampled to HR (main_sr_model.py:166-172): the casts
-        to the compute dtype after each resize are the JAX package's."""
-        dt = self.compute_dtype
-        lr_img = resize_bicubic_planar(images.float(), self.lr_hw).to(dt)
-        feats, dbi = super()._guidance(lr_img)
-        return (resize_bicubic_planar(feats.float(), self.hr_hw).to(dt),
-                resize_bicubic_planar(dbi, self.hr_hw))
+    def serving_module(self):
+        """``SRServingForward``: the real branch at the SR grids."""
+        return SRServingForward(self.nets, self.compute_dtype, self.lr_hw, self.hr_hw)
 
     def _real_input_depth(self, batch, real_depth, real_image):
         if "G_B_d" not in self.nets:

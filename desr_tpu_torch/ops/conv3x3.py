@@ -26,8 +26,11 @@ A CPU tensor takes the plain PyTorch version (``conv3x3_fused_plain``), which
 is also the kernel's oracle on the card. A CUDA tensor launches the kernel or
 raises: there is no fallback.
 
-Both wrappers are differentiable in x, w, scale and shift (``_Conv3x3``, the
-custom VJPs of pallas_conv.py:322-333 and :379-413). As in the JAX package the
+Both wrappers call operators registered with ``torch.library``
+(``desr::conv3x3_fused``, ``desr::conv3x3``), so ``torch.export`` keeps each
+call as one node of the graph it saves (``desr_tpu_torch/serving.py``); each
+has a fake implementation for tracing and an autograd formula, the custom
+VJPs of pallas_conv.py:322-333 and :379-413. As in the JAX package the
 backward is no kernel of its own: the stats cotangents fold into the output's
 (``g_out + g_s + 2 out g_s2``), then one ``aten.convolution_backward`` on the
 normalised, padded input (recomputed from x, as ``_fused_bwd`` does) gives dx
@@ -211,78 +214,168 @@ def _prologue(x, scale, shift, relu):
     return (torch.relu(v) if relu else v).to(x.dtype), v
 
 
-class _Conv3x3(torch.autograd.Function):
-    """The forward of either wrapper (kernel or plain version, by device) with
-    the VJP of the plain composition prologue -> pad -> conv (-> moments)."""
-
-    @staticmethod
-    def forward(ctx, x, w, scale, shift, pad_mode, relu, stats, forward_fn):
-        res = forward_fn(x, w, scale, shift, pad_mode, relu, stats)
-        ctx.pad_mode, ctx.relu, ctx.stats = pad_mode, relu, stats
-        ctx.save_for_backward(x, w, scale, shift, res[0] if stats else None)
-        return res
-
-    @staticmethod
-    def backward(ctx, *grads):
-        x, w, scale, shift, out = ctx.saved_tensors
-        dt = x.dtype
-        if ctx.stats:
-            # s = sum(out32), s2 = sum(out32^2) fold into the output's
-            # cotangent (pallas_conv.py:390-397): no conv recompute for them
-            g_out, g_s, g_s2 = grads
-            g = (g_out.float() + g_s[:, None, None, :]
-                 + 2.0 * out.float() * g_s2[:, None, None, :]).to(dt)
-        else:
-            g = grads[0].to(dt)
-        xin, v = _prologue(x, scale, shift, ctx.relu)
-        xin = xin.permute(0, 3, 1, 2)
-        zeros = ctx.pad_mode == "zeros"
-        xp = xin if zeros else F.pad(xin, (1, 1, 1, 1), mode=ctx.pad_mode)
-        dxp, dw, _ = torch.ops.aten.convolution_backward(
-            g.permute(0, 3, 1, 2), xp, w.to(dt), None, [1, 1], [1, 1] if zeros else [0, 0],
-            [1, 1], False, [0, 0], 1,
-            [any(ctx.needs_input_grad[i] for i in (0, 2, 3)), ctx.needs_input_grad[1], False])
-        dx = dscale = dshift = None
-        if dxp is not None:
-            if zeros:
-                dxin = dxp
-            else:  # adjoint of the border pad
-                leaf = xin.detach().requires_grad_(True)
-                with torch.enable_grad():
-                    (dxin,) = torch.autograd.grad(
-                        F.pad(leaf, (1, 1, 1, 1), mode=ctx.pad_mode), leaf, dxp)
-            dxin = dxin.permute(0, 2, 3, 1)
-            if scale is None:
-                dx = dxin
-            else:  # adjoint of [relu](x * scale + shift), in f32
-                dv = dxin.float()
-                if ctx.relu:
-                    dv = dv * (v > 0)
-                dx = (dv * scale.float()[:, None, None, :]).to(dt)
-                dscale = (dv * x.float()).sum(dim=(1, 2)).to(scale.dtype)
-                dshift = dv.sum(dim=(1, 2)).to(shift.dtype)
-        return (dx, None if dw is None else dw.to(w.dtype), dscale, dshift,
-                None, None, None, None)
+def _vjp(ctx, grads, need_dx, need_dw):
+    """(dx, dw, dscale, dshift) of the plain composition prologue -> pad ->
+    conv (-> moments) at the inputs ``ctx`` saved, for the cotangents
+    ``grads`` of (out, s, s2) (stats) or of out alone."""
+    x, w, scale, shift, out = ctx.saved_tensors
+    dt = x.dtype
+    if ctx.stats:
+        # s = sum(out32), s2 = sum(out32^2) fold into the output's
+        # cotangent (pallas_conv.py:390-397): no conv recompute for them
+        g_out, g_s, g_s2 = grads
+        g = (g_out.float() + g_s[:, None, None, :]
+             + 2.0 * out.float() * g_s2[:, None, None, :]).to(dt)
+    else:
+        g = grads[0].to(dt)
+    xin, v = _prologue(x, scale, shift, ctx.relu)
+    xin = xin.permute(0, 3, 1, 2)
+    zeros = ctx.pad_mode == "zeros"
+    xp = xin if zeros else F.pad(xin, (1, 1, 1, 1), mode=ctx.pad_mode)
+    dxp, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), xp, w.to(dt), None, [1, 1], [1, 1] if zeros else [0, 0],
+        [1, 1], False, [0, 0], 1, [need_dx, need_dw, False])
+    dx = dscale = dshift = None
+    if dxp is not None:
+        if zeros:
+            dxin = dxp
+        else:  # adjoint of the border pad
+            leaf = xin.detach().requires_grad_(True)
+            with torch.enable_grad():
+                (dxin,) = torch.autograd.grad(
+                    F.pad(leaf, (1, 1, 1, 1), mode=ctx.pad_mode), leaf, dxp)
+        dxin = dxin.permute(0, 2, 3, 1)
+        if scale is None:
+            dx = dxin
+        else:  # adjoint of [relu](x * scale + shift), in f32
+            dv = dxin.float()
+            if ctx.relu:
+                dv = dv * (v > 0)
+            dx = (dv * scale.float()[:, None, None, :]).to(dt)
+            dscale = (dv * x.float()).sum(dim=(1, 2)).to(scale.dtype)
+            dshift = dv.sum(dim=(1, 2)).to(shift.dtype)
+    return dx, None if dw is None else dw.to(w.dtype), dscale, dshift
 
 
 def _fused_forward(x, w, scale, shift, pad_mode, relu, stats):
+    """K1 on x's device: the plain version on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, w, scale, shift, pad_mode, relu, stats)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_fused runs on cuda or cpu tensors, not {x.device}")
     res = _launch(x, w, scale, shift, pad_mode, relu, stats)
     conv3x3_fused.launches += 1
     return res
 
 
-def _plain_conv_forward(x, w, scale, shift, pad_mode, relu, stats):
+def _conv_forward(x, w, pad_mode):
+    """K2 on x's device: the plain version on the CPU, the kernel on CUDA."""
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, w, None, None, pad_mode)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3 runs on cuda or cpu tensors, not {x.device}")
     res = _launch(x, w, None, None, pad_mode, False, False)
     conv3x3.launches += 1
     return res
+
+
+# K1 and K2 as operators of their own, so that torch.export keeps each call
+# as one node (desr::conv3x3_fused, desr::conv3x3) of the graph it saves and
+# the saved program launches the kernel, not its plain version. The
+# implementations are Python: the counters count on every route. K1 always
+# returns three tensors; without stats the two moments are empty.
+_LIB = torch.library.Library("desr", "DEF")
+_LIB.define("conv3x3_fused(Tensor x, Tensor w, Tensor? scale, Tensor? shift, str pad_mode, "
+            "bool relu, bool stats) -> (Tensor, Tensor, Tensor)")
+_LIB.define("conv3x3(Tensor x, Tensor w, str pad_mode) -> Tensor")
+
+
+def _fused_impl(x, w, scale, shift, pad_mode, relu, stats):
+    res = _fused_forward(x, w, scale, shift, pad_mode, relu, stats)
+    if not stats:
+        return res.contiguous(), x.new_empty(0, dtype=torch.float32), \
+            x.new_empty(0, dtype=torch.float32)
+    return res[0].contiguous(), res[1], res[2]
+
+
+def _conv_impl(x, w, pad_mode):
+    return _conv_forward(x, w, pad_mode).contiguous()
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("conv3x3_fused", _fused_impl, _key)
+    _LIB.impl("conv3x3", _conv_impl, _key)
+
+
+@torch.library.register_fake("desr::conv3x3_fused", lib=_LIB)
+def _fused_fake(x, w, scale, shift, pad_mode, relu, stats):
+    b, h, wd, _ = x.shape
+    moments = (b, w.shape[0]) if stats else (0,)
+    return (x.new_empty((b, h, wd, w.shape[0])), x.new_empty(moments, dtype=torch.float32),
+            x.new_empty(moments, dtype=torch.float32))
+
+
+@torch.library.register_fake("desr::conv3x3", lib=_LIB)
+def _conv_fake(x, w, pad_mode):
+    return x.new_empty((*x.shape[:3], w.shape[0]))
+
+
+# The Autograd kernels are registered by hand: torch.library.register_autograd's
+# generated kernel cost ~140 us of host time a call with a gradient on the
+# card's host, and stage 2's iteration (216 calls) 8.7% (PERF.md, section 6;
+# desr_tpu_torch/tools/dispatch_ab.py).
+# Without a gradient the call goes straight one level down.
+class _FusedGrad(torch.autograd.Function):
+    """desr::conv3x3_fused's Autograd kernel: the forward one level down
+    (the CPU or CUDA implementation), the VJP of the plain composition."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, pad_mode, relu, stats):
+        with torch._C._AutoDispatchBelowAutograd():
+            res = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats)
+        ctx.pad_mode, ctx.relu, ctx.stats = pad_mode, relu, stats
+        ctx.save_for_backward(x, w, scale, shift, res[0] if stats else None)
+        return res
+
+    @staticmethod
+    def backward(ctx, g_out, g_s, g_s2):
+        need = ctx.needs_input_grad
+        grads = (g_out, g_s, g_s2) if ctx.stats else (g_out,)
+        return (*_vjp(ctx, grads, need[0] or need[2] or need[3], need[1]), None, None, None)
+
+
+class _ConvGrad(torch.autograd.Function):
+    """desr::conv3x3's Autograd kernel, as ``_FusedGrad``."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad_mode):
+        with torch._C._AutoDispatchBelowAutograd():
+            out = _CONV_OP(x, w, pad_mode)
+        ctx.pad_mode, ctx.relu, ctx.stats = pad_mode, False, False
+        ctx.save_for_backward(x, w, None, None, None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dx, dw, _, _ = _vjp(ctx, (g,), *ctx.needs_input_grad[:2])
+        return dx, dw, None
+
+
+def _fused_autograd(x, w, scale, shift, pad_mode, relu, stats):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
+            scale is not None and (scale.requires_grad or shift.requires_grad))):
+        return _FusedGrad.apply(x, w, scale, shift, pad_mode, relu, stats)
+    with torch._C._AutoDispatchBelowAutograd():
+        return _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats)
+
+
+def _conv_autograd(x, w, pad_mode):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ConvGrad.apply(x, w, pad_mode)
+    with torch._C._AutoDispatchBelowAutograd():
+        return _CONV_OP(x, w, pad_mode)
+
+
+_LIB.impl("conv3x3_fused", _fused_autograd, "Autograd")
+_LIB.impl("conv3x3", _conv_autograd, "Autograd")
+_FUSED_OP = torch.ops.desr.conv3x3_fused.default
+_CONV_OP = torch.ops.desr.conv3x3.default
 
 
 def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
@@ -294,17 +387,18 @@ def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
     values too) | "zeros" (the padding stays 0). Returns ``out`` in x's dtype,
     or ``(out, s, s2)`` with the (B, C_out) f32 sum and sum of squares of the
     f32 accumulator over H and W when ``stats``. Differentiable in x, w,
-    scale and shift.
+    scale and shift. One ``desr::conv3x3_fused`` call.
     """
     _check(x, w, scale, shift, pad_mode)
-    return _Conv3x3.apply(x, w, scale, shift, pad_mode, relu, stats, _fused_forward)
+    out, s, s2 = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats)
+    return (out, s, s2) if stats else out
 
 
 def conv3x3(x, w, pad_mode="reflect"):
     """Stride-1 3x3 conv of NHWC x with OIHW w and a 1-pixel border; no bias.
-    Differentiable in x and w."""
+    Differentiable in x and w. One ``desr::conv3x3`` call."""
     _check(x, w, None, None, pad_mode)
-    return _Conv3x3.apply(x, w, None, None, pad_mode, False, False, _plain_conv_forward)
+    return _CONV_OP(x, w, pad_mode)
 
 
 conv3x3_fused.launches = 0

@@ -139,3 +139,31 @@ def smooth_weight_loss_planar(depth_bhw, image_b3hw, num_scales=3):
         total = total + ((d[..., :-1, :] - d[..., 1:, :]) * wx).abs().mean() / 2 ** i
         total = total + ((d[..., :, :-1] - d[..., :, 1:]) * wy).abs().mean() / 2 ** i
     return total
+
+
+def gradient_penalty(d_apply, real, fake, generator=None, gp_type="mixed", constant=1.0,
+                     lambda_gp=10.0, eps=1e-16):
+    """WGAN-GP gradient penalty (losses.py:155-177; networks.py:282-316 of
+    the reference, which no shipped config calls). ``d_apply`` maps an NHWC
+    batch to logits; ``gp_type`` "real" and "fake" take the gradient at that
+    batch, "mixed" at ``alpha * real + (1 - alpha) * fake`` with one alpha a
+    sample drawn from ``generator`` (U[0, 1), on real's device). Returns
+    (penalty, the gradient at the interpolate); the penalty is
+    differentiable in D's weights (and, through ``fake``, in G's)."""
+    if lambda_gp <= 0.0:
+        return torch.zeros((), device=real.device), None
+    if gp_type == "real":
+        interp = real
+    elif gp_type == "fake":
+        interp = fake
+    elif gp_type == "mixed":
+        alpha = torch.rand((real.shape[0], 1, 1, 1), generator=generator, device=real.device,
+                           dtype=real.dtype)
+        interp = alpha * real + (1 - alpha) * fake
+    else:
+        raise NotImplementedError(gp_type)
+    if not interp.requires_grad:
+        interp = interp.detach().requires_grad_(True)
+    (grads,) = torch.autograd.grad(d_apply(interp).sum(), interp, create_graph=True)
+    norm = torch.linalg.vector_norm(grads.reshape(real.shape[0], -1) + eps, dim=1)
+    return (norm - constant).square().mean() * lambda_gp, grads

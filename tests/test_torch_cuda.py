@@ -323,3 +323,44 @@ def test_cuda_masked_loss_raises_instead_of_falling_back(case, err):
     with pytest.raises(err):
         K3.masked_loss_sums(p, t, m1, m2)
     assert K3.masked_loss_sums.launches == before
+
+
+# ------------------------------------------------------------------ the exported route
+
+@pytest.mark.cuda
+def test_cuda_exported_serving_launches_k1(tmp_path):
+    """The main-mode serving forward exported on the card (bf16, small
+    widths): 24 desr::conv3x3_fused nodes; served from the artifact, K1
+    launches 24 times and the prediction equals the live serve_forward's
+    (the same kernels and library convs on the same inputs), under cuDNN's
+    deterministic algorithms: its default ones need not repeat bit for bit."""
+    dev = _cuda()
+    import collections
+
+    from desr_tpu_torch.models.main_model import MainModel, NetOptions
+    from desr_tpu_torch.serving import export_serving, load_serving
+
+    model = MainModel(NetOptions(ImageDepthf_outf=8, ImageDepthf_basef=8, Depthf_outf=8,
+                                 Depthf_basef=8, I2D_base=8, Task_basef=8), device=dev)
+    rng = np.random.default_rng(61)
+    batch = {"B_d": rng.uniform(-1, 1, (2, 128, 256, 1)).astype(np.float32),
+             "B_i": rng.uniform(-1, 1, (2, 128, 256, 3)).astype(np.float32)}
+    manifest = export_serving(model, batch, str(tmp_path), "pred_real_depth")
+    assert manifest["platforms"] == ["cuda"] and manifest["compute_dtype"] == "bfloat16"
+    program = torch.export.load(str(tmp_path / "serving.pt2"))
+    ops = collections.Counter(str(n.target) for n in program.graph.nodes
+                              if n.op == "call_function")
+    assert ops["desr.conv3x3_fused.default"] == 24
+    fn, params, _ = load_serving(str(tmp_path))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = K.conv3x3_fused.launches
+        got = fn(params, batch)
+        torch.cuda.synchronize()
+        assert K.conv3x3_fused.launches - before == 24
+        want = model.serve_forward(batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got.device.type == "cuda" and got.shape == (2, 128, 256)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

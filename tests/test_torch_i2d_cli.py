@@ -114,7 +114,7 @@ def test_predict_refuses_what_it_does_not_serve(tmp_path, capsys):
                        (["--I2D", "--SR"], "standalone"),
                        (["--translate", "BtoA", "--I2D"], "standalone"),
                        (["--input_depth", str(tmp_path), "--translate", "AtoB", "--export",
-                         str(tmp_path / "x")], "not yet ported")):
+                         str(tmp_path / "x")], "standalone")):
         with pytest.raises((SystemExit, NotImplementedError)) as e:
             predict.main(base + extra)
         text = str(e.value) + capsys.readouterr().err
