@@ -145,6 +145,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     workers feed back to back, are not read; then 2 I2D steps
     with --profile_dir, whose trace must hold the train_step and
     device_finish spans and K1's kernels.
+(n) the train CLI's surface: ``train.main`` with the README stage-3 flags
+    on 24 synthetic frames a domain (2 written, the rest hard links) plus
+    --steps_per_call 2, --display_freq 6 (one batch), --lr_policy plateau
+    and --do_test on one pair: 4 steps as 2 groups, a gallery forward each
+    group, launches as predicted (K1 42 a step and a forward, K3 2 and its
+    backward 2 a step, K3 2 a forward), finite losses, the gallery's 13
+    PNGs and index.html decoded; the gallery forward timed. At float32 under
+    deterministic cuDNN and torch's deterministic mode (batch 2, 256x384): 2
+    groups of 2 steps bit-equal to 4 single steps, and a save_train_state /
+    load_train_state resume bit-equal to the run it left. The SR step (batch
+    1, LR 512x640 -> HR 1024x1280, bf16) without remat and under --remat,
+    --remat_blocks and --remat_tails: K1 launches a step (42, 54, 54, 42),
+    peak GiB, and in turns (each variant twice, the order reversed the
+    second time) ms by CUDA events and the host's issue ms, 5 steps a turn
+    after one; at float32 (HR 256x256) each
+    variant's loss terms (1e-6 relative) and gradients (1e-6 of the net's
+    largest, or 3x the plain step's run-to-run floor: the bicubic resize's
+    backward has no deterministic version) against the plain step's; one
+    I2D step (--i2d_train_features) and one stage-2 G step under
+    --remat_tails likewise. A bf16 main step under --norm batch (K1 18: only
+    G_A_d's group norms fuse) and one under --init_type orthogonal: finite
+    losses, no running statistics moved, the trained nets moved.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -2353,6 +2375,386 @@ def phase_deployment(tmp, serve_dir, sr_dir):
     return paths
 
 
+# ------------------------------------------------------------------ (n)
+
+SURFACE_DEVICE = "cuda"   # phase (n)'s device (a CPU rehearsal sets "cpu")
+SURFACE_ARGV = ()         # flags appended to phase (n)'s CLI runs (a rehearsal's widths)
+SURFACE_BATCH = (6, 512, 640)  # the CLI's batch: README stage 3 with --no_aug
+K1_EVAL = 42              # an eval forward: G_A_d 18 + I2D_features 12 + Depth_f 12 (2B)
+K3_EVAL = 2               # its syn and real triplets, no backward
+SR_K1_REMAT = {"none": 42, "remat": 54, "remat_blocks": 54, "remat_tails": 42}
+REMAT_FLAGS = {"none": (False, None), "remat": (True, None),
+               "remat_blocks": (False, "blocks"), "remat_tails": (False, "tails")}
+
+
+def _synthetic_batch(b, h, w, seed, lr_hw=None):
+    """A main / SR / I2D batch of random depths in [-0.9, 0.9] with 5% holes
+    at -1, images in [-1, 1], ScanNet's intrinsics and whole-frame crops
+    (crop_B on the LR grid ``lr_hw`` for SR)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def depth():
+        d = rng.uniform(-0.9, 0.9, (b, h, w, 1)).astype(np.float32)
+        d[rng.uniform(size=d.shape) < 0.05] = -1.0
+        return d
+
+    k = np.tile(np.array([[[577.87, 0, 319.5], [0, 577.87, 239.5], [0, 0, 1]]], np.float32),
+                (b, 1, 1))
+    ch, cw = lr_hw or (h, w)
+    return {"A_i": rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
+            "B_i": rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32),
+            "A_d": depth(), "B_d": depth(), "K_A": k, "K_B": k.copy(),
+            "crop_A": np.tile(np.array([[0, h, 0, w]], np.float32), (b, 1)),
+            "crop_B": np.tile(np.array([[0, ch, 0, cw]], np.float32), (b, 1))}
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms and torch's deterministic mode
+    inside the block: cuDNN's default backward algorithms add in a
+    run-dependent order (phase (e)), and so do the backward of the
+    reflect / replicate pads (K1's backward, the nets' pad layers) unless
+    torch's mode picks their deterministic versions. warn_only: the SR
+    step's bicubic resize has none (upsample_bicubic2d_backward), so its
+    gradients keep a run-to-run floor (``_remat_equal`` measures it)."""
+
+    def __enter__(self):
+        import torch
+
+        self.prev = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.deterministic = self.prev[0]
+        torch.use_deterministic_algorithms(self.prev[1], warn_only=self.prev[2])
+
+
+def _sync():
+    import torch
+
+    if SURFACE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same(got, want, by_net=False):
+    """(tensors bit-equal, of all; the worst gap) over two dicts of tensors
+    with the same keys: relative to each tensor's largest entry, or with
+    ``by_net`` to the largest entry of the tensors of its net (the key's
+    first part), the scale at which a conv bias that feeds a norm (an exact
+    gradient of 0) has its noise read."""
+    def mx(v):
+        return float(v.float().abs().max()) if v.numel() else 0.0
+
+    net_max = {}
+    for k, v in want.items():
+        net_max[k.split(".")[0]] = max(net_max.get(k.split(".")[0], 0.0), mx(v))
+    equal, worst = 0, 0.0
+    for k, v in want.items():
+        g = got[k]
+        equal += bool(g.dtype == v.dtype and (g == v).all())
+        scale = max(net_max[k.split(".")[0]] if by_net else mx(v), 1e-30)
+        worst = max(worst, mx(g.float() - v.float()) / scale)
+    return equal, len(want), worst
+
+
+def _grads_of(model, nets):
+    return {f"{n}.{k}": p.grad.clone() for n in nets
+            for k, p in model.nets[n].named_parameters() if p.grad is not None}
+
+
+def _weights_of(model, nets):
+    return {f"{n}.{k}": v.detach().clone() for n in nets
+            for k, v in model.nets[n].state_dict().items()}
+
+
+def _set_remat(model, variant):
+    model.remat_nets, model.remat_inner = REMAT_FLAGS[variant]
+    model.apply_remat()
+
+
+def _remat_equal(tag, model, run, variants):
+    """Each remat ``variant``'s ``run(model)`` (loss terms, gradients) at
+    float32 under ``_Deterministic`` against the plain one's: the loss terms
+    within 1e-6 relative, each gradient within 1e-6 of its net's largest
+    entry, or the plain step's own run-to-run floor times 3 where that is
+    larger (the plain step is run twice); the tensors bit-equal are
+    counted."""
+    with _Deterministic():
+        _set_remat(model, "none")
+        m0, g0 = run(model)
+        _, g00 = run(model)
+        e0, n0, floor = _same(g00, g0, by_net=True)
+        bound = max(1e-6, 3 * floor)
+        print(f"[n] {tag}, float32, deterministic: the plain step against itself, gradients "
+              f"{e0}/{n0} bit-equal (worst {floor:.3g} of the net's largest entry)")
+        for variant in variants:
+            _set_remat(model, variant)
+            m1, g1 = run(model)
+            em, nm, wm = _same(m1, m0)
+            eg, ng, wg = _same(g1, g0, by_net=True)
+            print(f"[n] {tag} {variant} against no remat: loss terms {em}/{nm} bit-equal (worst "
+                  f"{wm:.3g}), gradients {eg}/{ng} bit-equal (worst {wg:.3g} of the net's "
+                  f"largest entry; bound {bound:.3g})")
+            check(wm <= 1e-6 and wg <= bound,
+                  f"[n] {tag} {variant}: loss terms {wm:.3g}, gradients {wg:.3g} off "
+                  f"(bounds 1e-6, {bound:.3g})")
+        _set_remat(model, "none")
+
+
+def phase_train_surface(tmp):
+    """(n): the train CLI's surface: gallery, --steps_per_call, plateau LR,
+    the remat flags, --norm batch, --init_type and the train state."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import train
+    from desr_tpu_torch.data.png import read_png
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
+    from desr_tpu_torch.options import train_options
+
+    dev = SURFACE_DEVICE
+    report, paths = {}, {}
+    # 1. train.main: README stage 3, 4 steps of batch 6 as 2 groups of 2, a
+    # gallery each group, plateau LR, a test pass over one pair
+    b = SURFACE_BATCH[0]
+    for dom, seed, n in (("A", 60, 4 * b), ("B", 70, 4 * b), ("C", 80, 1), ("D", 90, 1)):
+        _write_train_domain(tmp, dom, seed=seed, n=n, unique=min(n, 2))
+    c, d = os.path.join(tmp, "C"), os.path.join(tmp, "D")
+    argv = _train_argv(tmp, "surface", [
+        "--batch_size", str(b), "--do_test", "--display_freq", str(b), "--steps_per_call", "2", "--lr_policy",
+        "plateau", "--path_A_test", f"{c}/depth", "--A_add_paths_test", f"{c}/img",
+        "--path_B_test", f"{d}/depth", "--B_add_paths_test", f"{d}/img", *SURFACE_ARGV])
+    _reset_counts()
+    t0 = time.perf_counter()
+    losses = train.main(argv)
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    # 4 steps; 2 gallery forwards (one a group) and 1 test forward
+    want = {"K1": 4 * K1_PER_STEP + 3 * K1_EVAL, "K2": 0, "K3": 4 * K3_PER_STEP + 3 * K3_EVAL,
+            "K3 backward": 4 * K3_BWD_PER_STEP}
+    check(launches == want, f"[n] train.main: launches {launches}; want {want}")
+    check(losses and all(np.isfinite(list(losses.values()))), f"[n] train.main losses: {losses}")
+    web = os.path.join(tmp, "surface", "web")
+    names = sorted(os.listdir(os.path.join(web, "images")))
+    with open(os.path.join(web, "index.html")) as f:
+        index = f.read()
+    check(len(names) == 13 and all(f"images/{n}" in index for n in names),
+          f"[n] gallery: {names}")
+    for n in names:
+        img = read_png(os.path.join(web, "images", n))
+        check(img.dtype == np.uint8 and img.shape == (*SURFACE_BATCH[1:], 3),
+              f"[n] gallery {n}: {img.dtype} {img.shape}")
+    paths["train_surface"] = launches
+    print(f"[n] train.main, README stage 3 + --steps_per_call 2 --display_freq {b} "
+          f"--lr_policy plateau --do_test: 4 steps of batch {b} in {wall:.1f} s host wall; "
+          f"launches {launches} (4 steps, 2 gallery forwards, 1 test forward); gallery "
+          f"{len(names)} PNGs {SURFACE_BATCH[1]}x{SURFACE_BATCH[2]} and index.html decoded; "
+          "losses " + ", ".join(f"{k} {v:.4g}" for k, v in losses.items()))
+
+    opt = train_options.parse(argv, print_options=False)
+    model = MainModel(opt, device=dev, compute_dtype=torch.bfloat16, is_train=True,
+                      generator=torch.Generator().manual_seed(7))
+    model.set_input(_synthetic_batch(*SURFACE_BATCH, seed=1))
+    if dev == "cuda":
+        report["gallery_forward_ms"] = cuda_ms(lambda: model.calculate(stage="train"),
+                                               iters=5, warmup=1)
+        print(f"[n] the gallery's eval forward (calculate, bf16, batch {b} at "
+              f"{SURFACE_BATCH[1]}x{SURFACE_BATCH[2]}): {report['gallery_forward_ms']:.2f} ms "
+              "(CUDA events, 5 after 1)")
+        # host wall a step: 4 host batches one by one (each upload waits for
+        # the step before it) against one group of 4 (all uploaded, then the
+        # steps queued); in turns single, grouped, grouped, single
+        group = [_synthetic_batch(*SURFACE_BATCH, seed=10 + i) for i in range(4)]
+
+        def singles():
+            for batch in group:
+                model.set_input(batch)
+                model.optimize_parameters()
+
+        walls = {"single": [], "grouped": []}
+        singles()
+        for name in ("single", "grouped", "grouped", "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            singles() if name == "single" else model.optimize_parameters_multi(group, 0)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3 / len(group))
+        report.update({f"step_wall_{k}_ms": v for k, v in walls.items()})
+        print(f"[n] host wall a bf16 main step (batch {b}, {len(group)} host batches, with "
+              f"their uploads): one by one {', '.join(f'{v:.2f}' for v in walls['single'])} ms, "
+              f"as one group of {len(group)} {', '.join(f'{v:.2f}' for v in walls['grouped'])} "
+              "ms (turns: single, grouped, grouped, single)")
+    del model
+
+    # float32, deterministic: 2 groups of 2 against 4 single steps
+    opt32 = SimpleNamespace(**{**vars(opt), "batch_size": 2})
+    batches = [_synthetic_batch(2, 256, 384, seed=s) for s in range(4)]
+
+    def main32():
+        return MainModel(opt32, device=dev, compute_dtype=torch.float32, is_train=True,
+                         generator=torch.Generator().manual_seed(8))
+
+    with _Deterministic():
+        single, multi = main32(), main32()
+        for i, batch in enumerate(batches):
+            single.set_input(batch)
+            single.optimize_parameters(i + 1)
+        multi.optimize_parameters_multi(batches[:2], 2)
+        multi.optimize_parameters_multi(batches[2:], 4)
+    eq, n, worst = _same(_weights_of(multi, multi.model_names),
+                         _weights_of(single, single.model_names))
+    check(eq == n, f"[n] --steps_per_call 2: {n - eq} of {n} tensors differ (worst {worst:.3g})")
+    print(f"[n] float32 batch 2 at 256x384, deterministic: 2 groups of 2 steps "
+          f"(optimize_parameters_multi) against 4 single steps: {eq}/{n} tensors bit-equal")
+
+    # 5. the train state: save after step 2, resume in a model that stepped elsewhere
+    with _Deterministic():
+        ckpt.save_train_state(single, os.path.join(tmp, "state"), 4)
+        resumed = main32()
+        resumed.set_input(batches[0])
+        resumed.optimize_parameters(1)
+        check(ckpt.load_train_state(resumed, os.path.join(tmp, "state")) == 4,
+              "[n] load_train_state picked another step")
+        for m in (single, resumed):
+            m.set_input(batches[1])
+            m.optimize_parameters(5)
+    eq, n, worst = _same(_weights_of(resumed, resumed.model_names),
+                         _weights_of(single, single.model_names))
+    check(eq == n, f"[n] resume: {n - eq} of {n} tensors differ (worst {worst:.3g})")
+    print(f"[n] save_train_state after step 4, load_train_state into a model that took another "
+          f"step: the next step's weights {eq}/{n} tensors bit-equal to the uninterrupted run")
+    del single, multi, resumed
+
+    # 2. the SR step at the README geometry under each remat flag
+    sr_argv = _sr_train_argv(tmp, "srremat")
+    sr_opt = train_options.parse(sr_argv + list(SURFACE_ARGV), print_options=False)
+    lr_hw = (sr_opt.crop_size_h, sr_opt.crop_size_w)
+    sr = MainSRModel(sr_opt, device=dev, compute_dtype=torch.bfloat16, is_train=True,
+                     generator=torch.Generator().manual_seed(9))
+    sr.set_input(_synthetic_batch(1, 2 * lr_hw[0], 2 * lr_hw[1], seed=2, lr_hw=lr_hw))
+    for variant in REMAT_FLAGS:  # one step each: launches and peak memory
+        _set_remat(sr, variant)
+        _reset_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        sr.optimize_parameters()
+        _sync()
+        c = _counts()
+        paths[f"train_sr_{variant}"] = c
+        check(c["K1"] == SR_K1_REMAT[variant] and np.isfinite(float(sr.metrics["G"])),
+              f"[n] SR step {variant}: launches {c}, G {float(sr.metrics['G'])}")
+        if dev == "cuda":
+            report[f"sr_step_{variant}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if dev == "cuda":
+        # in turns, each variant twice (forward, then backward order): a
+        # warm-up step in the mode, then 5 steps timed by CUDA events and by
+        # the host's clock up to the last step's return (the issue time:
+        # near the event time, the host bounds the step)
+        steps = 5
+        ms, issue = {v: [] for v in REMAT_FLAGS}, {v: [] for v in REMAT_FLAGS}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for variant in list(REMAT_FLAGS) + list(REMAT_FLAGS)[::-1]:
+            _set_remat(sr, variant)
+            sr.optimize_parameters()
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                sr.optimize_parameters()
+            issue[variant].append((time.perf_counter() - t0) * 1e3 / steps)
+            end.record()
+            torch.cuda.synchronize()
+            ms[variant].append(start.elapsed_time(end) / steps)
+        for variant in REMAT_FLAGS:
+            report[f"sr_step_{variant}_ms"] = ms[variant]
+            report[f"sr_step_{variant}_issue_ms"] = issue[variant]
+            print(f"[n] SR step bf16 {variant}, batch 1, LR {lr_hw[0]}x{lr_hw[1]} -> HR "
+                  f"{2 * lr_hw[0]}x{2 * lr_hw[1]}: {', '.join(f'{v:.2f}' for v in ms[variant])} "
+                  f"ms (CUDA events, {steps} steps a turn, turns none, remat, remat_blocks, "
+                  f"remat_tails, then back), host issue "
+                  f"{', '.join(f'{v:.2f}' for v in issue[variant])} ms a step, peak "
+                  f"{report[f'sr_step_{variant}_peak_gib']:.2f} GiB, K1 "
+                  f"{paths[f'train_sr_{variant}']['K1']} launches a step")
+    del sr
+    sr32 = MainSRModel(SimpleNamespace(**{**vars(sr_opt), "crop_size_h": 128,
+                                          "crop_size_w": 128}),
+                       device=dev, compute_dtype=torch.float32, is_train=True,
+                       generator=torch.Generator().manual_seed(10))
+    sr32.set_input(_synthetic_batch(1, 256, 256, seed=3, lr_hw=(128, 128)))
+
+    def main_run(model):
+        model.hole_generator.manual_seed(11)
+        return model.compute_grads(), _grads_of(model, model.trainable_nets)
+
+    _remat_equal("SR step at HR 256x256", sr32, main_run, ("remat", "remat_blocks", "remat_tails"))
+    del sr32
+
+    # 3. one I2D step and one stage-2 G step under --remat_tails
+    i2d = I2DModel(train_options.parse(_i2d_train_argv(tmp, "i2dremat", [
+        "--i2d_train_features", *SURFACE_ARGV]), print_options=False),
+        device=dev, compute_dtype=torch.float32, is_train=True,
+        generator=torch.Generator().manual_seed(12))
+    i2d.set_input(_synthetic_batch(2, 256, 256, seed=4))
+    _remat_equal("I2D step (--i2d_train_features), batch 2 at 256x256", i2d,
+                 lambda m: (m.compute_grads(), _grads_of(m, m.trainable_nets)), ("remat_tails",))
+    del i2d
+    tr = TranslationModel(train_options.parse(_translation_argv(tmp, "trremat", [
+        "--batch_size", "2", "--compute_dtype", "float32"]), print_options=False),
+        device=dev, compute_dtype=torch.float32, is_train=True,
+        generator=torch.Generator().manual_seed(13))
+    rng = np.random.default_rng(5)
+    tr.set_input({k: rng.uniform(-0.9, 0.9, (2, 64, 64, 3 if k.endswith("img") else 1))
+                  .astype(np.float32) for k in ("A_depth", "A_img", "B_depth", "B_img")})
+    _remat_equal("stage-2 G step, batch 2 at 64x64", tr,
+                 lambda m: (m.compute_grads()[0], _grads_of(m, m.trainable_nets)),
+                 ("remat_tails",))
+    del tr
+
+    # 4. a main step under --norm batch, and one under --init_type orthogonal
+    batch = _synthetic_batch(*SURFACE_BATCH, seed=6)
+    for flags, k1 in ((("--norm", "batch"), K1_TRANS_PER_STEP),
+                      (("--init_type", "orthogonal"), K1_PER_STEP)):
+        fopt = train_options.parse(argv + list(flags), print_options=False)
+        m = MainModel(fopt, device=dev, compute_dtype=torch.bfloat16, is_train=True,
+                      generator=torch.Generator().manual_seed(14))
+        before = _weights_of(m, m.model_names)
+        m.set_input(batch)
+        _reset_counts()
+        m.optimize_parameters()
+        _sync()
+        c = _counts()
+        after = _weights_of(m, m.model_names)
+        stats = [k for k in before if "running_" in k or "num_batches" in k]
+        moved = [k for k in stats if not torch.equal(after[k], before[k])]
+        trained = {k for k in before if k.split(".")[0] in m.trainable_nets}
+        finite = all(np.isfinite(float(v)) for v in m.metrics.values())
+        paths["train_" + "_".join(f.strip("-") for f in flags)] = c
+        check(finite and not moved and c["K1"] == k1
+              and all(not torch.equal(after[k], before[k]) for k in trained
+                      if k.endswith("weight") and "running" not in k)
+              and (bool(stats) == (flags[0] == "--norm")),
+              f"[n] main step {' '.join(flags)}: finite {finite}, stats moved {moved[:3]}, "
+              f"launches {c}")
+        print(f"[n] main step bf16 {' '.join(flags)} (fresh seeded weights), batch {b}: losses "
+              f"finite (G {float(m.metrics['G']):.5g}); {len(stats)} BatchNorm statistics, none "
+              f"moved (the JAX step passes no stats sink); launches {c}")
+        del m
+    print("[n] " + json.dumps(report))
+    return paths
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -2621,7 +3023,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
         for phase in (phase_serving, phase_training, phase_sr_serving, phase_deployment,
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
-                      phase_i2d_training, phase_translation_training, phase_device_aug):
+                      phase_i2d_training, phase_translation_training, phase_device_aug,
+                      phase_train_surface):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

@@ -1,13 +1,22 @@
 """The trainer-facing contract of the stage models (counterpart of
 ``desr_tpu/models/base_model.py``): ``setup``, ``save_networks`` /
-``load_networks``, ``update_learning_rate``, ``get_current_losses`` and the
-trainable/frozen split.
+``load_networks``, ``update_learning_rate`` (the plateau rule too),
+``get_current_losses`` / ``get_current_visuals``,
+``optimize_parameters_multi`` and the trainable/frozen split.
 
 A model holds its nets in ``self.nets`` (an ``nn.ModuleDict`` keyed by the
 reference's net names), float32 parameters on ``self.device``. Only the nets
 in ``trainable_nets`` have ``requires_grad``; the frozen ones run under
 ``torch.no_grad()`` in the forward. A step leaves its metrics as tensors in
-``self.metrics``; they are read to the host only when asked for.
+``self.metrics``, and ``calculate`` its visuals in ``self.visuals``; they are
+read to the host only when asked for.
+
+The remat flags (``remat_modes``): ``--remat`` checkpoints each trained
+net's whole call (``run_net``, the JAX ``_maybe_remat``,
+main_model.py:47-56), ``--remat_blocks`` and ``--remat_tails`` the runs of
+layers inside every net (``layers.set_remat``). A frozen net runs under
+no_grad and keeps no activations, so a checkpoint there would change
+nothing: ``remat_call`` makes it the plain call.
 """
 
 from __future__ import annotations
@@ -20,13 +29,28 @@ import torch.nn as nn
 
 from desr_tpu_torch import checkpoints as ckpt
 from desr_tpu_torch import resolve_device
+from desr_tpu_torch.models.layers import remat_call, set_remat, with_batch_norm_mode
 from desr_tpu_torch.ops import optim
+
+
+def remat_modes(opt):
+    """(``--remat``, the inner mode): "blocks" under ``--remat_blocks`` (it
+    takes precedence, as in the JAX package), "tails" under
+    ``--remat_tails``, else None. The JAX per-stage default of
+    ``--remat_tails`` (None: on for SR, I2D and translation,
+    base_model.py:82-95) came from TPU A/B runs; the port reads None as off.
+    """
+    inner = ("blocks" if getattr(opt, "remat_blocks", False)
+             else "tails" if getattr(opt, "remat_tails", None) else None)
+    return bool(getattr(opt, "remat", False)), inner
 
 
 class BaseModel(nn.Module):
     model_names: tuple = ()
     trainable_nets: tuple = ()
+    visual_names: tuple = ()
     _dump_rows = 16  # the rows --save_all crops off each side
+    _multi_step = True  # optimize_parameters_multi may group steps
 
     def __init__(self, opt, device=None, compute_dtype=torch.bfloat16):
         super().__init__()
@@ -35,9 +59,27 @@ class BaseModel(nn.Module):
         self.compute_dtype = compute_dtype
         self.loss_names = []
         self.metrics = {}
+        self.visuals = {}
         self.optimizer = None
         self.optimizers = []
+        self.optimized_nets = []  # the nets an optimizer trains, in order
         self.lr = getattr(opt, "lr", 2e-4)
+        self.plateau_history = []
+        self.remat_nets, self.remat_inner = remat_modes(opt)
+
+    def apply_remat(self):
+        """Set the inner remat mode on every net (after they are built)."""
+        for net in self.nets.values():
+            set_remat(net, self.remat_inner)
+
+    def run_net(self, name, *args, train=True):
+        """``self.nets[name](*args)``; under ``--remat`` with a gradient
+        recorded, one checkpoint over the whole call (its recompute
+        normalises as ``train`` says, see ``layers.with_batch_norm_mode``)."""
+        net = self.nets[name]
+        if not self.remat_nets:
+            return net(*args)
+        return remat_call(with_batch_norm_mode(net, train), "net", *args)
 
     def split_trainable(self, betas=(0.9, 0.999), weight_decay=0.0):
         """Freeze every net, then give ``requires_grad`` back to the trainable
@@ -46,6 +88,7 @@ class BaseModel(nn.Module):
         i2d_model.py:178-179, translation_model.py:372-374)."""
         self.requires_grad_(False)
         self.optimizers = []
+        self.optimized_nets = []
         self.optimizer = self.add_optimizer(self.trainable_nets, betas, weight_decay)
 
     def add_optimizer(self, net_names, betas, weight_decay=0.0):
@@ -56,6 +99,7 @@ class BaseModel(nn.Module):
         for name in net_names:
             self.nets[name].requires_grad_(True)
             params += list(self.nets[name].parameters())
+            self.optimized_nets.append(name)
         optimizer = optim.adam(params, self.lr, betas=betas, weight_decay=weight_decay)
         self.optimizers.append(optimizer)
         return optimizer
@@ -125,15 +169,55 @@ class BaseModel(nn.Module):
 
     # -- schedule and metrics ----------------------------------------------
 
-    def update_learning_rate(self, epoch):
-        """The LR after ``epoch`` (base_model.py:268-285), set into Adam."""
+    def update_learning_rate(self, epoch, metric=None):
+        """The LR after ``epoch`` (base_model.py:268-285), set into every Adam.
+
+        ``--lr_policy plateau`` reads ``metric`` instead (the trainer feeds
+        the epoch's mean test loss, or its last train loss): appended to the
+        history, and when the history is longer than 6 and the minimum of
+        its last 6 is above 0.99 times the minimum before them, the LR is
+        multiplied by 0.2 and the history restarts. No metric, no change.
+        """
         opt = self.opt
-        self.lr = optim.lr_schedule(opt.lr_policy, epoch, opt.lr, opt.n_epochs,
-                                    opt.n_epochs_decay, epoch_count=opt.epoch_count,
-                                    lr_decay_iters=opt.lr_decay_iters)
+        if opt.lr_policy == "plateau":
+            if metric is not None:
+                h = self.plateau_history
+                h.append(metric)
+                if len(h) > 6 and min(h[-6:]) > min(h[:-6]) * 0.99:
+                    self.lr *= 0.2
+                    self.plateau_history = []
+        else:
+            self.lr = optim.lr_schedule(opt.lr_policy, epoch, opt.lr, opt.n_epochs,
+                                        opt.n_epochs_decay, epoch_count=opt.epoch_count,
+                                        lr_decay_iters=opt.lr_decay_iters)
         for optimizer in self.optimizers:
             optim.set_lr(optimizer, self.lr)
         return self.lr
+
+    # -- steps -------------------------------------------------------------
+
+    def supports_multi_step(self):
+        """Whether the trainer may hand ``--steps_per_call`` batches to
+        ``optimize_parameters_multi`` (main, SR and I2D without --use_D, as
+        the JAX package builds its scan, base_model.py:178-197)."""
+        return self._multi_step
+
+    def stage(self, batch):
+        """The device tensors ``set_input`` would stage for ``batch``."""
+        raise NotImplementedError
+
+    def optimize_parameters_multi(self, batches, iters):
+        """``len(batches)`` train steps back to back: every batch is uploaded
+        first, then the steps are queued with nothing read from the device
+        between them (a blocking upload in between would wait for the last
+        step). The same trajectory as ``set_input`` + ``optimize_parameters``
+        per batch; the metrics kept are the last step's, as the JAX scan's.
+        ``iters`` is the iteration count after the group. The last batch
+        stays staged."""
+        staged = [self.stage(b) for b in batches]
+        for batch, paths in staged:
+            self._batch, self._paths = batch, paths
+            self.optimize_parameters(iters)
 
     def _dump_predictions(self, pred):
         """uint16 PNG dump of ``pred`` (B, H, W), x5100, rows [r:-r] with
@@ -152,3 +236,10 @@ class BaseModel(nn.Module):
 
     def get_current_losses(self):
         return {k: float(v) for k, v in self.metrics.items() if k in self.loss_names}
+
+    def get_current_visuals(self):
+        """The last ``calculate``'s visuals as float32 numpy arrays in the
+        port's layouts (planar depth maps, NHWC or NCHW images)."""
+        from desr_tpu_torch.utils.util import to_numpy
+
+        return {k: to_numpy(v) for k, v in self.visuals.items()}

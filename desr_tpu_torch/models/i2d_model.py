@@ -23,6 +23,7 @@ import torch
 
 from desr_tpu_torch.models import networks
 from desr_tpu_torch.models.base_model import BaseModel
+from desr_tpu_torch.models.layers import batch_norm_mode
 from desr_tpu_torch.models.main_model import NetOptions, _to_device
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
@@ -43,6 +44,8 @@ class I2DModel(BaseModel):
     """
 
     model_names = ("Image_f", "Task")
+    visual_names = ("syn_image", "syn_depth", "pred_syn_depth",
+                    "real_image", "real_depth", "pred_real_depth")  # i2d_model.py:55
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16, generator=None,
                  is_train=False):
@@ -68,9 +71,12 @@ class I2DModel(BaseModel):
                                                 opt.init_gain, generator=generator)
         self.nets = torch.nn.ModuleDict(nets)
         self.to(self.device)
-        self.eval()  # no layer of these nets behaves differently in training
+        self.eval()  # a BatchNorm (--norm batch) takes its mode from batch_norm_mode
         self.requires_grad_(False)
+        # the JAX scan covers the G-only configuration (i2d_model.py:190-194)
+        self._multi_step = not self.use_D
         if is_train:
+            self.apply_remat()
             self.loss_names = ["task_syn", "task_real"]
             if opt.norm_loss:
                 self.loss_names += ["syn_norms"]
@@ -101,11 +107,17 @@ class I2DModel(BaseModel):
         image = _to_device(batch["B_i"], self.device).to(self.compute_dtype).permute(0, 3, 1, 2)
         return self.nets["Task"](self.nets["Image_f"](image))[:, 0].float()
 
-    def forward_all(self, batch):
+    def forward_all(self, batch, train=True):
         """(feats_syn, feats_real, pred_syn, pred_real): compute-dtype NCHW
         features, float32 (B, H, W) predictions (i2d_model.py:79-110). Both
         branches share one batch-2B call of each net unless
-        ``--no_batched_branches``."""
+        ``--no_batched_branches``. A BatchNorm (--norm batch) normalises with
+        the batch's moments when ``train`` and its running statistics
+        otherwise, and moves neither (no stats sink, as in JAX)."""
+        with batch_norm_mode(train):
+            return self._forward_all(batch)
+
+    def _forward_all(self, batch):
         dt = self.compute_dtype
         image_f, task = self.nets["Image_f"], self.nets["Task"]
         syn_i = batch["A_i"].to(dt).permute(0, 3, 1, 2)
@@ -134,14 +146,23 @@ class I2DModel(BaseModel):
         m["G"] = loss_g
         return loss_g, m
 
-    def _d_logits(self, feats):
-        return self.nets["D_depth"](feats).float()
+    def _d_logits(self, feats, train=True, track=False):
+        """D_depth's float32 logits; a BatchNorm in it (--norm batch) runs in
+        ``train`` mode and moves its statistics only with ``track`` (the D
+        step's stats sink, i2d_model.py:205-216)."""
+        with batch_norm_mode(train, track):
+            return self.nets["D_depth"](feats).float()
+
+    def stage(self, batch):
+        """(device tensors, paths) of a host batch (``--direction BtoA``
+        swaps the domains)."""
+        batch = self.apply_direction(batch)
+        return ({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS},
+                {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")})
 
     def set_input(self, batch):
-        """Stage a host batch on the device (``--direction BtoA`` swaps the domains)."""
-        batch = self.apply_direction(batch)
-        self._batch = {k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}
-        self._paths = {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")}
+        """Stage a host batch on the device (``stage``)."""
+        self._batch, self._paths = self.stage(batch)
 
     def compute_grads(self, batch=None):
         """Forward, loss_G and its backward (i2d_model.py:141-179); the
@@ -165,8 +186,8 @@ class I2DModel(BaseModel):
         net.requires_grad_(True)
         try:
             self.optimizer_D.zero_grad(set_to_none=True)
-            loss = 0.5 * (L.gan_loss(self._d_logits(feats_syn), True, mode)
-                          + L.gan_loss(self._d_logits(fake), False, mode))
+            loss = 0.5 * (L.gan_loss(self._d_logits(feats_syn, track=True), True, mode)
+                          + L.gan_loss(self._d_logits(fake, track=True), False, mode))
             loss.backward()
             self.optimizer_D.step()
         finally:
@@ -178,30 +199,37 @@ class I2DModel(BaseModel):
         ``--use_D`` then the D step, every ``fr * batch_size`` images and at
         each of the first 800 (i2d_model.py:245-258), and the G_pred metrics.
 
-        The D step and the metrics read the features of the updated
-        ``Image_f``, as the JAX step does: those of G's forward when
-        ``Image_f`` does not train, else a fresh forward of it."""
+        The D step and the metrics read the eval forward's features of the
+        updated ``Image_f``, as the JAX step does: those of G's forward when
+        ``Image_f`` neither trains nor holds a BatchNorm, else a fresh eval
+        forward of it."""
         self.metrics = self.compute_grads()
         self.optimizer.step()
         if not self.use_D:
             return
         feats_syn, feats_real = self._feats
-        if "Image_f" in self.trainable_nets:
+        if "Image_f" in self.trainable_nets or self.opt.norm == "batch":
             with torch.no_grad():
-                feats_syn, feats_real = self.forward_all(self._batch)[:2]
+                feats_syn, feats_real = self.forward_all(self._batch, train=False)[:2]
         if iters % (fr * self.opt.batch_size) == 0 or iters < 800:
             fake = self.fake_depth_pool.query(feats_real)
             self.metrics["D_depth"] = self.d_step(feats_syn, fake)
         with torch.no_grad():
             mode = self.opt.gan_mode
-            self.metrics["G_pred"] = L.gan_loss(self._d_logits(feats_real), True, mode)
-            self.metrics["G_pred_r"] = L.gan_loss(self._d_logits(feats_syn), True, mode)
+            self.metrics["G_pred"] = L.gan_loss(self._d_logits(feats_real, False), True, mode)
+            self.metrics["G_pred_r"] = L.gan_loss(self._d_logits(feats_syn, False), True, mode)
 
     @torch.no_grad()
     def calculate(self, stage="test"):
-        """The eval forward and its losses; with ``--save_all`` the test
-        predictions are written as uint16 PNGs (rows [16:-16])."""
-        _, _, pred_syn, pred_real = self.forward_all(self._batch)
-        _, self.metrics = self.losses(pred_syn, pred_real, self._batch)
+        """The eval forward, its losses and its visuals (i2d_model.py:260-264:
+        NHWC images, planar depths and predictions); with ``--save_all`` the
+        test predictions are written as uint16 PNGs (rows [16:-16])."""
+        batch = self._batch
+        _, _, pred_syn, pred_real = self.forward_all(batch, train=False)
+        _, self.metrics = self.losses(pred_syn, pred_real, batch)
+        vis = {"syn_image": batch["A_i"], "syn_depth": batch["A_d"][..., 0],
+               "pred_syn_depth": pred_syn, "real_image": batch["B_i"],
+               "real_depth": batch["B_d"][..., 0], "pred_real_depth": pred_real}
+        self.visuals = {k: vis[k] for k in self.visual_names}
         if getattr(self.opt, "save_all", False) and stage == "test":
             self._dump_predictions(pred_real)

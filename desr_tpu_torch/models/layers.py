@@ -8,18 +8,33 @@ weights IOHW, so ``state_dict`` keys and shapes equal the JAX param dicts.
 
 Plain ``torch.nn`` modules are used where they already have the semantics
 (ReLU, LeakyReLU, Tanh, the pads, Dropout, and Upsample: nearest, and bilinear
-with align_corners=False, which is the JAX layer's ``resize_bilinear``). The
-translation discriminators' BatchNorm and spectral-norm conv follow the JAX
-layers rather than ``torch.nn``'s (see each). The JAX package's
-XLA-steering variants of the same functions (ring_pad, tap_conv, split_conv,
-fused_pad, phase_convt, row_tap, fold_norm) are not ported.
+with align_corners=False, which is the JAX layer's ``resize_bilinear``).
+BatchNorm and the spectral-norm conv follow the JAX layers rather than
+``torch.nn``'s (see each). The JAX package's XLA-steering variants of the
+same functions (ring_pad, tap_conv, split_conv, fused_pad, phase_convt,
+row_tap, fold_norm) are not ported.
+
+The remat of ``--remat_blocks`` and ``--remat_tails`` (the JAX
+``run_block_remat`` and ``Sequential._apply_remat_tails``, layers.py:374-460)
+is ``run_layers``: each maximal run of primitive layers goes under one
+``torch.utils.checkpoint``, whole (blocks) or saving the conv outputs
+(tails); composite modules run outside and handle their own runs, and
+BatchNorm stays outside every checkpoint.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from torch.nn import (  # noqa: F401  (re-exported for networks.py)
     Dropout,
@@ -145,15 +160,37 @@ def norm_vectors(norm, s, s2, n, bias=None):
     return scale, shift
 
 
+_BN_MODE = []  # the (train, track) of the innermost batch_norm_mode
+
+
+@contextlib.contextmanager
+def batch_norm_mode(train, track=False):
+    """Every ``BatchNorm2d`` called inside normalises with the batch's
+    moments when ``train`` (else with its running statistics) and moves its
+    running statistics only when ``track`` too: the JAX ``Ctx(train=...)``
+    and its ``stats`` sink (layers.py:1251-1300). Outside any such context a
+    BatchNorm follows its module's ``training`` flag for both (the
+    translation discriminators, which the JAX package always runs in train
+    mode with a sink)."""
+    _BN_MODE.append((bool(train), bool(train and track)))
+    try:
+        yield
+    finally:
+        _BN_MODE.pop()
+
+
 class BatchNorm2d(nn.Module):
     """affine BatchNorm with running statistics (layers.py:1251-1308).
 
-    In training mode it normalises with the batch's mean and biased variance
-    and moves the running statistics by torch's momentum 0.1, the running
-    variance from the unbiased batch variance; in eval mode it uses the
-    running statistics. The statistics and the affine run in f32 and the
-    result is rounded to the input's dtype. Keys ``weight``, ``bias``,
-    ``running_mean``, ``running_var`` and ``num_batches_tracked`` (int64).
+    In train mode it normalises with the batch's mean and biased variance,
+    and where it tracks, moves the running statistics by torch's momentum
+    0.1, the running variance from the unbiased batch variance (repeated
+    forwards in one step chain, as the JAX sink does); in eval mode it uses
+    the running statistics. ``batch_norm_mode`` sets the mode, else the
+    module's ``training`` flag does. The statistics and the affine run in f32
+    and the result is rounded to the input's dtype. Keys ``weight``,
+    ``bias``, ``running_mean``, ``running_var`` and ``num_batches_tracked``
+    (int64).
     """
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
@@ -167,8 +204,10 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         x32 = x.float()
-        if self.training:
+        train, track = _BN_MODE[-1] if _BN_MODE else (self.training, self.training)
+        if train:
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+        if track:
             with torch.no_grad():
                 n = x32.numel() // self.c
                 unbiased = var * (n / (n - 1)) if n > 1 else var
@@ -176,7 +215,7 @@ class BatchNorm2d(nn.Module):
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
                 self.num_batches_tracked += 1
-        else:
+        if not train:
             mean, var = self.running_mean, self.running_var
         out = (x32 - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
         return (out * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
@@ -233,8 +272,7 @@ def get_norm_layer(norm_type, lineage="pix2pix"):
 
     Convs carry a bias only with instance norm (or none). GroupNorm has 8
     groups, affine in the translation lineage and not in the pix2pix one.
-    BatchNorm is the JAX layer's; only the translation discriminators build
-    it (zoo A's ``define_G`` and ``define_D`` refuse it).
+    BatchNorm is the JAX layer's (see ``batch_norm_mode``).
     """
     if norm_type == "batch":
         return BatchNorm2d, False
@@ -246,3 +284,88 @@ def get_norm_layer(norm_type, lineage="pix2pix"):
         affine = lineage == "translation"
         return (lambda ch: GroupNorm(8, ch, affine=affine)), False
     raise NotImplementedError(f"norm layer {norm_type}")
+
+
+# -- remat (--remat, --remat_blocks, --remat_tails) ----------------------------
+
+@functools.cache
+def _conv_ops():
+    from desr_tpu_torch.ops import conv3x3  # noqa: F401  (registers desr::)
+
+    return (torch.ops.aten.convolution.default, torch.ops.desr.conv3x3_fused.default,
+            torch.ops.desr.conv3x3.default)
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """The ``--remat_tails`` policy: keep what the convolutions (cuDNN's, K1,
+    K2) return, recompute everything else in the backward."""
+    return CheckpointPolicy.MUST_SAVE if op in _conv_ops() \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, mode, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``mode`` is set and a gradient is being recorded: "blocks" (or "net")
+    keeps only the inputs and recomputes all of ``fn`` in the backward;
+    "tails" also keeps the conv outputs (a selective-checkpoint policy), so
+    only the norms and activations are recomputed. Under no_grad (frozen
+    nets, eval forwards) it is the plain call. Nothing inside draws random
+    numbers, so no RNG state is kept."""
+    if mode is None or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                          _save_conv_outputs)} if mode == "tails" else {}
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def with_batch_norm_mode(fn, train, track=False):
+    """``fn`` that enters ``batch_norm_mode(train, track)`` itself, so that a
+    checkpoint's recompute (which runs in the backward, outside the caller's
+    context) normalises as the first forward did."""
+    def run(*args):
+        with batch_norm_mode(train, track):
+            return fn(*args)
+    return run
+
+
+def _is_primitive(layer):
+    """A layer ``run_layers`` may put under a checkpoint: not a BatchNorm
+    (its running statistics must not move in a recompute) and not a
+    composite (``remat`` attribute: it handles its own runs)."""
+    return not isinstance(layer, BatchNorm2d) and not hasattr(layer, "remat")
+
+
+def _run_span(layers, x):
+    for layer in layers:
+        x = layer(x)
+    return x
+
+
+def run_layers(layers, x, mode):
+    """Apply ``layers`` (modules or callables) in order; with a remat
+    ``mode`` ("blocks" or "tails") each maximal run of primitive layers goes
+    through ``remat_call`` as one span (layers.py:374-460)."""
+    layers = list(layers)
+    if mode is None or not torch.is_grad_enabled():
+        return _run_span(layers, x)
+    i, n = 0, len(layers)
+    while i < n:
+        if not _is_primitive(layers[i]):
+            x = layers[i](x)
+            i += 1
+            continue
+        j = i
+        while j < n and _is_primitive(layers[j]):
+            j += 1
+        x = remat_call(functools.partial(_run_span, layers[i:j]), mode, x)
+        i = j
+    return x
+
+
+def set_remat(net, mode):
+    """Set the remat ``mode`` (None, "blocks" or "tails") on every composite
+    of ``net`` that reads one; returns ``net``."""
+    for m in net.modules():
+        if hasattr(m, "remat"):
+            m.remat = mode
+    return net

@@ -20,6 +20,7 @@ import torch
 
 from desr_tpu_torch.models import networks, translation_networks
 from desr_tpu_torch.models.base_model import BaseModel
+from desr_tpu_torch.models.layers import batch_norm_mode
 from desr_tpu_torch.ops import depth as DPT
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
@@ -125,6 +126,13 @@ class MainModel(BaseModel):
 
     model_names = ("G_A_d", "I2D_features", "Image2Depth", "Task", "Depth_f")
     trainable_nets = ("Depth_f", "Task")
+    # main_model.py:99-104; calculate keeps those its forward has
+    visual_names = (
+        "syn_image", "syn_depth", "syn2real_depth", "syn_mask", "pred_syn_depth",
+        "mask_syn_add_holes", "syn_depth_by_image", "real_image", "real_depth",
+        "real_depth_by_image", "pred_real_depth", "real_mask", "mask_real_add_holes",
+        "depth_masked", "syn2real_depth_masked",
+        "norm_syn", "norm_syn_pred", "norm_syn2real", "norm_real", "norm_real_pred")
     _supports_rec_input = False  # --use_rec_as_real_input is the SR stage's (QUIRKS #31)
     _dump_key = "pred_real_depth"  # main_model.py:453-462
     _hole_p, _hole_max_frac = (0.90, 0.90), 8      # train-time (real, syn) p, main_model.py:210-217
@@ -163,9 +171,12 @@ class MainModel(BaseModel):
             nets.update(self._frozen_extra_nets(opt, common))
         self.nets = torch.nn.ModuleDict(nets)
         self.to(self.device)
-        self.eval()  # no layer of these nets behaves differently in training
+        # the nets' BatchNorms (--norm batch) take their mode from
+        # batch_norm_mode in each forward; no other layer has one
+        self.eval()
         self.requires_grad_(False)
         if is_train:
+            self.apply_remat()
             self.split_trainable()
             if hole_generator is None:
                 hole_generator = torch.Generator(device=self.device)
@@ -237,7 +248,7 @@ class MainModel(BaseModel):
         NCHW features and a float32 (B, H, W) depth, on the images' grid."""
         return self.serving_module().guidance(images)
 
-    def _real_input_depth(self, batch, real_depth, real_image):
+    def _real_input_depth(self, batch, real_depth, real_image, train):
         """The real depth the holes are punched into (main: the input's own)."""
         return real_depth
 
@@ -246,8 +257,17 @@ class MainModel(BaseModel):
         and the visuals read, planar (B, H, W) for depth maps and masks.
 
         The frozen nets run under ``no_grad``; real and synthetic branches
-        share one batch-2B call of each net unless ``--no_batched_branches``.
+        share one batch-2B call of each net unless ``--no_batched_branches``
+        (under ``--norm batch`` the moments of one 2B call are not those of
+        two B calls, as in the JAX package). Every BatchNorm normalises with
+        the batch's moments when ``train`` and with its running statistics
+        otherwise, and none moves them (the JAX step passes no stats sink).
+        ``Depth_f`` and ``Task`` go through ``run_net`` (``--remat``).
         """
+        with batch_norm_mode(train):
+            return self._forward_all(batch, train)
+
+    def _forward_all(self, batch, train):
         dt = self.compute_dtype
         nets = self.nets
         syn_image = batch["A_i"].to(dt).permute(0, 3, 1, 2)
@@ -261,7 +281,7 @@ class MainModel(BaseModel):
         with torch.no_grad():
             syn2real = nets["G_A_d"](batch["A_d"].to(dt).permute(0, 3, 1, 2),
                                      syn_image)[:, 0].float()
-            real_input_depth = self._real_input_depth(batch, real_depth, real_image)
+            real_input_depth = self._real_input_depth(batch, real_depth, real_image, train)
             if batched:
                 both_images = torch.cat([syn_image, real_image], 0)
                 feats_both, dbi_both = self._guidance(both_images)
@@ -284,17 +304,18 @@ class MainModel(BaseModel):
 
         syn_pair = torch.stack([syn2real_masked, syn_dbi], dim=1).to(dt)
         real_pair = torch.stack([depth_masked, real_dbi], dim=1).to(dt)
+        run = lambda name, x: self.run_net(name, x, train=train)  # noqa: E731
         if batched:
             pair_both = torch.cat([syn_pair, real_pair], 0)
-            feat_both_d = nets["Depth_f"](pair_both)
+            feat_both_d = run("Depth_f", pair_both)
             task_in = torch.cat([feats_both, feat_both_d, pair_both, both_images], 1)
-            pred_both = nets["Task"](task_in)[:, 0].float()
+            pred_both = run("Task", task_in)[:, 0].float()
             pred_syn, pred_real = pred_both[:bsz], pred_both[bsz:]
         else:
-            pred_syn = nets["Task"](torch.cat(
-                [feats_syn, nets["Depth_f"](syn_pair), syn_pair, syn_image], 1))[:, 0].float()
-            pred_real = nets["Task"](torch.cat(
-                [feats_real, nets["Depth_f"](real_pair), real_pair, real_image], 1))[:, 0].float()
+            pred_syn = run("Task", torch.cat(
+                [feats_syn, run("Depth_f", syn_pair), syn_pair, syn_image], 1))[:, 0].float()
+            pred_real = run("Task", torch.cat(
+                [feats_real, run("Depth_f", real_pair), real_pair, real_image], 1))[:, 0].float()
 
         return dict(
             syn_image=batch["A_i"], real_image=batch["B_i"],
@@ -384,12 +405,16 @@ class MainModel(BaseModel):
 
     # ------------------------------------------------------------------
 
-    def set_input(self, batch):
-        """Stage a host batch on the device (``--direction BtoA`` swaps the
-        image and depth tensors only, base_model.py:161-176)."""
+    def stage(self, batch):
+        """(device tensors, paths) of a host batch (``--direction BtoA`` swaps
+        the image and depth tensors only, base_model.py:161-176)."""
         batch = self.apply_direction(batch)
-        self._batch = {k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}
-        self._paths = {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")}
+        return ({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS},
+                {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")})
+
+    def set_input(self, batch):
+        """Stage a host batch on the device (``stage``)."""
+        self._batch, self._paths = self.stage(batch)
 
     def compute_grads(self, batch=None):
         """Forward, losses and backward of one train step; the gradients are
@@ -407,10 +432,13 @@ class MainModel(BaseModel):
 
     @torch.no_grad()
     def calculate(self, stage="test"):
-        """The eval forward and its metrics (no holes drawn); with
-        ``--save_all`` the test predictions are written as uint16 PNGs."""
+        """The eval forward and its metrics (no holes drawn), and the visuals
+        ``visual_names`` finds in the forward (main_model.py:445-449): NHWC
+        images, planar depth maps and masks. With ``--save_all`` the test
+        predictions are written as uint16 PNGs."""
         f = self.forward_all(self._batch, train=False)
         _, m = self.losses(f, self._batch)
         self.metrics = m
+        self.visuals = {k: f[k] for k in self.visual_names if k in f}
         if getattr(self.opt, "save_all", False) and stage == "test":
             self._dump_predictions(f[self._dump_key])

@@ -85,19 +85,21 @@ class MainSRModel(MainModel):
         """``SRServingForward``: the real branch at the SR grids."""
         return SRServingForward(self.nets, self.compute_dtype, self.lr_hw, self.hr_hw)
 
-    def _real_input_depth(self, batch, real_depth, real_image):
+    def _real_input_depth(self, batch, real_depth, real_image, train):
         if "G_B_d" not in self.nets:
             return real_depth
-        # main_sr_model.py:151-162: r2s = G_B_d(depth ++ image), then G_A_d
+        # main_sr_model.py:151-162: r2s = G_B_d(depth ++ image), then G_A_d;
+        # G_B_d goes through run_net as in the JAX remat (:158), though as a
+        # frozen net under no_grad it is never checkpointed
         dt = self.compute_dtype
-        r2s = self.nets["G_B_d"](torch.cat([batch["B_d"].to(dt).permute(0, 3, 1, 2),
-                                            real_image], 1))
+        r2s = self.run_net("G_B_d", torch.cat([batch["B_d"].to(dt).permute(0, 3, 1, 2),
+                                               real_image], 1), train=train)
         return self.nets["G_A_d"](r2s.to(dt), real_image)[:, 0].float()
 
-    def forward_all(self, batch, train):
+    def _forward_all(self, batch, train):
         """MainModel's forward on the SR grids (main_sr_model.py:125-235); the
         real prediction is also bicubic-downsampled to LR (:223)."""
-        f = super().forward_all(batch, train)
+        f = super()._forward_all(batch, train)
         f["pred_real_depth_hr"] = f["pred_real_depth"]
         f["pred_real_depth"] = resize_bicubic_planar(f["pred_real_depth_hr"], self.lr_hw)
         return f

@@ -7,9 +7,17 @@ the ResNet generator and the PatchGAN, ``model.N.conv_block.M.…`` inside the
 ResNet's blocks, the nested ``model.model.1.model.…`` of the U-Net and
 ``net.N.…`` for the pixel discriminator. So a JAX param dict (or a reference
 ``.pth``) loads with ``load_state_dict(strict=True)``.
+
+``--norm batch`` and ``--norm none`` build BatchNorm or no norm: their
+ResnetBlocks take the unfused route (cuDNN's convs, or K2 under
+``--pallas_conv``), as K1 fuses only instance and group moments
+(layers.py:289-300). Each composite (generator, ResnetBlock, U-Net level)
+reads its ``remat`` mode (``layers.set_remat``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -30,6 +38,8 @@ from desr_tpu_torch.models.layers import (
     Upsample,
     get_norm_layer,
     norm_vectors,
+    remat_call,
+    run_layers,
 )
 from desr_tpu_torch.ops import conv3x3 as K
 
@@ -60,13 +70,18 @@ def fused_resnet_chain(x, convs, norms, pad_mode):
 
 
 class ResnetBlock(nn.Module):
-    """[pad, conv3x3, IN, ReLU, (Dropout), pad, conv3x3, IN] + skip
+    """[pad, conv3x3, norm, ReLU, (Dropout), pad, conv3x3, norm] + skip
     (networks.py:69-96); keys under ``conv_block.``.
 
-    The forward is ``fused_resnet_chain`` on every device. With
-    ``fused=False`` each conv is the ``conv3x3`` kernel and the norms run as
-    layers (the JAX ``--pallas_conv`` route).
+    Under instance or group norm the forward is ``fused_resnet_chain`` on
+    every device. With ``fused=False`` each conv is the ``conv3x3`` kernel
+    and the norms run as layers (the JAX ``--pallas_conv`` route); under
+    batch or no norm with ``fused`` the block runs its layers, cuDNN's convs.
+    Under a remat mode the fused chain is one checkpointed span; the layers'
+    runs go through ``run_layers`` (a BatchNorm stays outside).
     """
+
+    remat = None
 
     def __init__(self, dim, padding_type, norm_layer, use_dropout, use_bias,
                  fused=True):
@@ -93,10 +108,10 @@ class ResnetBlock(nn.Module):
         self.fused = fused
         self.use_dropout = use_dropout
         convs = [m for m in blocks if isinstance(m, Conv2d)]
-        norms = [m for m in blocks if isinstance(m, (InstanceNorm2d, GroupNorm))]
-        if len(norms) != 2:
-            raise NotImplementedError("ResnetBlock without a norm: not yet ported")
+        # the module after each conv is its norm (Identity under --norm none)
+        norms = [blocks[next(i for i, b in enumerate(blocks) if b is c) + 1] for c in convs]
         self._convs, self._norms = convs, norms
+        self._fusable = all(isinstance(n, (InstanceNorm2d, GroupNorm)) for n in norms)
 
     def forward(self, x):
         if self.training and self.use_dropout:
@@ -104,21 +119,28 @@ class ResnetBlock(nn.Module):
         if not self.fused:
             x = x.contiguous(memory_format=torch.channels_last)
             (c1, c2), (n1, n2) = self._convs, self._norms
-            y = self._conv_norm(x.permute(0, 2, 3, 1), c1, n1)
-            y = torch.relu(y).contiguous(memory_format=torch.channels_last)
-            y = self._conv_norm(y.permute(0, 2, 3, 1), c2, n2)
-            return x + y
+            steps = [self._k2(c1), n1, torch.relu, self._k2(c2), n2]
+            return x + run_layers(steps, x, self.remat)
+        if self._fusable:
+            return remat_call(self._chain, self.remat, x)
+        return x + run_layers(self.conv_block, x, self.remat)
+
+    def _chain(self, x):
         return fused_resnet_chain(x, self._convs, self._norms, self.pad_mode)
 
-    def _conv_norm(self, xh, conv, norm):
-        y = K.conv3x3(xh, conv.weight, self.pad_mode).permute(0, 3, 1, 2)
-        if conv.bias is not None:
-            y = y + conv.bias.to(y.dtype)[:, None, None]
-        return norm(y)
+    def _k2(self, conv):
+        """The conv as K2 (``conv3x3``) on an NCHW tensor, bias added."""
+        def run(x):
+            xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+            y = K.conv3x3(xh, conv.weight, self.pad_mode).permute(0, 3, 1, 2)
+            return y if conv.bias is None else y + conv.bias.to(y.dtype)[:, None, None]
+        return run
 
 
 class ResnetGenerator(nn.Module):
     """networks.py:99-136 (reference networks.py:353-421), ends in Tanh."""
+
+    remat = None
 
     def __init__(self, input_nc, output_nc, ngf, norm_layer, use_bias, use_dropout,
                  n_blocks, padding_type="reflect", replace_transpose=False,
@@ -148,7 +170,7 @@ class ResnetGenerator(nn.Module):
         self.model = nn.Sequential(*model)
 
     def forward(self, x):
-        return self.model(x)
+        return run_layers(self.model, x, self.remat)
 
 
 class UnetSkipConnectionBlock(nn.Module):
@@ -159,8 +181,14 @@ class UnetSkipConnectionBlock(nn.Module):
     ResnetBlock, emit twice the input's resolution per axis and one channel.
     As shipped, the norms after those convs are built for ``inner_nc``
     channels while they normalise ``inner_nc // 2`` and ``inner_nc // 4``;
-    InstanceNorm without affine does not depend on the width.
+    InstanceNorm without affine does not depend on the width (a BatchNorm's
+    affine does: the head refuses ``--norm batch``, whose JAX layer fails
+    there too).
+    Under a remat mode the level's spans before and after its submodule are
+    checkpointed apart (``run_layers``; layers.py:422-460).
     """
+
+    remat = None
 
     def __init__(self, outer_nc, inner_nc, input_nc=None, submodule=None,
                  outermost=False, innermost=False, norm_layer=InstanceNorm2d,
@@ -171,6 +199,10 @@ class UnetSkipConnectionBlock(nn.Module):
         self.outermost = outermost
         downconv = Conv2d(input_nc, inner_nc, 4, stride=2, padding=1, bias=use_bias)
         if outermost and sr:
+            if norm_layer is BatchNorm2d:
+                raise NotImplementedError(
+                    "the U-Net SR head under --norm batch: its norms are built for inner_nc "
+                    "channels and applied to inner_nc // 2 (the JAX layer fails there too)")
             model = [downconv, submodule, ReLU(),
                      ConvTranspose2d(inner_nc * 2, inner_nc // 2, 4, stride=2, padding=1, bias=True),
                      norm_layer(inner_nc),
@@ -199,9 +231,10 @@ class UnetSkipConnectionBlock(nn.Module):
         self.model = nn.Sequential(*model)
 
     def forward(self, x):
+        out = run_layers(self.model, x, self.remat)
         if self.outermost:
-            return self.model(x)
-        return torch.cat([x, self.model(x)], 1)
+            return out
+        return torch.cat([x, out], 1)
 
 
 class UnetGenerator(nn.Module):
@@ -268,39 +301,82 @@ class PixelDiscriminator(nn.Module):
         return self.net(x)
 
 
-@torch.no_grad()
-def init_weights(net, init_type="normal", init_gain=0.02, generator=None):
-    """Conv/convT weights ~ N(0, init_gain), biases 0 (layers.py:170-196,
-    "normal"); affine GroupNorm and BatchNorm weights ~ N(1, 0.02), biases 0
-    (:1213-1220, :1272-1276); a spectral-norm conv's u and v converged for its
-    weight (:1439-1461).
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
 
-    The translation lineage's "normal" init (``gain_from_nonlinearity``) is
-    the same with init_gain 0.02.
+
+def calculate_gain(nonlinearity, param=None):
+    """torch.nn.init.calculate_gain for the nonlinearities the nets use
+    (layers.py:134-145)."""
+    if nonlinearity == "relu":
+        return math.sqrt(2.0)
+    if nonlinearity == "leaky_relu":
+        neg = 0.01 if param is None else param
+        return math.sqrt(2.0 / (1 + neg ** 2))
+    if nonlinearity in ("linear", "conv2d", "sigmoid"):
+        return 1.0
+    if nonlinearity == "tanh":
+        return 5.0 / 3
+    raise ValueError(nonlinearity)
+
+
+def init_weight_(w, init_type, init_gain, gain, generator):
+    """Draw a conv weight (OIHW, or IOHW for a transposed conv) in place, as
+    ``init_weight`` does (layers.py:170-201): "normal" N(0, init_gain);
+    "xavier" N(0, gain sqrt(2 / (fan_in + fan_out))); "kaiming"
+    N(0, sqrt(2 / fan_in)); "orthogonal" the Q of a QR of an N(0, 1) draw,
+    columns signed by R's diagonal, times ``gain``. Fans are torch's: dim 1
+    times the kernel's size in, dim 0 times it out. Normal draws, as the JAX
+    package makes them (torch's own xavier and kaiming draw uniform)."""
+    shape = tuple(w.shape)
+    receptive = math.prod(shape[2:])
+    fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
+    if init_type == "normal":
+        w.normal_(0.0, init_gain, generator=generator)
+    elif init_type == "xavier":
+        w.normal_(0.0, gain * math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
+    elif init_type == "kaiming":
+        w.normal_(0.0, math.sqrt(2.0) / math.sqrt(fan_in), generator=generator)
+    elif init_type == "orthogonal":
+        rows, cols = shape[0], math.prod(shape[1:])
+        flat = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
+        q, r = torch.linalg.qr(flat)
+        q = q * torch.sign(torch.diagonal(r))[None, :]
+        if rows < cols:
+            q = q.T
+        w.copy_((gain * q[:rows, :cols]).reshape(shape))
+    else:
+        raise NotImplementedError(f"initialization method [{init_type}] is not implemented")
+
+
+@torch.no_grad()
+def init_weights(net, init_type="normal", init_gain=0.02, generator=None, gain=None):
+    """Conv/convT weights by ``init_weight_``, biases 0 (layers.py:170-196);
+    BatchNorm weights ~ N(1, init_gain) and affine GroupNorm weights
+    ~ N(1, 0.02), biases 0 (:1213-1220, :1269-1276); a spectral-norm conv's
+    u and v converged for its weight (:1439-1461).
+
+    ``gain`` (xavier, orthogonal) is ``init_gain`` in the pix2pix lineage;
+    the translation lineage passes ``calculate_gain`` of its nonlinearity
+    (``InitCfg(gain_from_nonlinearity=True)``), with init_gain 0.02.
     """
-    if init_type != "normal":
-        raise NotImplementedError(f"init {init_type!r}: not yet ported")
+    gain = init_gain if gain is None else gain
     for m in net.modules():
         if isinstance(m, (Conv2d, ConvTranspose2d)):
-            m.weight.normal_(0.0, init_gain, generator=generator)
+            init_weight_(m.weight, init_type, init_gain, gain, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, SpectralNormConv2d):
-            m.weight_orig.normal_(0.0, init_gain, generator=generator)
+            init_weight_(m.weight_orig, init_type, init_gain, gain, generator)
             if m.bias is not None:
                 m.bias.zero_()
             m.reset_uv(generator)
-        elif isinstance(m, BatchNorm2d) or (isinstance(m, GroupNorm) and m.affine):
+        elif isinstance(m, BatchNorm2d):
+            m.weight.normal_(1.0, init_gain, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, GroupNorm) and m.affine:
             m.weight.normal_(1.0, 0.02, generator=generator)
             m.bias.zero_()
     return net
-
-
-def _refuse_batch(norm):
-    # the main and I2D models hold their nets in eval mode, where a BatchNorm
-    # would normalise with its running statistics instead of the batch's
-    if norm == "batch":
-        raise NotImplementedError("--norm batch in the main and I2D nets: not yet ported")
 
 
 def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
@@ -315,7 +391,6 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
     """
     if use_old and norm == "group":
         raise NotImplementedError("use_old GroupNorm(1): not yet ported")
-    _refuse_batch(norm)
     norm_layer, use_bias = get_norm_layer(norm)
     if netG in ("resnet_9blocks", "resnet_6blocks"):
         n_blocks = 9 if netG == "resnet_9blocks" else 6
@@ -337,7 +412,6 @@ def define_D(input_nc, ndf, netD, n_layers_D=3, norm="instance", init_type="norm
     """Mirror of define_D (networks.py:283-294), built on the CPU: ``basic``
     (a 3-layer PatchGAN), ``n_layers`` (``n_layers_D`` of them) or ``pixel``.
     ``generator`` seeds the weight init (a fresh one seeded 0 when None)."""
-    _refuse_batch(norm)
     norm_layer, use_bias = get_norm_layer(norm)
     if netD in ("basic", "n_layers"):
         net = NLayerDiscriminator(input_nc, ndf, 3 if netD == "basic" else n_layers_D,

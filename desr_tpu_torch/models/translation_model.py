@@ -29,6 +29,7 @@ iteration in the JAX package with the same trajectory, runs this same loop.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from desr_tpu_torch.models import translation_networks as TN
@@ -36,9 +37,11 @@ from desr_tpu_torch.models.base_model import BaseModel
 from desr_tpu_torch.models.main_model import NetOptions, _to_device
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops.normals import surface_normals_fov_planar
+from desr_tpu_torch.utils.util import to_numpy
 
 HOLE_BORDER = -0.98  # translation_model.py:42
 INPUT_KEYS = ("A_depth", "A_img", "B_depth", "B_img")
+
 
 
 class TranslationModel(BaseModel):
@@ -54,6 +57,7 @@ class TranslationModel(BaseModel):
 
     model_names = ("G_A", "G_B")
     trainable_nets = ("G_A", "G_B")
+    _multi_step = False  # one iteration a call, as in the JAX trainer
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16, generator=None,
                  direction="AtoB", is_train=False):
@@ -75,6 +79,11 @@ class TranslationModel(BaseModel):
         self.depth_only_B = opt.inp_B == "depth"
         self.direction = direction
         self.is_train = is_train
+        # translation_model.py:108-113
+        self.visual_names = ("real_img_A", "real_depth_A", "real_img_B", "real_depth_B",
+                             "fake_depth_B", "fake_depth_A") \
+            + (("rec_depth_A",) if getattr(opt, "use_cycle_A", False) else ()) \
+            + (("rec_depth_B",) if getattr(opt, "use_cycle_B", False) else ())
         self.disc_names = ()
         if is_train:
             if opt.disc_for_depth:
@@ -93,6 +102,7 @@ class TranslationModel(BaseModel):
             self.eval()
             return
         self.train()  # the Ds' BatchNorm runs on batch moments; nothing else has a mode
+        self.apply_remat()
         self.loss_names = self._loss_names(opt)
         self.split_trainable(betas=(opt.beta1, 0.999), weight_decay=opt.w_decay_G)
         if self.disc_names:
@@ -171,7 +181,8 @@ class TranslationModel(BaseModel):
         dA, dB = batch["A_depth"][..., 0], batch["B_depth"][..., 0]
         img_A = batch["A_img"].to(self.compute_dtype).permute(0, 3, 1, 2)
         img_B = batch["B_img"].to(self.compute_dtype).permute(0, 3, 1, 2)
-        f = {"real_depth_A": dA, "real_depth_B": dB, "hole_mask_A": dA <= HOLE_BORDER}
+        f = {"real_depth_A": dA, "real_depth_B": dB, "hole_mask_A": dA <= HOLE_BORDER,
+             "real_img_A": batch["A_img"], "real_img_B": batch["B_img"]}
         f["fake_depth_B"] = self._apply_G("G_A", dA, img_A)
         f["fake_depth_A"] = self._apply_G("G_B", dB, img_B)
         f["hole_mask_B"] = f["fake_depth_A"] <= HOLE_BORDER
@@ -345,11 +356,58 @@ class TranslationModel(BaseModel):
 
     @torch.no_grad()
     def calculate(self, stage="test"):
-        """The eval forward (:424-433, :545-548): depth_dif_A/B in meters."""
+        """The eval forward (:424-433, :545-548): depth_dif_A/B in meters,
+        and the visuals of ``visual_names`` (NHWC images, planar depths)."""
         f = self.gen_forward(self._batch, idt=False)
         self.metrics = self.depth_difs(f)
+        self.visuals = {k: f[k] for k in self.visual_names if k in f}
 
     def calc_test_loss(self):
         self.calculate()
         self.test_depth_dif_A = float(self.metrics["depth_dif_A"])
         self.test_depth_dif_B = float(self.metrics["depth_dif_B"])
+
+    # -- the metric API on the last calculate's visuals (:550-602) -------------
+
+    def _masked_l1_m(self, a, b, mask):
+        mask = to_numpy(mask)
+        return float(np.sum(np.abs(to_numpy(self._meters(b)) - to_numpy(self._meters(a))) * mask)
+                     / (mask.sum() + 1e-6))
+
+    def get_L1_loss(self):
+        f = self.visuals
+        return self._masked_l1_m(f["real_depth_A"], f["fake_depth_B"],
+                                 f["real_depth_A"] > HOLE_BORDER)
+
+    def get_L1_loss_syn(self):
+        f = self.visuals
+        return self._masked_l1_m(f["real_depth_B"], f["fake_depth_A"],
+                                 f["fake_depth_A"] > HOLE_BORDER)
+
+    def get_L1_loss_cycle(self):
+        f = self.visuals
+        return self._masked_l1_m(f["real_depth_A"], f["rec_depth_A"],
+                                 f["real_depth_A"] > HOLE_BORDER)
+
+    def get_L1_loss_cycle_syn(self):
+        f = self.visuals
+        return float(np.mean(np.abs(to_numpy(self._meters(f["rec_depth_B"]))
+                                    - to_numpy(self._meters(f["real_depth_B"])))))
+
+    def get_dif(self):
+        """Signed masked mean difference in meters, fake_B - real_A."""
+        f = self.visuals
+        mask = to_numpy(f["real_depth_A"] > HOLE_BORDER)
+        return float(np.sum((to_numpy(self._meters(f["fake_depth_B"]))
+                             - to_numpy(self._meters(f["real_depth_A"]))) * mask)
+                     / (mask.sum() + 1e-6))
+
+    def get_dif_syn(self):
+        f = self.visuals
+        mask = to_numpy(f["fake_depth_A"] > HOLE_BORDER)
+        return float(np.sum((to_numpy(self._meters(f["fake_depth_A"]))
+                             - to_numpy(self._meters(f["real_depth_B"]))) * mask)
+                     / (mask.sum() + 1e-6))
+
+    def get_mask(self, depth):
+        return to_numpy(depth) <= HOLE_BORDER

@@ -12,7 +12,9 @@ Attribute names reproduce the JAX ``init`` keys (``enc_img.model.0.weight``,
 ``latest_net_G_A_d.pth`` loads with ``load_state_dict(strict=True)``. Not
 ported: the dilated bottleneck and ``GeneratorI_F`` / ``GeneratorF_D``, which
 no model builds, and translator dropout, which ``default_translator_opt``
-turns off.
+turns off. The composites (encoder, decoder and bottleneck parts, the
+ResnetBlockTs, the up layers) read their ``remat`` mode
+(``layers.set_remat``), as zoo A's do.
 """
 
 from __future__ import annotations
@@ -32,10 +34,13 @@ from desr_tpu_torch.models.layers import (
     Tanh,
     Upsample,
     get_norm_layer,
+    remat_call,
+    run_layers,
 )
 from desr_tpu_torch.models.networks import (
     NLayerDiscriminator,
     PixelDiscriminator,
+    calculate_gain,
     fused_resnet_chain,
     init_weights,
 )
@@ -43,6 +48,8 @@ from desr_tpu_torch.models.networks import (
 
 class TransposeUp(nn.Module):
     """upsampling_type='transpose' (translation_networks.py:57-68)."""
+
+    remat = None
 
     def __init__(self, in_ch, out_ch, use_bias):
         super().__init__()
@@ -62,17 +69,21 @@ class UpConv(nn.Module):
     """upsampling_type='upconv' (translation_networks.py:71-87): nearest x2,
     then a replicate-padded 3x3 conv."""
 
+    remat = None
+
     def __init__(self, in_ch, out_ch, use_bias):
         super().__init__()
         self.resizeconv = _resizeconv("nearest", in_ch, out_ch, use_bias)
 
     def forward(self, x):
-        return self.resizeconv(x)
+        return run_layers(self.resizeconv, x, self.remat)
 
 
 class UpTranspose(nn.Module):
     """upsampling_type='uptranspose' (translation_networks.py:90-118): bilinear
     x2 and a replicate-padded 3x3 conv, plus a bias-free transposed conv."""
+
+    remat = None
 
     def __init__(self, in_ch, out_ch, use_bias):
         super().__init__()
@@ -80,7 +91,7 @@ class UpTranspose(nn.Module):
         self.transposeconv = ConvTranspose2d(in_ch, out_ch, 4, stride=2, padding=1, bias=False)
 
     def forward(self, x):
-        return self.resizeconv(x) + self.transposeconv(x)
+        return run_layers(self.resizeconv, x, self.remat) + self.transposeconv(x)
 
 
 UP_LAYERS = {"transpose": TransposeUp, "upconv": UpConv, "uptranspose": UpTranspose}
@@ -93,8 +104,10 @@ class ResnetBlockT(nn.Module):
     The forward is ``fused_resnet_chain`` with replicate borders: the
     [Conv2d(k=3, pad=1, padding_mode=replicate)] link that
     ``Sequential._fused_link`` parses (layers.py:257-262), GroupNorm folded
-    into scale/shift.
+    into scale/shift. Under a remat mode the chain is one checkpointed span.
     """
+
+    remat = None
 
     def __init__(self, dim, norm_factory, use_bias):
         super().__init__()
@@ -105,6 +118,9 @@ class ResnetBlockT(nn.Module):
         self.conv_block = nn.Sequential(*blocks)
 
     def forward(self, x):
+        return remat_call(self._chain, self.remat, x)
+
+    def _chain(self, x):
         b = self.conv_block
         return fused_resnet_chain(x, (b[0], b[3]), (b[1], b[4]), "replicate")
 
@@ -112,12 +128,14 @@ class ResnetBlockT(nn.Module):
 class _Part(nn.Module):
     """A Sequential published as ``model`` (the JAX ``_Wrapped("model", ...)``)."""
 
+    remat = None
+
     def __init__(self, layers):
         super().__init__()
         self.model = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.model(x)
+        return run_layers(self.model, x, self.remat)
 
 
 def _encoder(input_nc, base_nc, norm_factory, use_bias, n_downsampling):
@@ -203,16 +221,16 @@ def default_translator_opt(**overrides):
 def define_Gen(opt, input_type, out_type="depth", generator=None) -> nn.Module:
     """Mirror of define_Gen (translation_networks.py:208) for the ``img_depth``
     and ``depth`` inputs, built on the CPU with the lineage's init (InitCfg
-    with ``gain_from_nonlinearity``: "normal" draws N(0, 0.02),
-    layers.py:170-178). ``generator`` seeds the init (a fresh one seeded 0
-    when None)."""
+    with ``gain_from_nonlinearity``, relu: "normal" draws N(0, 0.02), xavier
+    and orthogonal take the gain sqrt(2), translation_networks.py:227-228).
+    ``generator`` seeds the init (a fresh one seeded 0 when None)."""
     if (input_type, out_type) in (("img", "feature"), ("feature", "depth")):
         raise NotImplementedError(f"define_Gen({input_type!r}, {out_type!r}), the split "
                                   "generators GeneratorI_F / GeneratorF_D: not yet ported")
     net = TranslationGenerator(opt, input_type, use_bias=opt.norm == "instance")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_weights(net, opt.init_type, 0.02, generator)
+    return init_weights(net, opt.init_type, 0.02, generator, gain=calculate_gain("relu"))
 
 
 class GuDiscriminator(nn.Module):
@@ -242,7 +260,7 @@ def define_D(opt, input_type="depth", generator=None) -> nn.Module:
     convs biased only under instance norm (so under the default ``none`` the
     middle convs have neither bias nor norm); --use_spnorm swaps the convs of
     all but ``pixel`` for spectral-norm convs. ``input_type``: depth (1
-    channel) or normal (3)."""
+    channel) or normal (3). The init's gain is leaky_relu(0.2)'s (:366-367)."""
     input_nc = {"depth": 1, "normal": 3}[input_type]
     norm_factory, _ = get_norm_layer(opt.norm_d, lineage="translation")
     use_bias = opt.norm_d == "instance"
@@ -258,4 +276,5 @@ def define_D(opt, input_type="depth", generator=None) -> nn.Module:
         raise NotImplementedError(f"Discriminator model name [{opt.netD}] is not recognized")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_weights(net, opt.init_type, 0.02, generator)
+    return init_weights(net, opt.init_type, 0.02, generator,
+                        gain=calculate_gain("leaky_relu", 0.2))

@@ -7,10 +7,15 @@ main_model.py:67-75, i2d_model.py:39-47, translation_model.py:49-74):
 Every flag of the JAX parser is known here, under its JAX name. Those the
 port honours keep the JAX defaults (several are read by no part of the main
 stage in either package, as in the reference). The rest stop the run with a
-clear error: ``NOT_PORTED`` ("not yet ported") and ``XLA_ONLY``, the JAX
-package's XLA-lowering switches, which compute the same math and have no
-counterpart in the port. An unknown flag gets argparse's own error. The port
-adds ``--device`` (default ``cuda``).
+clear error: ``NOT_PORTED`` ("not yet ported": the mesh flags, which need
+more than one card) and ``XLA_ONLY``, the JAX package's switches of XLA's
+lowering, compiler and buffers, which have no counterpart in the port. An
+unknown flag gets argparse's own error. The port adds ``--device`` (default
+``cuda``).
+
+``--remat_tails`` keeps the JAX default None, which the JAX models turn into
+their per-stage default (on for SR, I2D and translation); the port reads None
+as off (see ``models/base_model.py:remat_modes``).
 """
 
 from __future__ import annotations
@@ -19,13 +24,14 @@ import argparse
 import os
 
 # flags of the JAX parser that change what its main stage does, not ported yet
-NOT_PORTED = ("use_wandb", "steps_per_call", "remat",
-              "remat_tails", "no_remat_tails", "remat_blocks", "spatial_devices",
-              "num_devices", "compiler_option", "no_donate", "compile_cache_dir")
-# XLA-lowering switches of the JAX package (layers.py Ctx): same math there
+NOT_PORTED = ("spatial_devices", "num_devices")
+# XLA-lowering switches of the JAX package (layers.py Ctx): same math there;
+# and XLA's compiler options, buffer donation and compile cache
 XLA_ONLY = ("pallas_fuse", "no_pallas_fuse", "pallas_fuse_frozen", "fused_pad",
             "no_split_conv", "row_tap", "phase_convt", "no_ring_pad", "no_tap_conv",
-            "fold_norm", "bf16_tail", "bf16_normals", "no_onepass_stats")
+            "fold_norm", "bf16_tail", "bf16_normals", "no_onepass_stats",
+            "compiler_option", "no_donate", "compile_cache_dir")
+LR_POLICIES = ("linear", "step", "cosine", "plateau")
 COMPUTE_DTYPES = ("bfloat16", "bf16", "float32", "f32")
 
 # (name, type, default) of the valued flags the port accepts
@@ -42,6 +48,7 @@ _VALUED = [
     ("preprocess", str, "resize_and_crop"), ("display_winsize", int, 256),
     ("epoch", str, "latest"), ("load_iter", int, 0), ("suffix", str, ""),
     ("compute_dtype", str, "bfloat16"), ("seed", int, 0), ("profile_dir", str, ""),
+    ("steps_per_call", int, 1),
     # train_options.py:12-136
     ("display_freq", int, 400), ("display_ncols", int, 4), ("display_id", int, 1),
     ("display_server", str, "http://localhost"), ("display_env", str, "main"),
@@ -94,6 +101,7 @@ _SWITCHES = [
     "back_rec_iou_error", "use_rec_as_real_input", "use_image_for_trans", "norm_loss",
     "use_smooth_loss", "use_D", "use_edge", "use_masked", "use_scannet", "use_tv", "do_train",
     "do_test", "interiornet", "no_aug", "use_i2d_in_input", "SR", "device_aug",
+    "use_wandb", "remat", "remat_blocks",
 ]
 
 
@@ -111,6 +119,9 @@ def build_parser():
     # the K2 route of the ResnetBlocks (the JAX per-stage default: off)
     p.add_argument("--pallas_conv", dest="pallas_conv", action="store_true", default=None)
     p.add_argument("--no_pallas_conv", dest="pallas_conv", action="store_false")
+    # the scoped tail remat; None is the JAX per-stage default, off in the port
+    p.add_argument("--remat_tails", dest="remat_tails", action="store_true", default=None)
+    p.add_argument("--no_remat_tails", dest="remat_tails", action="store_false")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a GPU, cpu must be asked for")
     for name in NOT_PORTED + XLA_ONLY:
@@ -136,8 +147,8 @@ def parse(argv=None, print_options=True):
                      "(it trains --model_type main, I2D and translation)")
     if opt.compute_dtype not in COMPUTE_DTYPES:
         parser.error(f"--compute_dtype must be one of {COMPUTE_DTYPES}")
-    if opt.lr_policy not in ("linear", "step", "cosine"):
-        parser.error(f"--lr_policy {opt.lr_policy} is not yet ported to desr_tpu_torch")
+    if opt.lr_policy not in LR_POLICIES:
+        parser.error(f"--lr_policy {opt.lr_policy} is not implemented (one of {LR_POLICIES})")
     opt.pallas_conv = bool(opt.pallas_conv)
     opt.isTrain = True
     if opt.suffix:

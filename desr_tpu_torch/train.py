@@ -28,11 +28,23 @@ rotated 384x512 crops (models/__init__.py:12-15, data/__init__.py:34-37).
         --crop_size_w 256 --max_distance 5100
 
 The epoch loop of main.py:72-178: with ``--do_train`` each batch takes one
-step (``optimize_parameters(total_iters, --update_ratio)``), the losses
-print every ``--print_freq`` images (and go to ``loss_log.txt``), ``latest``
-checkpoints are written every ``--save_latest_freq`` batches and at each
-``--save_epoch_freq``-th epoch end, and the LR steps per epoch; with
-``--do_test`` an eval pass averages the test losses.
+step (``optimize_parameters(total_iters, --update_ratio)``), or with
+``--steps_per_call N`` (main, SR, I2D without --use_D) each group of N
+batches takes N steps queued back to back (``optimize_parameters_multi``;
+the epoch's short tail is a group too, and the print, save and gallery
+checks fire in the group whose window holds their iteration); the losses
+print every ``--print_freq`` images (and go to ``loss_log.txt``), an HTML
+gallery of the visuals is written every ``--display_freq`` images unless
+``--no_html`` (an extra ``calculate(stage="train")`` on the last batch, the
+train metrics restored after it; ``<checkpoints_dir>/<name>/web``),
+``latest`` checkpoints are written every ``--save_latest_freq`` batches and
+at each ``--save_epoch_freq``-th epoch end, and the LR steps per epoch
+(``--lr_policy plateau`` on the mean test loss, or without ``--do_test`` the
+last train loss); with ``--do_test`` an eval pass averages the test losses.
+``--use_wandb`` logs the losses and matplotlib panels (``utils/plots.py``)
+to wandb instead of the gallery, and falls back to the console when wandb
+cannot be imported. ``--remat``, ``--remat_blocks`` and ``--remat_tails``
+checkpoint the trained nets (``models/base_model.py``).
 
 ``--device_aug`` (main without ``--no_aug``, ``--SR``, I2D; no effect on
 translation, as in JAX) moves the train augmentation onto the card: the
@@ -43,9 +55,8 @@ three-shear map, not cv2's warp. ``--profile_dir <dir>`` records the
 epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
 trace format), with a ``train_step`` span around each step and a
 ``device_finish`` span around each batch's upload and warp (main.py:43-47,
-180-184). Still refused: wandb, ``--steps_per_call``, the remat and
-multi-device flags (``options/train_options.py:NOT_PORTED``); the HTML
-gallery is not written.
+180-184). Still refused: the multi-device flags
+(``options/train_options.py:NOT_PORTED``) and the XLA-only switches.
 """
 
 from __future__ import annotations
@@ -60,14 +71,27 @@ def sum_of_dicts(dict1, dict2, n):
     return OrderedDict([(k, dict1.get(k, 0.0) + dict2[k] / n) for k in dict2])
 
 
-def print_current_losses(log_name, epoch, iters, losses, t_comp, t_data):
-    """Console + loss_log.txt (visualizer.py:34-41)."""
-    message = "(epoch: %d, iters: %d, time: %.3f, data: %.3f) " % (epoch, iters, t_comp, t_data)
-    for k, v in losses.items():
-        message += "%s: %.3f " % (k, v)
-    print(message)
-    with open(log_name, "a") as f:
-        f.write(f"{message}\n")
+def at_freq(total_iters, start_iter, freq, spc, batch_size):
+    """main.py:80-82: whether a check every ``freq`` images fires after the
+    step (group) that ended at ``total_iters``: exactly on the multiple with
+    one step a call, anywhere in the group's window with ``spc`` > 1."""
+    d = (total_iters - start_iter) % freq
+    return d == 0 if spc == 1 else d < batch_size * spc
+
+
+def _wandb(opt):
+    """The wandb module, initialised, under ``--use_wandb``; None (console
+    logging) without it or when it cannot be imported (main.py:33-41)."""
+    if not opt.use_wandb:
+        return None
+    try:
+        import wandb
+    except ImportError:
+        print("wandb not available; falling back to console logging")
+        return None
+    wandb.init(project="translation_compare")
+    wandb.config.update(vars(opt))
+    return wandb
 
 
 def main(argv=None):
@@ -99,9 +123,10 @@ def main(argv=None):
     if dataset is not None:
         print("The number of training images = %d" % len(dataset.dataset))
     model.setup(opt)
-    log_name = os.path.join(opt.checkpoints_dir, opt.name, "loss_log.txt")
-    with open(log_name, "a") as f:
-        f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
+    from desr_tpu_torch.utils.visualizer import Visualizer
+
+    visualizer = Visualizer(opt)
+    wandb = _wandb(opt)
 
     profiler = None
     if opt.profile_dir:
@@ -112,27 +137,51 @@ def main(argv=None):
         profiler.start()
     total_iters = opt.start_iter
     losses = {}
+    plateau_metric = None
+    spc = max(1, opt.steps_per_call) if model.supports_multi_step() else 1
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + opt.epoch_count):
         epoch_start = time.time()
         if opt.do_train:
+            group = []
             iter_data_time = time.time()
             for data in dataset:
                 iter_start = time.time()
                 t_data = iter_start - iter_data_time
-                total_iters += opt.batch_size
+                if spc > 1:
+                    group.append(data)
+                    if len(group) < spc:
+                        iter_data_time = time.time()
+                        continue
+                total_iters += opt.batch_size * max(len(group), 1)
                 with torch.profiler.record_function("train_step"):
-                    model.set_input(data)
-                    model.optimize_parameters(total_iters, opt.update_ratio)
-                if (total_iters - opt.start_iter) % opt.print_freq == 0:
+                    if spc > 1:
+                        model.optimize_parameters_multi(group, total_iters)
+                        group = []
+                    else:
+                        model.set_input(data)
+                        model.optimize_parameters(total_iters, opt.update_ratio)
+
+                def due(freq):
+                    return at_freq(total_iters, opt.start_iter, freq, spc, opt.batch_size)
+
+                if due(opt.display_freq) and (wandb or not opt.no_html):
+                    display(model, opt, visualizer, wandb, epoch, total_iters)
+                if due(opt.print_freq):
                     losses = model.get_current_losses()
-                    t_comp = (time.time() - iter_start) / opt.batch_size
-                    print_current_losses(log_name, epoch, total_iters, losses, t_comp, t_data)
-                if (total_iters - opt.start_iter) % (opt.save_latest_freq * opt.batch_size) == 0:
+                    t_comp = (time.time() - iter_start) / (opt.batch_size * spc)
+                    visualizer.print_current_losses(epoch, total_iters, losses, t_comp, t_data)
+                    if wandb:
+                        wandb.log(losses, step=total_iters)
+                if due(opt.save_latest_freq * opt.batch_size):
                     print("saving the latest model (epoch %d, total_iters %d)"
                           % (epoch, total_iters))
                     model.save_networks("iter_%d" % total_iters if opt.save_by_iter
                                         else "latest")
                 iter_data_time = time.time()
+            if group:  # the epoch's tail, shorter than --steps_per_call
+                total_iters += opt.batch_size * len(group)
+                with torch.profiler.record_function("train_step"):
+                    model.optimize_parameters_multi(group, total_iters)
             if epoch % opt.save_epoch_freq == 0:
                 print("saving the model at the end of epoch %d, iters %d" % (epoch, total_iters))
                 model.save_networks("latest")
@@ -140,7 +189,9 @@ def main(argv=None):
             print("End of epoch %d / %d \t Time Taken: %d sec"
                   % (epoch, opt.n_epochs + opt.n_epochs_decay, time.time() - epoch_start))
             losses = model.get_current_losses()
-            model.update_learning_rate(epoch)
+            if not opt.do_test and losses:
+                plateau_metric = float(next(iter(losses.values())))
+            model.update_learning_rate(epoch, metric=plateau_metric)
 
         if opt.do_test:
             mean_losses = OrderedDict()
@@ -150,6 +201,10 @@ def main(argv=None):
                 model.calculate(stage="test")
                 mean_losses = sum_of_dicts(mean_losses, model.get_current_losses(),
                                            n / max(opt.batch_size_val, 1))
+            if mean_losses:  # the plateau policy's metric: the mean test loss
+                plateau_metric = float(next(iter(mean_losses.values())))
+            if wandb:
+                wandb.log({"test": dict(mean_losses)}, step=total_iters)
             print("stage:  test")
             print(dict(mean_losses))
             print("=" * 85)
@@ -164,6 +219,25 @@ def main(argv=None):
         profiler.export_chrome_trace(trace)
         print(f"profiler trace written to {trace}")
     return losses
+
+
+def display(model, opt, visualizer, wandb, epoch, total_iters):
+    """The image panels of main.py:95-120: an extra eval forward
+    (``calculate(stage="train")``) on the staged batch (with
+    ``--steps_per_call`` the group's last), its visuals to the wandb panels
+    or the HTML gallery; the train step's metrics are restored after it."""
+    train_metrics = model.metrics
+    model.calculate(stage="train")
+    visuals = model.get_current_visuals()
+    model.metrics = train_metrics
+    if wandb:
+        from desr_tpu_torch.utils import plots
+
+        plot_fn = {"I2D": plots.plot_I2D, "main": plots.plot_main,
+                   "translation": plots.plot_translation}[opt.model_type]
+        plot_fn(wandb, visuals, total_iters, stage="train")
+    else:
+        visualizer.display_current_results(visuals, epoch)
 
 
 if __name__ == "__main__":

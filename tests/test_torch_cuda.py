@@ -8,6 +8,8 @@ with the card and no JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -364,3 +366,58 @@ def test_cuda_exported_serving_launches_k1(tmp_path):
         torch.backends.cudnn.deterministic = deterministic
     assert got.device.type == "cuda" and got.shape == (2, 128, 256)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blocks", "tails"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_fused_chain_under_checkpoint_matches_plain(mode, dtype):
+    """A ResnetBlock's fused chain (two K1 launches) under
+    torch.utils.checkpoint: "blocks" recomputes both launches in the
+    backward, "tails" keeps their outputs (the selective policy sees
+    desr::conv3x3_fused). With deterministic algorithms the checkpointed
+    kernel run equals the uncheckpointed one bit for bit, output and
+    gradients; at float32 it equals the same checkpointed chain on the plain
+    version, the output within 1e-4 and each gradient within 1e-3 of its
+    largest entry (a random cotangent on the output); a conv bias, which
+    feeds an InstanceNorm and has an exact gradient of 0, within 1e-3 of
+    the largest weight gradient."""
+    from desr_tpu_torch.models import layers as TL
+    from desr_tpu_torch.models import networks as TN
+
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    block = TN.ResnetBlock(128, "reflect", TL.InstanceNorm2d, False, True)
+    block = TN.init_weights(block, generator=torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.default_rng(1)
+    x0 = torch.from_numpy(rng.standard_normal((2, 128, 24, 40)).astype(np.float32)).to(dev, dt)
+    r = torch.from_numpy(rng.standard_normal((2, 128, 24, 40)).astype(np.float32)).to(dev)
+
+    def run(remat, fwd):
+        block.remat = remat
+        x = x0.clone().requires_grad_(True)
+        before = K.conv3x3_fused.launches
+        with mock.patch.object(K, "_fused_forward", fwd):
+            out = block(x)
+            grads = torch.autograd.grad((out.float() * r).sum(), [x, *block.parameters()])
+        return out.detach(), grads, K.conv3x3_fused.launches - before
+
+    kernel, plain = K._fused_forward, K.conv3x3_fused_plain
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out_k, g_k, n_k = run(mode, kernel)
+        out_0, g_0, n_0 = run(None, kernel)
+        out_p, g_p, _ = run(mode, plain)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert n_0 == 2 and n_k == (4 if mode == "blocks" else 2)
+    assert torch.equal(out_k, out_0)
+    for a, b in zip(g_k, g_0):
+        assert torch.equal(a, b)
+    if dt == torch.float32:
+        torch.testing.assert_close(out_k, out_p, rtol=0, atol=1e-4)
+        names = ["x"] + [n for n, _ in block.named_parameters()]
+        w_max = max(float(b.abs().max()) for n, b in zip(names, g_p) if n.endswith("weight"))
+        for n, a, b in zip(names, g_k, g_p):
+            scale = w_max if n.endswith("bias") else float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * scale, msg=n)

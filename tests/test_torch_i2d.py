@@ -74,8 +74,10 @@ def test_define_D_matches_jax(netD, n_layers, norm):
 
 
 def test_define_D_refuses_batch_norm_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TNW.define_D(6, 8, "basic", norm="batch")
+    """--norm batch builds the PatchGAN's BatchNorms (no longer refused);
+    an unknown name is."""
+    net = TNW.define_D(6, 8, "basic", norm="batch")
+    assert sum(isinstance(m, TNW.BatchNorm2d) for m in net.modules()) == 3
     with pytest.raises(NotImplementedError, match="not recognized"):
         TNW.define_D(6, 8, "gu")
 

@@ -90,11 +90,13 @@ def test_resnet_block_routes_agree():
 
 
 def test_sr_head_and_unported_norms_raise():
-    """BatchNorm is not ported yet, with or without the SR head."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The U-Net SR head refuses --norm batch (its norms are wider than what
+    they normalise, and the JAX layer fails there too); without the head
+    --norm batch builds BatchNorm layers."""
+    with pytest.raises(NotImplementedError, match="JAX layer fails there too"):
         TN.define_G(4, 1, 8, "unet_128", use_sr=True, norm="batch")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TN.define_G(4, 1, 8, "resnet_6blocks", norm="batch")
+    net = TN.define_G(4, 1, 8, "resnet_6blocks", norm="batch")
+    assert sum(isinstance(m, TN.BatchNorm2d) for m in net.modules()) == 17
 
 
 @pytest.mark.parametrize("netG", ["unet_128", "unet_256"])

@@ -602,9 +602,9 @@ def test_every_port_flag_default_equals_jax():
 
 
 @pytest.mark.parametrize("flag,msg", [
-    (["--remat"], "not yet ported"), (["--use_wandb"], "not yet ported"),
-    (["--steps_per_call", "4"], "not yet ported"), (["--fold_norm"], "no counterpart"),
-    (["--lr_policy", "plateau"], "not yet ported"), (["--bogus_flag"], "unrecognized"),
+    (["--num_devices", "2"], "not yet ported"), (["--spatial_devices", "2"], "not yet ported"),
+    (["--no_donate"], "no counterpart"), (["--fold_norm"], "no counterpart"),
+    (["--lr_policy", "bogus"], "not implemented"), (["--bogus_flag"], "unrecognized"),
 ])
 def test_train_cli_refuses_what_it_does_not_run(flag, msg, capsys):
     from desr_tpu_torch import train
