@@ -7,7 +7,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 (a) card and build: prints the card's name and power limit as nvidia-smi gives
     them, builds the CUDA kernels from desr_tpu_torch/csrc with nvcc (sm_90a),
-    one nvcc per source, all started together.
+    one nvcc per source, and the image decoders (csrc/dataio.cpp) with g++,
+    all started together.
 (b) kernels: the conv3x3 kernel in each variant of the serving path (K1 =
     conv3x3_fused: stats only, normalise+ReLU+stats, normalise only; K2 =
     conv3x3), for reflect, replicate and zeros borders, in float32 and bf16, at
@@ -167,6 +168,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     --remat_tails likewise. A bf16 main step under --norm batch (K1 18: only
     G_A_d's group norms fuse) and one under --init_type orthogonal: finite
     losses, no running statistics moved, the trained nets moved.
+(o) the bench and the host image I/O: ``desr_tpu_torch.bench.run`` in-process
+    (12 + 10 SR steps, bench.py's configuration, K1 42, K3 2 and its backward
+    2 a step, counted; the path ``train_bench``), then ``python -m
+    desr_tpu_torch.bench`` as a subprocess (exactly one stdout line with
+    bench.py's four keys, its value finite and positive; the line and the
+    card it names printed); the image decode route
+    (``data/native_io.py:route``, which must be native), the per-frame
+    decode of phase (c)'s first 480x640 RGB and depth PNGs (and the RGB one
+    re-encoded with the Paeth filter) through the native library and
+    data/png.py in turns (medians), and the native decode of the committed
+    968x1296 JPEG fixture, timed and held to the sha256 of imageio's pixels.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -353,19 +365,20 @@ def device_ms(fn, key, iters=20, warmup=3, flush_l2=True):
 # ------------------------------------------------------------------ (a)
 
 def phase_card_and_build():
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    print(card)
+    from desr_tpu_torch.bench import card_and_power_limit
     from desr_tpu_torch.ops import _build
+
+    card = card_and_power_limit()
+    print(card)
 
     from concurrent.futures import ThreadPoolExecutor
 
     from desr_tpu_torch.tools.masked_loss_ab import build_two_launch
 
     t0 = time.perf_counter()
-    names = ("conv3x3", "masked_loss")
-    with ThreadPoolExecutor(len(names) + 1) as pool:  # one nvcc process per source
+    # one compiler process per source: nvcc for the kernels, g++ for the image decoders
+    names = ("conv3x3", "masked_loss", "dataio")
+    with ThreadPoolExecutor(len(names) + 1) as pool:
         two_launch = pool.submit(build_two_launch)
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
         paths.append(two_launch.result())
@@ -2755,6 +2768,134 @@ def phase_train_surface(tmp):
     return paths
 
 
+# ------------------------------------------------------------------ (o)
+
+FIXTURE_JPEG = os.path.join(ROOT, "tests", "data", "jpeg_968x1296.jpg")
+# sha256 of imageio.v2.imread(FIXTURE_JPEG)'s pixels (tests/test_torch_native_io.py)
+FIXTURE_SHA256 = "eaf0616b7e2e389d4cb152e06c67e2207c92bbd2cbea8d838144e82c7ff3ae08"
+DECODE_TURNS = 20        # per-frame decode times: median of this many, the routes in turns
+PAETH_TURNS = 5          # data/png.py undoes the Paeth filter value by value: ~0.5 s a frame
+
+
+def _paeth_png(arr):
+    """A uint8 (H, W, C) array as PNG bytes with the Paeth filter on every
+    row, which data/png.py undoes in a Python loop (its own writer, which
+    wrote every other frame here, uses the Up filter)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, ch = arr.shape
+    rows = arr.reshape(h, w * ch).astype(np.int16)
+    a = np.pad(rows, ((0, 0), (ch, 0)))[:, :-ch]   # left
+    b = np.pad(rows, ((1, 0), (0, 0)))[:-1]          # up
+    c = np.pad(b, ((0, 0), (ch, 0)))[:, :-ch]        # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), ((rows - pred) & 0xFF).astype(np.uint8)],
+                         axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[ch], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def phase_bench_io(tmp):
+    """(o) ``desr_tpu_torch.bench``, in-process under the launch counters and
+    as a user runs it, then the image decode route and its per-frame times."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import bench
+    from desr_tpu_torch.data import native_io, png
+
+    report = {}
+    steps = bench.WARMUP + bench.STEPS
+    _reset_counts()
+    res = bench.run("cuda")
+    launches = _counts()
+    want = {"K1": steps * SR_K1_PER_STEP, "K2": 0, "K3": steps * K3_PER_STEP,
+            "K3 backward": steps * K3_BWD_PER_STEP}
+    check(launches == want, f"bench.run: launches {launches}; want {want} over {steps} steps")
+    check(all(math.isfinite(v) for v in res["losses"].values()), f"bench losses {res['losses']}")
+    report.update({f"bench_{k}": v for k, v in res.items() if k != "losses"})
+    print(f"[o] bench.run in-process: {steps} SR steps (batch 1, LR 512x640 -> HR 1024x1280, "
+          f"bf16), {res['pairs_per_sec']:.4f} pairs/s; the timed {bench.STEPS} steps "
+          f"{res['step_ms']:.2f} ms a step by the host clock, {res['event_ms']:.2f} ms by CUDA "
+          f"events; peak {res['peak_gib']:.2f} GiB; launches {launches} "
+          f"(K1 {SR_K1_PER_STEP}, K3 {K3_PER_STEP} and its backward {K3_BWD_PER_STEP} a step)")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "desr_tpu_torch.bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m desr_tpu_torch.bench exited {proc.returncode}:\n"
+          + proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 1, f"python -m desr_tpu_torch.bench printed {len(lines)} stdout lines")
+    line = json.loads(lines[0])
+    check(sorted(line) == ["metric", "unit", "value", "vs_baseline"]
+          and line["metric"] == bench.METRIC and math.isfinite(line["value"])
+          and line["value"] > 0, f"the bench's line: {lines[0]}")
+    report.update(bench_cli_value=line["value"], bench_cli_vs_baseline=line["vs_baseline"],
+                  bench_cli_wall_s=wall)
+    for d in proc.stderr.splitlines():
+        if d.startswith("# "):
+            print(f"[o] bench stderr: {d[2:]}")
+    print(f"[o] python -m desr_tpu_torch.bench ({wall:.1f} s wall) printed: {lines[0]}")
+
+    route, detail = native_io.route()
+    print(f"[o] image decode route: {route} ({detail})")
+    check(route == "native", f"the native image library did not build: {detail}")
+    frames = os.path.join(tmp, "frames")
+    _write_frames(frames, 1, seed=0)  # phase (c)'s first frame, which (m) serves
+    rgb = os.path.join(frames, "img", "f00.png")
+    paeth = os.path.join(tmp, "paeth.png")
+    with open(paeth, "wb") as f:
+        f.write(_paeth_png(png.read_png(rgb)))
+    for label, path, turns in (("rgb", rgb, DECODE_TURNS),
+                               ("depth", os.path.join(frames, "depth", "f00.png"), DECODE_TURNS),
+                               ("rgb_paeth", paeth, PAETH_TURNS)):
+        check(np.array_equal(native_io.read_image(path), png.read_png(path)),
+              f"{label}: the native and stdlib decodes differ")
+        times = {"native": [], "stdlib": []}
+        for _ in range(turns):
+            for route_name, fn in (("native", native_io.read_image), ("stdlib", png.read_png)):
+                t0 = time.perf_counter()
+                fn(path)
+                times[route_name].append((time.perf_counter() - t0) * 1e3)
+        nat, std = statistics.median(times["native"]), statistics.median(times["stdlib"])
+        report.update({f"decode_{label}_native_ms": nat, f"decode_{label}_stdlib_ms": std})
+        print(f"[o] 480x640 {label} PNG ({os.path.getsize(path)} B): native {nat:.2f} ms, "
+              f"data/png.py {std:.2f} ms a frame (medians of {turns}, in turns), "
+              f"{std / nat:.2f}x")
+    pix = native_io.read_image(FIXTURE_JPEG)
+    sha = hashlib.sha256(np.ascontiguousarray(pix).tobytes()).hexdigest()
+    check(pix.shape == (968, 1296, 3) and pix.dtype == np.uint8 and sha == FIXTURE_SHA256,
+          f"the JPEG fixture decoded to {pix.shape} {pix.dtype}, sha256 {sha}; "
+          f"imageio's pixels hash to {FIXTURE_SHA256}")
+    times = []
+    for _ in range(DECODE_TURNS):
+        t0 = time.perf_counter()
+        native_io.read_image(FIXTURE_JPEG)
+        times.append((time.perf_counter() - t0) * 1e3)
+    report["decode_jpeg_968x1296_native_ms"] = statistics.median(times)
+    print(f"[o] 968x1296 JPEG fixture: native decode {statistics.median(times):.2f} ms a frame "
+          f"(median of {DECODE_TURNS}); pixels' sha256 {sha} as imageio's")
+    print("[o] " + json.dumps(report))
+    return {"train_bench": launches}
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -2797,9 +2938,9 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             ("conv3x3_fused", "K1 translator", TRANS_SHAPE, "replicate", k1,
              f"main step {K1_TRANS_PER_STEP} (G_A_d)"),
             ("conv3x3_fused", "K1 SR Depth_f", SR_DEPTHF_SHAPE, "reflect", k1,
-             "SR step 12 (Depth_f, with a backward)"),
+             "SR step and the bench's 12 (Depth_f, with a backward)"),
             ("conv3x3_fused", "K1 SR translator", SR_TRANS_SHAPE, "replicate", k1,
-             f"SR step {K1_TRANS_PER_STEP} (G_A_d)"),
+             f"SR step and the bench's {K1_TRANS_PER_STEP} (G_A_d)"),
             ("conv3x3_fused", "K1 I2D", I2D_TRAIN_SHAPE, "reflect", k1,
              f"I2D step {I2D_K1_PER_STEP} (Image_f; with a backward under "
              "--i2d_train_features)"),
@@ -2863,7 +3004,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
     for shape, at_shape in ((LOSS_SHAPE, f"main step {K3_PER_STEP} (--no_aug)"),
                             (AUG_LOSS_SHAPE, f"augmented main step {K3_PER_STEP}"),
-                            (SR_LOSS_SHAPES[0], "SR step 1 (+1 at 1x512x640)")):
+                            (SR_LOSS_SHAPES[0], "SR step and the bench's 1 (+1 at 1x512x640)")):
         ins = _loss_inputs(shape, torch.float32, seed=2)
         n = ins[0].numel()
         label = f"{'x'.join(map(str, shape))} f32 pred/target, f32 masks"
@@ -3024,7 +3165,7 @@ def main():
         for phase in (phase_serving, phase_training, phase_sr_serving, phase_deployment,
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
                       phase_i2d_training, phase_translation_training, phase_device_aug,
-                      phase_train_surface):
+                      phase_train_surface, phase_bench_io):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

@@ -1,5 +1,5 @@
 """Frame loaders and the unpaired folder dataset (counterpart of
-``desr_tpu/data/base_dataset.py``), on the package's own PNG codec, with the
+``desr_tpu/data/base_dataset.py``), reading through ``data/native_io.py``, with the
 host half of ``--device_aug`` (``prepare_full``) and its card half
 (``device_finish``, over ``ops/device_aug.py``)."""
 
@@ -12,22 +12,29 @@ import numpy as np
 
 from desr_tpu_torch.data import transforms as T
 from desr_tpu_torch.data.image_folder import make_dataset
-from desr_tpu_torch.data.png import read_png
+from desr_tpu_torch.data.native_io import read_image
 
 
 def load_image(path):
-    """RGB(A) PNG -> uint8 (H, W, C) array."""
-    return read_png(path)
+    """A frame's pixels with the JAX function's dtypes (base_dataset.py:21-31):
+    a PNG decodes as uint16 there, cut to uint8 for colour within 0..255, so
+    8-bit grey comes back uint16 and 16-bit colour within 0..255 uint8; a
+    JPEG (PIL there) is uint8."""
+    arr = read_image(path)
+    if not str(path).endswith(".png"):
+        return arr
+    if arr.dtype == np.uint8:
+        return arr if arr.ndim == 3 else arr.astype(np.uint16)
+    return arr.astype(np.uint8) if arr.ndim == 3 and arr.max(initial=0) <= 255 else arr
 
 
 def load_depth_png(path):
-    """uint16 depth PNG (mm) -> int32 (H, W) array (the reference's int path)."""
-    arr = read_png(path)
+    """Depth PNG (mm) -> int32 (H, W) array, the first channel of a colour
+    one (base_dataset.py:34-49: the reference's int path)."""
+    arr = read_image(path)
     if arr.ndim == 3:
         arr = arr[..., 0]
-    if arr.dtype == np.uint16:
-        arr = arr.astype(np.int32)
-    return arr
+    return arr.astype(np.int32) if str(path).endswith(".png") else arr
 
 
 def _read_split(split_dir, fname, base_dir):

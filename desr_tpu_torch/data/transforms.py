@@ -2,37 +2,40 @@
 
 The JAX package calls cv2 with albumentations 0.4.6 semantics; the card's
 machine has no cv2, so the port writes the branches it runs in numpy:
-Resize with interpolation 3 (cv2 INTER_AREA) and 4 (cv2 INTER_LANCZOS4), both
-through the matrices of ``ops/resize.py``, PadIfNeeded (centred, border REFLECT_101, which is
+Resize with interpolation 2 (cv2 INTER_CUBIC, the legacy datasets'), 3 (cv2
+INTER_AREA) and 4 (cv2 INTER_LANCZOS4), all through the matrices of
+``ops/resize.py``, PadIfNeeded (centred, border REFLECT_101, which is
 numpy's "reflect"), Rotate (cv2's bilinear ``warpAffine``, border
 REFLECT_101), RandomCrop, the horizontal flip and ColorJitter, whose hue step
-is cv2's uint8 RGB<->HSV round trip written as arithmetic. The other
-interpolation codes are not ported.
+is cv2's uint8 RGB<->HSV round trip written as arithmetic. Nearest (0) and
+bilinear (1), which no dataset asks for, are not ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+INTER_CUBIC = 2
 INTER_AREA = 3
 INTER_LANCZOS4 = 4
 
 
 def resize(img, height, width, interpolation=INTER_AREA):
     """cv2.resize of a float HW or HWC array to (height, width)
-    (transforms.py:44-47); INTER_AREA and INTER_LANCZOS4 are ported."""
+    (transforms.py:44-47); INTER_CUBIC, INTER_AREA and INTER_LANCZOS4 are ported."""
     if img.shape[0] == height and img.shape[1] == width:
         return img
-    if interpolation not in (INTER_AREA, INTER_LANCZOS4):
-        raise NotImplementedError(
-            f"resizing with cv2 interpolation {interpolation} (transforms.py:44-47): "
-            "not yet ported; INTER_AREA (3) and INTER_LANCZOS4 (4) are")
     # imported here: ops.resize imports torch, which the serving CLI's
     # decode workers (this module's other users) do without
     from desr_tpu_torch.ops import resize as R
 
-    fn = R.resize_cv2_inter_area_np if interpolation == INTER_AREA else R.resize_cv2_lanczos4_np
-    return fn(img, (height, width))
+    fns = {INTER_CUBIC: R.resize_cv2_cubic_np, INTER_AREA: R.resize_cv2_inter_area_np,
+           INTER_LANCZOS4: R.resize_cv2_lanczos4_np}
+    if interpolation not in fns:
+        raise NotImplementedError(
+            f"resizing with cv2 interpolation {interpolation} (transforms.py:44-47): "
+            "not yet ported; INTER_CUBIC (2), INTER_AREA (3) and INTER_LANCZOS4 (4) are")
+    return fns[interpolation](img, (height, width))
 
 
 def pad_if_needed(img, min_h, min_w):

@@ -13,8 +13,8 @@ flip, drawn for A and then for B. An item with a non-finite or constant map is
 drawn again at a random index, at most 8 times (:124-125). Emits A_depth /
 B_depth (H, W, 1) and A_img / B_img (H, W, 3) float32, and the frame names.
 
-The port reads frames with its own PNG codec (``data/png.py``): a ``.jpg``
-frame stops the dataset with an error that names it.
+Frames are read as imageio reads them (``data/native_io.py:read_image``):
+PNG and JPEG colour frames, 16-bit PNG depth maps.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import queue
 import numpy as np
 
 from desr_tpu_torch.data import transforms as T
-from desr_tpu_torch.data.png import read_png
+from desr_tpu_torch.data.native_io import read_image
 
 LOAD_HW = 320  # Resize(320, 320) (translation_dataset.py:84)
 
@@ -65,14 +65,6 @@ class TranslationDataset:
             raise NotADirectoryError(f"{d} is not a valid directory")
         files = sorted(glob.glob(os.path.join(d, "**/*.*"), recursive=True))
         return files[: min(self.opt.max_dataset_size, len(files))]
-
-    @staticmethod
-    def _read(path):
-        if not path.endswith(".png"):
-            raise NotImplementedError(
-                f"{path}: desr_tpu_torch reads PNG frames only (it has no JPEG decoder); "
-                "convert the frame to PNG")
-        return read_png(path)
 
     def normalize_img(self, img):
         if img.dtype != np.uint8:
@@ -123,8 +115,8 @@ class TranslationDataset:
         for img_p, depth_p in ((A_img_p, A_depth_p), (B_img_p, B_depth_p)):
             if name(img_p) != name(depth_p):
                 raise ValueError(f"not pair img depth: {img_p}, {depth_p}")
-        A_depth, A_img = self._transform(rng, self._read(A_depth_p), self._read(A_img_p))
-        B_depth, B_img = self._transform(rng, self._read(B_depth_p), self._read(B_img_p))
+        A_depth, A_img = self._transform(rng, read_image(A_depth_p), read_image(A_img_p))
+        B_depth, B_img = self._transform(rng, read_image(B_depth_p), read_image(B_img_p))
         if self.is_train and _depth_guard < 8 and self._bad(A_depth, A_img, B_depth, B_img):
             return self.__getitem__(int(rng.integers(0, self.B_size)), _depth_guard + 1)
         return {"A_depth": A_depth, "A_img": A_img, "A_name": name(A_img_p),

@@ -17,9 +17,9 @@ for its hole map (:227) and K read per scene from
 
 A host tool on numpy and scipy with no tensors, as its counterpart, so it
 has no ``--device``; ``--n_cpus`` > 1 spreads the frames over a spawned
-pool. PNGs are read with the package's codec (``data/png.py``) and the
-resize is a numpy copy of cv2's float INTER_LINEAR (``resize_linear``): the
-card's machine has neither imageio nor cv2.
+pool. Images are read through ``data/native_io.py:read_image`` (imageio's
+values) and the resize is a numpy copy of cv2's float INTER_LINEAR
+(``resize_linear``): the port needs neither imageio nor cv2.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from glob import glob
 import numpy as np
 from scipy import signal
 
-from desr_tpu_torch.data.png import read_png
+from desr_tpu_torch.data.native_io import read_image
 
 HOLES_THRESHOLD = 50
 
@@ -196,9 +196,9 @@ def calc_metrics(pred, target, hole_map, target_hole_map, K, max_depth, metric_n
 
 def calc_metrics_for_path(path_args, metric_names, max_depth):
     input_path, pred_path, target_path, intrinsic_path = path_args
-    input_orig = read_png(input_path).astype(np.float64)
-    pred = read_png(pred_path).astype(np.float64).clip(0, max_depth)
-    target = read_png(target_path).astype(np.float64).clip(0, max_depth)
+    input_orig = read_image(input_path).astype(np.float64)
+    pred = read_image(pred_path).astype(np.float64).clip(0, max_depth)
+    target = read_image(target_path).astype(np.float64).clip(0, max_depth)
     h_pred, _ = pred.shape
     h_target, _ = target.shape
     if 2 * h_pred == h_target:  # SR rule (new_metrics.py:224-225)
@@ -222,6 +222,9 @@ def calculate_given_paths(input_names, pred_names, target_names, metric_names,
     fn = functools.partial(calc_metrics_for_path, metric_names=metric_names, max_depth=max_depth)
     paths = list(zip(input_names, pred_names, target_names, intrinsic_names))
     if n_cpus > 1:
+        from desr_tpu_torch.data import native_io
+
+        native_io.route()  # the decode library is built before the workers start
         with multiprocessing.get_context("spawn").Pool(n_cpus) as p:
             res = list(p.imap(fn, paths))
     else:

@@ -34,7 +34,9 @@ def lr_schedule(policy, epoch, base_lr, n_epochs, n_epochs_decay, epoch_count=1,
 
     linear: flat for n_epochs, then linear decay to 0 over n_epochs_decay + 1;
     step: x0.1 every lr_decay_iters epochs; cosine: CosineAnnealingLR with
-    T_max = n_epochs. (plateau needs a metric feed and is not ported.)
+    T_max = n_epochs. plateau needs a metric feed, so it is not a function
+    of the epoch: ``models/base_model.py:BaseModel.update_learning_rate``
+    applies it.
     """
     if policy == "linear":
         return base_lr * (1.0 - max(0, epoch + epoch_count - n_epochs) / float(n_epochs_decay + 1))

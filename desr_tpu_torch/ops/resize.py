@@ -11,9 +11,10 @@ resize computes in float32 and casts back to the input's dtype, as
 ``_apply_separable`` does (resize.py:93-117).
 
 The host data path resizes with the JAX package's numpy matrices of cv2's
-INTER_AREA (``resize_matrix``, ``resize_cv2_inter_area_np``) and with the
+INTER_AREA (``resize_matrix``, ``resize_cv2_inter_area_np``), with the
 matrices of cv2's INTER_LANCZOS4 (``lanczos4_matrix``,
-``resize_cv2_lanczos4_np``): the card's machine has no cv2. The SR stage's
+``resize_cv2_lanczos4_np``), and with cv2's INTER_CUBIC (``cubic_taps``,
+``resize_cv2_cubic_np``, the legacy datasets'): the port needs no cv2. The SR stage's
 ``--device_aug`` half resizes on the card with the same INTER_AREA weights
 (``resize_cv2_inter_area``).
 """
@@ -196,4 +197,48 @@ def resize_cv2_lanczos4_np(img, out_hw):
         x = np.moveaxis(np.tensordot(lanczos4_matrix(w, ow), x, axes=(1, 1)), 0, 1)
     if oh != h:
         x = np.tensordot(lanczos4_matrix(h, oh), x, axes=(1, 0))
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def cubic_taps(in_size, out_size):
+    """cv2's INTER_CUBIC along one axis, as its resizeGeneric builds it:
+    output j reads source position f = float32((j + 0.5) * scale - 0.5),
+    scale = 1 / (out / in), at the 4 taps floor(f) - 1 .. floor(f) + 2
+    (``(out_size, 4)`` indices, taps past either edge clamped to it: a
+    replicated border), weighted by interpolateCubic's float32 coefficients
+    (a = -0.75) of frac(f) (4 float32 ``(out_size,)`` rows). The kernel does
+    not widen when it shrinks. Cached: treat the result as read-only."""
+    src = ((np.arange(out_size) + 0.5) * (1.0 / (out_size / in_size)) - 0.5).astype(np.float32)
+    sx = np.floor(src)
+    x = (src - sx).astype(np.float32)
+    a, one = np.float32(-0.75), np.float32(1.0)
+    x1, y = x + one, one - x
+    c0 = ((a * x1 - 5 * a) * x1 + 8 * a) * x1 - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + one
+    c2 = ((a + 2) * y - (a + 3)) * y * y + one
+    taps = np.clip(sx.astype(np.int64)[:, None] - 1 + np.arange(4)[None, :], 0, in_size - 1)
+    return taps, (c0, c1, c2, one - c0 - c1 - c2)
+
+
+def resize_cv2_cubic_np(img, out_hw):
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)`` of a float
+    (H, W) or (H, W, C) numpy array, in float32 with cv2's own float code's
+    order of operations (HResizeCubic along each row, then VResizeCubic's
+    ``b0 S0 + (b1 S1 + (b2 S2 + b3 S3))`` down the columns): equal to cv2 with
+    its IPP path off. cv2 hands float INTER_CUBIC to IPP by default, whose
+    sums differ by up to ~2e-6 of the values' scale."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    x = np.asarray(img, dtype=np.float32)
+    if ow != w:
+        taps, c = cubic_taps(w, ow)
+        c = [k.reshape((1, ow) + (1,) * (x.ndim - 2)) for k in c]
+        s = [x[:, taps[:, k]] for k in range(4)]
+        x = ((s[0] * c[0] + s[1] * c[1]) + s[2] * c[2]) + s[3] * c[3]
+    if oh != h:
+        taps, b = cubic_taps(h, oh)
+        b = [k.reshape((oh,) + (1,) * (x.ndim - 1)) for k in b]
+        s = [x[taps[:, k]] for k in range(4)]
+        x = b[0] * s[0] + (b[1] * s[1] + (b[2] * s[2] + b[3] * s[3]))
     return np.ascontiguousarray(x, dtype=np.float32)

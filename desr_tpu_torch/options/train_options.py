@@ -92,7 +92,8 @@ _VALUED = [
     ("num_iter_gen", int, 3), ("num_iter_dis", int, 1), ("inp_B", str, "img_depth"),
     ("norm_d", str, "none"), ("w_decay_G", float, 0.0001),
 ]
-# store_true flags the port accepts (no_dropout defaults True in the main and I2D stages)
+# store_true flags the port accepts (no_dropout defaults True in the main and I2D
+# stages, parse_with)
 _SWITCHES = [
     "use_spnorm", "serial_batches", "no_flip", "verbose", "i2d_train_features", "fused_iter",
     "pallas_losses", "no_batched_branches", "no_html", "save_by_iter", "continue_train",
@@ -133,7 +134,19 @@ def build_parser():
 def parse(argv=None, print_options=True):
     """Parsed options with ``isTrain``; exits (argparse error) on a flag the
     port does not run."""
-    parser = build_parser()
+    return parse_with(build_parser(), argv, True, print_options)
+
+
+def parse_with(parser, argv, is_train, print_options):
+    """``parser``'s options, with the flags ``--dataset_mode``'s dataset adds
+    (base_options.py:247-253: ``--dataset_mode template`` takes
+    ``--new_dataset_option``), checked as ``parse`` says."""
+    from desr_tpu_torch.data import get_option_setter
+
+    known, _ = parser.parse_known_args(argv)
+    # the stages' own default (main_model.py:70, i2d_model.py:41); stage 2 reads no such flag
+    parser.set_defaults(no_dropout=known.model_type in ("main", "I2D"))
+    parser = get_option_setter(known.dataset_mode)(parser, is_train)
     opt = parser.parse_args(argv)
     for name in NOT_PORTED + XLA_ONLY:
         if getattr(opt, f"_refused_{name}") is not None:
@@ -150,11 +163,12 @@ def parse(argv=None, print_options=True):
     if opt.lr_policy not in LR_POLICIES:
         parser.error(f"--lr_policy {opt.lr_policy} is not implemented (one of {LR_POLICIES})")
     opt.pallas_conv = bool(opt.pallas_conv)
-    opt.isTrain = True
+    opt.isTrain = is_train
     if opt.suffix:
         opt.name = opt.name + "_" + opt.suffix.format(**vars(opt))
     if print_options:
         _print_options(parser, opt)
+    opt.gpu_ids = [int(s) for s in str(opt.gpu_ids).split(",") if int(s) >= 0]  # :331-332
     return opt
 
 

@@ -180,6 +180,10 @@ def main(argv=None):
     if args.input_depth is None and not args.I2D:
         parser.error("--input_depth is required (omit only with --I2D)")
 
+    from desr_tpu_torch.data import native_io
+
+    # builds the decode library here, before any worker is spawned
+    print("image decode route: %s (%s)" % native_io.route())
     pool = None
     if args.num_workers > 1:
         # before torch touches the card; spawned, so no CUDA state is inherited

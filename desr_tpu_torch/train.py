@@ -20,7 +20,7 @@ With ``--SR`` (e.g. ``--batch_size 1 --crop_size_h 512 --crop_size_w 640
 rotated 384x512 crops (models/__init__.py:12-15, data/__init__.py:34-37).
 
 ``--model_type translation`` trains ``TranslationModel`` on
-``TranslationDataset``'s ``<dataroot>/train{A,B}/{img,depth}`` PNG frames
+``TranslationDataset``'s ``<dataroot>/train{A,B}/{img,depth}`` PNG or JPEG frames
 (Lanczos to 320x320, random crops); the README's stage-2 command:
 
     python -m desr_tpu_torch.train --model_type translation --do_train --do_test \
@@ -112,6 +112,10 @@ def main(argv=None):
         device = resolve_device(opt.device)
     except RuntimeError as e:
         train_options.build_parser().error(str(e))
+    from desr_tpu_torch.data import native_io
+
+    # builds the decode library here, before the loader spawns its workers
+    print("image decode route: %s (%s)" % native_io.route())
     dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
     model_cls = {"I2D": I2DModel, "translation": TranslationModel}.get(
         opt.model_type, MainSRModel if opt.SR else MainModel)

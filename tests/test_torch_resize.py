@@ -68,7 +68,7 @@ def test_inter_area_matches_jax_and_cv2(shape, out):
     np.testing.assert_allclose(got, cv2.resize(x, out[::-1], interpolation=cv2.INTER_AREA),
                                rtol=0, atol=1e-5)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.resize(x, *out, interpolation=2)
+        T.resize(x, *out, interpolation=1)
 
 
 def _write_folder(root, n=3, hw=(100, 150), seed=0):

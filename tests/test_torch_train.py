@@ -556,7 +556,7 @@ def test_unported_dataset_branches_raise(tmp_path):
     _write_folder(str(tmp_path), n=1)
     flags = _data_flags(str(tmp_path))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.resize(np.zeros((4, 6), np.float32), 8, 12, interpolation=2)
+        TT.resize(np.zeros((4, 6), np.float32), 8, 12, interpolation=1)
     argv = ["--model_type", "main", "--name", "d", "--checkpoints_dir", str(tmp_path / "ck"),
             *flags[:-4], "--load_size_h", "240", "--load_size_w", "320"]
     for stage in ("test", "train"):

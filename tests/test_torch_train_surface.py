@@ -515,6 +515,69 @@ def test_main_step_under_norm_batch_moves_no_running_stats():
     assert all(np.isfinite(v).all() for v in m.get_current_visuals().values())
 
 
+def test_main_step_under_norm_batch_matches_jax(tmp_path):
+    """One main train step under --norm batch (every zoo-A net on its batch
+    moments, the real and synthetic branches in one batch-2B call), the same
+    params, batch and holes through JAX's value_and_grad and the port's
+    compute_grads, float32, the translator cut to 8+8 channels and one block
+    in both: loss terms within 1e-4 relative (1e-6 absolute near 0), each
+    weight gradient of Depth_f and Task within 3e-2 relative L2 and each
+    bias within 1e-3 of the net's largest entry, the bounds of
+    tests/test_torch_train.py::test_train_step_grads_match_jax."""
+    from desr_tpu.models import translation_networks as JTT
+    from desr_tpu.models.main_model import MainModel as JaxMainModel
+    from desr_tpu.options.train_options import TrainOptions
+
+    argv = TTR.STAGE3 + TTR.SMALL + [
+        "--norm", "batch", "--name", "nb", "--checkpoints_dir", str(tmp_path),
+        "--batch_size", str(TTR.B), "--crop_size_h", str(TTR.H), "--crop_size_w", str(TTR.W)]
+    inject = TTR._InjectHoles()
+    batch = TTR._batch()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TTR.JDPT, "random_rect_holes", inject.jax)
+        mp.setattr(TTR.TDPT, "random_rect_holes", inject.torch)
+        full = JTT.default_translator_opt
+        mp.setattr(JTT, "default_translator_opt",
+                   lambda full=full: full(ngf_img=8, ngf_depth=8, n_blocks=1))
+        mp.setattr(TT, "default_translator_opt", _small_translator)
+        jm = JaxMainModel(TrainOptions().parse(argv))
+        jm.init_params(0)
+        forward, losses = jm._forward_fn(), jm._losses_fn()
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+        def loss_fn(g_train, params):
+            merged = dict(params, **{n: dict(params[n], **g) for n, g in g_train.items()})
+            return losses(forward(merged, jb, jax.random.PRNGKey(0), True), jb)
+
+        # the float leaves (BatchNorm's int64 batch counters take no gradient)
+        g_train = {n: {k: v for k, v in jm.params[n].items()
+                       if jnp.issubdtype(v.dtype, jnp.floating)} for n in ("Depth_f", "Task")}
+        (_, jmetrics), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+            g_train, jm.params)
+        tm = MainModel(_parse(*argv), device="cpu", compute_dtype=torch.float32, is_train=True)
+        for n, p in jm.params.items():
+            tm.nets[n].load_state_dict(from_jax_params({k: np.array(v) for k, v in p.items()}),
+                                       strict=True)
+        tm.set_input(batch)
+        tmetrics = {k: float(v) for k, v in tm.compute_grads().items()}
+    assert any("running_mean" in k for k in tm.nets["Depth_f"].state_dict())
+    for k in jm.loss_names + ["G"]:
+        np.testing.assert_allclose(tmetrics[k], float(jmetrics[k]), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    for n in ("Depth_f", "Task"):
+        want = {k: np.asarray(v) for k, v in jgrads[n].items()}
+        got = {k: p.grad.numpy() for k, p in tm.nets[n].named_parameters()}
+        assert set(got) <= set(want)  # JAX's float leaves also hold the running stats
+        net_max = max(np.abs(want[k]).max() for k in got)
+        for k, g in got.items():
+            if k.endswith("bias"):
+                np.testing.assert_allclose(g, want[k], rtol=0, atol=1e-3 * net_max,
+                                           err_msg=f"{n}.{k}")
+            else:
+                rel = np.linalg.norm(g - want[k]) / np.linalg.norm(want[k])
+                assert rel <= 3e-2, (f"{n}.{k}", rel)
+
+
 def test_i2d_d_step_under_norm_batch_moves_only_d_stats(tmp_path):
     """I2D with --use_D --norm batch: the D step moves D_depth's running
     statistics (twice a step, chained, as JAX's sink); Image_f's and Task's

@@ -1,6 +1,7 @@
 """The port's stage-2 data path and CLIs on the CPU: the Lanczos resize against
 cv2 and the JAX package's ``transforms.resize``, ``TranslationDataset``'s
-items against the JAX dataset's, the ``.jpg`` refusal, and a ``python -m
+items against the JAX dataset's, the ``.jpg`` refusal without the native
+image library, and a ``python -m
 desr_tpu_torch.train --model_type translation`` epoch whose checkpoints
 ``predict --translate`` serves, held against the JAX ``predict.py`` on the
 same ``.pth`` files.
@@ -29,7 +30,7 @@ from desr_tpu_torch.models import translation_networks as TTT
 def test_lanczos_resize_matches_cv2_and_jax(shape):
     """resize(..., interpolation=4) to 320x320: cv2's INTER_LANCZOS4 (8 taps,
     not widened when it shrinks, edge taps clamped) within 1e-5 of cv2 and
-    of the JAX package's ``transforms.resize``; cubic (2) stays refused."""
+    of the JAX package's ``transforms.resize``; bilinear (1) stays refused."""
     x = np.random.default_rng(3).uniform(-1, 1, shape).astype(np.float32)
     x[:8] = -1.0  # a flat band and its edge, as a depth map's holes give
     got = TT.resize(x, 320, 320, TT.INTER_LANCZOS4)
@@ -38,7 +39,7 @@ def test_lanczos_resize_matches_cv2_and_jax(shape):
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, JT.resize(x, 320, 320, 4), rtol=0, atol=1e-5)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.resize(x, 320, 320, interpolation=2)
+        TT.resize(x, 320, 320, interpolation=1)
 
 
 def _write_domain(root, n, seed, hw=(64, 80)):
@@ -94,16 +95,22 @@ def test_translation_dataset_matches_jax(tmp_path, stage):
     assert sorted(names[:3]) == ["f00", "f01", "f02"]  # the first permutation of A
 
 
-def test_translation_dataset_refuses_jpg(tmp_path):
-    """A .jpg frame passes the extension check, as in the JAX dataset, and
-    stops the item with an error that names it: the port reads PNG only."""
+def test_translation_dataset_refuses_jpg(tmp_path, monkeypatch):
+    """A .jpg frame passes the extension check, as in the JAX dataset; on the
+    stdlib route (no native image library: selected here) it stops the item
+    with an error that names the frame and what is missing.
+    tests/test_torch_native_io.py loads such frames on the native route."""
+    from desr_tpu_torch.data import native_io
     from desr_tpu_torch.data.translation_dataset import TranslationDataset
 
     _write_dataroot(tmp_path, 2, 2)
-    bad = tmp_path / "trainA" / "img" / "f00.png"
-    os.rename(bad, bad.with_suffix(".jpg"))
+    png_path = tmp_path / "trainA" / "img" / "f00.png"
+    img = cv2.imread(str(png_path), cv2.IMREAD_UNCHANGED)
+    os.remove(png_path)
+    cv2.imwrite(str(png_path.with_suffix(".jpg")), img[..., :3])
+    monkeypatch.setattr(native_io, "_state", (None, "no g++ (selected by the test)"))
     ds = TranslationDataset(_opt(tmp_path), "train")
-    with pytest.raises(NotImplementedError, match=r"f00\.jpg.*PNG"):
+    with pytest.raises(RuntimeError, match=r"f00\.jpg.*native image library.*no g\+\+"):
         ds[0]
 
 

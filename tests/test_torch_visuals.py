@@ -163,7 +163,8 @@ def test_translation_mask_and_test_loss_match_jax(translation_pair):
 def test_util_helpers_match_jax(tmp_path):
     """tensor2im, data_to_meters, crop_indx, diagnose_network and mkdirs
     against desr_tpu.utils.util; save_image's PNG decodes to the pixels
-    PIL writes; an aspect ratio other than 1 is refused."""
+    PIL writes, stretched by an aspect ratio of 2 too (PIL's bicubic;
+    tests/test_torch_test_options.py holds more ratios)."""
     from desr_tpu.utils import util as J
     from desr_tpu_torch.utils import util as T
 
@@ -183,8 +184,9 @@ def test_util_helpers_match_jax(tmp_path):
     J.save_image(img, str(tmp_path / "j.png"))
     T.save_image(img, str(tmp_path / "t.png"))
     np.testing.assert_array_equal(read_png(tmp_path / "t.png"), read_png(tmp_path / "j.png"))
-    with pytest.raises(NotImplementedError, match="aspect_ratio"):
-        T.save_image(img, str(tmp_path / "s.png"), aspect_ratio=2.0)
+    J.save_image(img, str(tmp_path / "js.png"), aspect_ratio=2.0)
+    T.save_image(img, str(tmp_path / "ts.png"), aspect_ratio=2.0)
+    np.testing.assert_array_equal(read_png(tmp_path / "ts.png"), read_png(tmp_path / "js.png"))
 
 
 def test_html_page_matches_jax(tmp_path):
