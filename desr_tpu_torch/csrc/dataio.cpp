@@ -1,25 +1,21 @@
-// Host image decode and normalisation for desr_tpu_torch (counterpart of
+// Host PNG decode and normalisation for desr_tpu_torch (counterpart of
 // native/dataio.cpp), loaded with ctypes by desr_tpu_torch/data/native_io.py.
 //
-// The card's machine has zlib but neither libpng nor libjpeg, so both
-// decoders are written here on zlib alone:
+// The card's machine has zlib but not libpng, so the PNG decoder is written
+// here on zlib alone (JPEG goes through PIL's libjpeg-turbo, native_io.py):
 //
 //   - dio_png_info / dio_png: non-interlaced PNGs of every colour type and
 //     bit depth, with libpng's expansions as native/dataio.cpp asks for them
 //     (palette to RGB, grey below 8 bits scaled to 8, tRNS to an alpha
 //     channel); 8-bit samples come out as uint8, 16-bit as host-order uint16.
-//   - dio_jpeg_info / dio_jpeg: baseline, extended and progressive Huffman
-//     JPEGs with 8-bit samples, decoded with libjpeg's default arithmetic:
-//     the integer "ISLOW" IDCT (jidctint.c), fancy upsampling (jdsample.c:
-//     h2v1, h2v2, h1v2; other integer factors replicate) and its fixed-point
-//     YCbCr -> RGB (jdcolor.c), so the pixels equal what PIL and imageio
-//     read through libjpeg-turbo. Colour comes out as uint8 (H, W, 3), grey
-//     as uint8 (H, W); CMYK / YCCK, 12-bit samples, arithmetic coding,
-//     lossless and hierarchical JPEGs are refused.
+//     A malformed file returns an error code, never reads or writes out of
+//     bounds: chunk lengths are held to the file, the dimensions to libpng's
+//     default limit and to what the IDAT bytes can inflate to, the palette
+//     to 1..256 entries, and the inflated rows to their exact size.
 //   - depth_to_norm, image_to_norm, resize_area_f32: the normalisers and the
 //     INTER_AREA box filter of native/dataio.cpp, unchanged.
 //
-// Every decoder takes the file's bytes and returns 0 or a negative code
+// The decoder takes the file's bytes and returns 0 or a negative code
 // (DIO_* below; native_io.py names them). Built by desr_tpu_torch/ops/_build.py:
 //   g++ -O3 -shared -fPIC -std=c++17 -o libdataio-<hash>.so dataio.cpp -lz
 
@@ -29,6 +25,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <new>
 #include <vector>
 
 namespace {
@@ -39,8 +36,14 @@ enum {
   DIO_CORRUPT = -2,
   DIO_UNSUPPORTED = -3,
   DIO_CAPACITY = -4,
-  DIO_CMYK = -5,
+  DIO_NO_MEMORY = -5,
 };
+
+// libpng's default PNG_USER_{WIDTH,HEIGHT}_MAX.
+constexpr uint32_t kMaxSide = 1000000;
+// deflate's largest ratio of output to input is 1032:1 (zlib's FAQ); more
+// pixel bytes than that from the IDAT chunks means a corrupt header.
+constexpr int64_t kMaxInflateRatio = 1032;
 
 // ------------------------------------------------------------------ PNG
 
@@ -61,6 +64,8 @@ struct PngHeader {
   int trns_n = 0;
   std::vector<const uint8_t*> idat;
   std::vector<uint32_t> idat_n;
+  int64_t stride = 0;    // bytes a row holds, without its filter byte
+  int64_t raw_bytes = 0;  // the inflated image: height rows of 1 + stride
 };
 
 int png_parse(const uint8_t* data, int64_t n, PngHeader* h) {
@@ -94,7 +99,10 @@ int png_parse(const uint8_t* data, int64_t n, PngHeader* h) {
     }
     pos += 12 + int64_t(len);
   }
-  if (!ihdr || h->width <= 0 || h->height <= 0 || h->idat.empty()) return DIO_CORRUPT;
+  if (!ihdr || h->idat.empty()) return DIO_CORRUPT;
+  if (h->width <= 0 || h->height <= 0 || uint32_t(h->width) > kMaxSide ||
+      uint32_t(h->height) > kMaxSide)
+    return DIO_CORRUPT;
   if (h->interlace) return DIO_UNSUPPORTED;
   const int d = h->depth;
   switch (h->ctype) {
@@ -110,7 +118,7 @@ int png_parse(const uint8_t* data, int64_t n, PngHeader* h) {
       break;
     case 3:
       if (d != 1 && d != 2 && d != 4 && d != 8) return DIO_CORRUPT;
-      if (!h->plte) return DIO_CORRUPT;
+      if (!h->plte || h->plte_n < 1 || h->plte_n > 256) return DIO_CORRUPT;
       h->channels_in = 1;
       h->channels_out = h->trns ? 4 : 3;
       break;
@@ -128,6 +136,13 @@ int png_parse(const uint8_t* data, int64_t n, PngHeader* h) {
       return DIO_CORRUPT;
   }
   h->depth_out = d == 16 ? 16 : 8;
+  h->stride = (int64_t(h->width) * h->channels_in * d + 7) / 8;
+  h->raw_bytes = int64_t(h->height) * (h->stride + 1);  // at most 1e6 * 8000001
+  int64_t idat_bytes = 0;
+  for (uint32_t len : h->idat_n) idat_bytes += len;
+  if (h->raw_bytes > kMaxInflateRatio * idat_bytes + 1024) return DIO_CORRUPT;
+  // zlib counts its output in 32 bits
+  if (h->raw_bytes > int64_t(UINT32_MAX)) return DIO_UNSUPPORTED;
   return DIO_OK;
 }
 
@@ -180,12 +195,12 @@ int png_decode(const uint8_t* data, int64_t n, void* out, int64_t capacity_bytes
   int rc = png_parse(data, n, &h);
   if (rc) return rc;
   const int W = h.width, H = h.height, d = h.depth;
-  const int64_t stride = (int64_t(W) * h.channels_in * d + 7) / 8;
+  const int64_t stride = h.stride;
   const int bpp = std::max(1, h.channels_in * d / 8);
   const int64_t out_bytes = int64_t(W) * H * h.channels_out * (h.depth_out / 8);
   if (out_bytes > capacity_bytes) return DIO_CAPACITY;
 
-  std::vector<uint8_t> raw(size_t(H) * (stride + 1));
+  std::vector<uint8_t> raw(size_t(h.raw_bytes));
   z_stream zs;
   std::memset(&zs, 0, sizeof(zs));
   if (inflateInit(&zs) != Z_OK) return DIO_CORRUPT;
@@ -288,675 +303,6 @@ int png_decode(const uint8_t* data, int64_t n, void* out, int64_t capacity_bytes
   return DIO_OK;
 }
 
-// ------------------------------------------------------------------ JPEG
-
-const int kNatural[64 + 16] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
-    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
-    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
-    47, 55, 62, 63,
-    // past the end, for corrupt data (as libjpeg's jpeg_natural_order)
-    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
-
-struct Huffman {
-  bool defined = false;
-  uint8_t look_len[512];  // 9-bit lookahead: code length (0 = longer code)
-  uint8_t look_sym[512];
-  int32_t maxcode[18];
-  int32_t valoffset[18];
-  uint8_t symbols[256];
-};
-
-void build_huffman(Huffman* t, const uint8_t counts[16], const uint8_t* syms, int nsyms) {
-  std::memcpy(t->symbols, syms, size_t(nsyms));
-  std::memset(t->look_len, 0, sizeof(t->look_len));
-  int code = 0, k = 0;
-  for (int len = 1; len <= 16; ++len) {
-    t->valoffset[len] = k - code;
-    if (counts[len - 1]) {
-      for (int i = 0; i < counts[len - 1]; ++i, ++k, ++code) {
-        if (len <= 9) {
-          const int shift = 9 - len;
-          for (int f = 0; f < (1 << shift); ++f) {
-            t->look_len[(code << shift) | f] = uint8_t(len);
-            t->look_sym[(code << shift) | f] = syms[k];
-          }
-        }
-      }
-      t->maxcode[len] = code - 1;
-    } else {
-      t->maxcode[len] = -1;
-    }
-    code <<= 1;
-  }
-  t->maxcode[17] = 0x7FFFFFFF;
-  t->defined = true;
-}
-
-struct BitReader {
-  const uint8_t* data;
-  int64_t n, pos;
-  uint64_t acc = 0;
-  int bits = 0;
-  bool marker_hit = false;
-
-  void fill() {
-    while (bits <= 56) {
-      int byte = 0;
-      if (!marker_hit && pos < n) {
-        byte = data[pos];
-        if (byte == 0xFF) {
-          int next = pos + 1 < n ? data[pos + 1] : 0xD9;
-          if (next == 0x00) {
-            pos += 2;
-          } else {  // a marker: feed zeros from here, as libjpeg does
-            marker_hit = true;
-            byte = 0;
-          }
-        } else {
-          ++pos;
-        }
-      }
-      acc |= uint64_t(byte) << (56 - bits);
-      bits += 8;
-    }
-  }
-  int peek(int k) {
-    if (bits < k) fill();
-    return int(acc >> (64 - k));
-  }
-  void skip(int k) {
-    acc <<= k;
-    bits -= k;
-  }
-  int get(int k) {
-    if (k == 0) return 0;
-    int v = peek(k);
-    skip(k);
-    return v;
-  }
-  int decode(const Huffman& t) {
-    int look = peek(9);
-    int len = t.look_len[look];
-    if (len) {
-      skip(len);
-      return t.look_sym[look];
-    }
-    int code = peek(16);
-    for (len = 10; len <= 16; ++len) {
-      int c = code >> (16 - len);
-      if (c <= t.maxcode[len]) {
-        skip(len);
-        return t.symbols[(c + t.valoffset[len]) & 0xFF];
-      }
-    }
-    skip(16);  // corrupt data: libjpeg warns and returns 0
-    return 0;
-  }
-  // The next restart marker: drop the bits left in the buffer and step over it.
-  void restart() {
-    acc = 0;
-    bits = 0;
-    marker_hit = false;
-    while (pos + 1 < n && !(data[pos] == 0xFF && data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7))
-      ++pos;
-    if (pos + 1 < n) pos += 2;
-  }
-};
-
-inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
-
-struct Component {
-  int id = 0, h = 1, v = 1, tq = 0;
-  int bw = 0, bh = 0;          // blocks stored (MCU-padded)
-  int cbw = 0, cbh = 0;        // blocks that hold the component's samples
-  int dw = 0, dh = 0;          // the component's samples (downsampled size)
-  int dc_table = 0, ac_table = 0;
-  int pred = 0;
-  std::vector<int16_t> coef;   // bh * bw blocks of 64, natural order
-};
-
-struct Jpeg {
-  int width = 0, height = 0, ncomp = 0;
-  bool progressive = false;
-  int max_h = 1, max_v = 1, mcux = 0, mcuy = 0;
-  int restart_interval = 0;
-  bool jfif = false, adobe = false;
-  int adobe_transform = -1;
-  uint16_t q[4][64];
-  bool q_defined[4] = {false, false, false, false};
-  Huffman dc[4], ac[4];
-  Component comp[4];
-  int eobrun = 0;
-};
-
-int u16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
-
-int parse_sof(Jpeg* j, const uint8_t* b, int len) {
-  if (len < 6) return DIO_CORRUPT;
-  if (b[0] != 8) return DIO_UNSUPPORTED;  // 12-bit samples
-  j->height = u16(b + 1);
-  j->width = u16(b + 3);
-  j->ncomp = b[5];
-  if (j->width <= 0 || j->height <= 0) return DIO_UNSUPPORTED;  // DNL heights
-  if (j->ncomp == 4) return DIO_CMYK;
-  if ((j->ncomp != 1 && j->ncomp != 3) || len < 6 + 3 * j->ncomp) return DIO_UNSUPPORTED;
-  for (int i = 0; i < j->ncomp; ++i) {
-    Component& c = j->comp[i];
-    c.id = b[6 + 3 * i];
-    c.h = b[7 + 3 * i] >> 4;
-    c.v = b[7 + 3 * i] & 15;
-    c.tq = b[8 + 3 * i] & 3;
-    if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return DIO_CORRUPT;
-    j->max_h = std::max(j->max_h, c.h);
-    j->max_v = std::max(j->max_v, c.v);
-  }
-  j->mcux = (j->width + 8 * j->max_h - 1) / (8 * j->max_h);
-  j->mcuy = (j->height + 8 * j->max_v - 1) / (8 * j->max_v);
-  for (int i = 0; i < j->ncomp; ++i) {
-    Component& c = j->comp[i];
-    if (j->max_h % c.h || j->max_v % c.v) return DIO_UNSUPPORTED;
-    c.bw = j->mcux * c.h;
-    c.bh = j->mcuy * c.v;
-    c.dw = (j->width * c.h + j->max_h - 1) / j->max_h;
-    c.dh = (j->height * c.v + j->max_v - 1) / j->max_v;
-    c.cbw = (c.dw + 7) / 8;
-    c.cbh = (c.dh + 7) / 8;
-    c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
-  }
-  return DIO_OK;
-}
-
-// One block's share of a scan (libjpeg's decode_mcu{,_DC_first,_DC_refine,_AC_first,_AC_refine}).
-inline void decode_block(Jpeg* j, BitReader* br, Component& c, int16_t* blk, int ss, int se,
-                         int ah, int al) {
-  if (!j->progressive) {
-    int t = br->decode(j->dc[c.dc_table]);
-    int diff = t ? extend(br->get(t), t) : 0;
-    c.pred += diff;
-    blk[0] = int16_t(c.pred);
-    const Huffman& ac = j->ac[c.ac_table];
-    for (int k = 1; k < 64; ++k) {
-      int rs = br->decode(ac);
-      int r = rs >> 4, s = rs & 15;
-      if (s) {
-        k += r;
-        blk[kNatural[k]] = int16_t(extend(br->get(s), s));
-      } else {
-        if (r != 15) break;
-        k += 15;
-      }
-    }
-    return;
-  }
-  if (ss == 0) {  // DC scans
-    if (ah == 0) {
-      int t = br->decode(j->dc[c.dc_table]);
-      int diff = t ? extend(br->get(t), t) : 0;
-      c.pred += diff;
-      blk[0] = int16_t(int(unsigned(c.pred) << al));
-    } else if (br->get(1)) {
-      blk[0] = int16_t(blk[0] | (1 << al));
-    }
-    return;
-  }
-  const Huffman& ac = j->ac[c.ac_table];
-  if (ah == 0) {  // AC first
-    if (j->eobrun > 0) {
-      --j->eobrun;
-      return;
-    }
-    for (int k = ss; k <= se; ++k) {
-      int rs = br->decode(ac);
-      int r = rs >> 4, s = rs & 15;
-      if (s) {
-        k += r;
-        blk[kNatural[k]] = int16_t(int(unsigned(extend(br->get(s), s)) << al));
-      } else if (r == 15) {
-        k += 15;
-      } else {
-        j->eobrun = 1 << r;
-        if (r) j->eobrun += br->get(r);
-        --j->eobrun;
-        break;
-      }
-    }
-    return;
-  }
-  // AC refinement
-  const int p1 = 1 << al, m1 = -1 * (1 << al);
-  int k = ss;
-  if (j->eobrun == 0) {
-    for (; k <= se; ++k) {
-      int rs = br->decode(ac);
-      int r = rs >> 4, s = rs & 15;
-      if (s) {
-        s = br->get(1) ? p1 : m1;
-      } else if (r != 15) {
-        j->eobrun = 1 << r;
-        if (r) j->eobrun += br->get(r);
-        break;
-      }
-      do {
-        int16_t* coef = blk + kNatural[k];
-        if (*coef != 0) {
-          if (br->get(1) && (*coef & p1) == 0) *coef = int16_t(*coef >= 0 ? *coef + p1 : *coef + m1);
-        } else {
-          if (--r < 0) break;
-        }
-        ++k;
-      } while (k <= se);
-      if (s) blk[kNatural[k]] = int16_t(s);
-    }
-  }
-  if (j->eobrun > 0) {
-    for (; k <= se; ++k) {
-      int16_t* coef = blk + kNatural[k];
-      if (*coef != 0 && br->get(1) && (*coef & p1) == 0)
-        *coef = int16_t(*coef >= 0 ? *coef + p1 : *coef + m1);
-    }
-    --j->eobrun;
-  }
-}
-
-// Decodes one scan from `pos`; returns the position after its entropy-coded data.
-int64_t decode_scan(Jpeg* j, const uint8_t* data, int64_t n, int64_t pos, const uint8_t* sos,
-                    int* rc) {
-  const int ns = sos[0];
-  int idx[4];
-  for (int i = 0; i < ns; ++i) {
-    idx[i] = -1;
-    for (int c = 0; c < j->ncomp; ++c)
-      if (j->comp[c].id == sos[1 + 2 * i]) idx[i] = c;
-    if (idx[i] < 0) {
-      *rc = DIO_CORRUPT;
-      return pos;
-    }
-    j->comp[idx[i]].dc_table = sos[2 + 2 * i] >> 4;
-    j->comp[idx[i]].ac_table = sos[2 + 2 * i] & 3;
-  }
-  const uint8_t* p = sos + 1 + 2 * ns;
-  const int ss = p[0], se = p[1], ah = p[2] >> 4, al = p[2] & 15;
-  if (!j->progressive && (ss != 0 || se != 63 || ah || al)) {
-    *rc = DIO_CORRUPT;
-    return pos;
-  }
-  for (int i = 0; i < ns; ++i) {
-    Component& c = j->comp[idx[i]];
-    c.pred = 0;
-    bool need_dc = !j->progressive || (ss == 0 && ah == 0);
-    bool need_ac = !j->progressive || ss > 0;
-    if ((need_dc && !j->dc[c.dc_table & 3].defined) || (need_ac && !j->ac[c.ac_table].defined)) {
-      *rc = DIO_CORRUPT;
-      return pos;
-    }
-    c.dc_table &= 3;
-  }
-  j->eobrun = 0;
-  BitReader br{data, n, pos};
-  int todo = j->restart_interval;
-  auto restart_point = [&]() {
-    if (!j->restart_interval) return;
-    if (todo == 0) {
-      br.restart();
-      for (int i = 0; i < ns; ++i) j->comp[idx[i]].pred = 0;
-      j->eobrun = 0;
-      todo = j->restart_interval;
-    }
-    --todo;
-  };
-  if (ns == 1) {  // non-interleaved: the component's own blocks, row by row
-    Component& c = j->comp[idx[0]];
-    for (int by = 0; by < c.cbh; ++by)
-      for (int bx = 0; bx < c.cbw; ++bx) {
-        restart_point();
-        decode_block(j, &br, c, c.coef.data() + (size_t(by) * c.bw + bx) * 64, ss, se, ah, al);
-      }
-  } else {
-    for (int my = 0; my < j->mcuy; ++my)
-      for (int mx = 0; mx < j->mcux; ++mx) {
-        restart_point();
-        for (int i = 0; i < ns; ++i) {
-          Component& c = j->comp[idx[i]];
-          for (int v = 0; v < c.v; ++v)
-            for (int h = 0; h < c.h; ++h) {
-              size_t b = size_t(my * c.v + v) * c.bw + size_t(mx * c.h + h);
-              decode_block(j, &br, c, c.coef.data() + b * 64, ss, se, ah, al);
-            }
-        }
-      }
-  }
-  // step past the entropy-coded data to the next marker that is not a restart
-  int64_t q = br.pos;
-  while (q + 1 < n && !(data[q] == 0xFF && data[q + 1] != 0 && data[q + 1] != 0xFF &&
-                        !(data[q + 1] >= 0xD0 && data[q + 1] <= 0xD7)))
-    ++q;
-  *rc = DIO_OK;
-  return q;
-}
-
-// libjpeg's jpeg_idct_islow (jidctint.c), 8x8, into an 8x8 tile of `out`.
-#define CONST_BITS 13
-#define PASS1_BITS 2
-#define FIX_0_298631336 2446
-#define FIX_0_390180644 3196
-#define FIX_0_541196100 4433
-#define FIX_0_765366865 6270
-#define FIX_0_899976223 7373
-#define FIX_1_175875602 9633
-#define FIX_1_501321110 12299
-#define FIX_1_847759065 15137
-#define FIX_1_961570560 16069
-#define FIX_2_053119869 16819
-#define FIX_2_562915447 20995
-#define FIX_3_072711026 25172
-#define DESCALE(x, n) (((x) + (int64_t(1) << ((n)-1))) >> (n))
-
-inline uint8_t idct_limit(int64_t x) {
-  // the post-IDCT range-limit table: wraps at 1024, then clamps x + 128 to 0..255
-  int v = int(x & 1023);
-  if (v >= 512) v -= 1024;
-  v += 128;
-  return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
-}
-
-void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int64_t stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      int dc = (int(ip[0]) * int(qp[0])) * (1 << PASS1_BITS);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
-      continue;
-    }
-    int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = int64_t(ip[0]) * qp[0];
-    z3 = int64_t(ip[32]) * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-    int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int64_t(ip[56]) * qp[56];
-    tmp1 = int64_t(ip[40]) * qp[40];
-    tmp2 = int64_t(ip[24]) * qp[24];
-    tmp3 = int64_t(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    wp[0] = int(DESCALE(tmp10 + tmp3, CONST_BITS - PASS1_BITS));
-    wp[56] = int(DESCALE(tmp10 - tmp3, CONST_BITS - PASS1_BITS));
-    wp[8] = int(DESCALE(tmp11 + tmp2, CONST_BITS - PASS1_BITS));
-    wp[48] = int(DESCALE(tmp11 - tmp2, CONST_BITS - PASS1_BITS));
-    wp[16] = int(DESCALE(tmp12 + tmp1, CONST_BITS - PASS1_BITS));
-    wp[40] = int(DESCALE(tmp12 - tmp1, CONST_BITS - PASS1_BITS));
-    wp[24] = int(DESCALE(tmp13 + tmp0, CONST_BITS - PASS1_BITS));
-    wp[32] = int(DESCALE(tmp13 - tmp0, CONST_BITS - PASS1_BITS));
-  }
-  for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
-    uint8_t* op = out + r * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t v = idct_limit(DESCALE(int64_t(wp[0]), PASS1_BITS + 3));
-      for (int c = 0; c < 8; ++c) op[c] = v;
-      continue;
-    }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CONST_BITS);
-    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CONST_BITS);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = CONST_BITS + PASS1_BITS + 3;
-    op[0] = idct_limit(DESCALE(tmp10 + tmp3, sh));
-    op[7] = idct_limit(DESCALE(tmp10 - tmp3, sh));
-    op[1] = idct_limit(DESCALE(tmp11 + tmp2, sh));
-    op[6] = idct_limit(DESCALE(tmp11 - tmp2, sh));
-    op[2] = idct_limit(DESCALE(tmp12 + tmp1, sh));
-    op[5] = idct_limit(DESCALE(tmp12 - tmp1, sh));
-    op[3] = idct_limit(DESCALE(tmp13 + tmp0, sh));
-    op[4] = idct_limit(DESCALE(tmp13 - tmp0, sh));
-  }
-}
-
-// A component's samples upsampled to the full grid (jdsample.c), rows clamped
-// at the image's top and bottom as libjpeg's context rows are.
-void upsample(const Component& c, const uint8_t* plane, int64_t pstride, int rh, int rv, int W,
-              int H, uint8_t* out) {
-  const int dw = c.dw, dh = c.dh;
-  auto row = [&](int y) { return plane + int64_t(std::clamp(y, 0, dh - 1)) * pstride; };
-  std::vector<uint8_t> line(size_t(dw) * 2 + 2);
-  for (int y = 0; y < H; ++y) {
-    uint8_t* o = out + int64_t(y) * W;
-    if (rh == 1 && rv == 1) {
-      std::memcpy(o, row(y), size_t(W));
-    } else if (dw < 2 && rh == 2) {  // one sample wide: nothing to blend with
-      const uint8_t* in = row(y / rv);
-      for (int x = 0; x < W; ++x) o[x] = in[0];
-    } else if (rh == 2 && rv == 1) {  // h2v1_fancy_upsample
-      const uint8_t* in = row(y);
-      uint8_t* l = line.data();
-      l[0] = in[0];
-      l[1] = uint8_t((in[0] * 3 + in[1] + 2) >> 2);
-      for (int x = 1; x < dw - 1; ++x) {
-        int v = in[x] * 3;
-        l[2 * x] = uint8_t((v + in[x - 1] + 1) >> 2);
-        l[2 * x + 1] = uint8_t((v + in[x + 1] + 2) >> 2);
-      }
-      l[2 * dw - 2] = uint8_t((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
-      l[2 * dw - 1] = in[dw - 1];
-      std::memcpy(o, l, size_t(W));
-    } else if (rh == 2 && rv == 2) {  // h2v2_fancy_upsample
-      const int iy = y >> 1;
-      const uint8_t* in0 = row(iy);
-      const uint8_t* in1 = row((y & 1) ? iy + 1 : iy - 1);
-      uint8_t* l = line.data();
-      int this_sum = in0[0] * 3 + in1[0];
-      int next_sum = in0[1] * 3 + in1[1];
-      l[0] = uint8_t((this_sum * 4 + 8) >> 4);
-      l[1] = uint8_t((this_sum * 3 + next_sum + 7) >> 4);
-      int last_sum = this_sum;
-      this_sum = next_sum;
-      for (int x = 1; x < dw - 1; ++x) {
-        next_sum = in0[x + 1] * 3 + in1[x + 1];
-        l[2 * x] = uint8_t((this_sum * 3 + last_sum + 8) >> 4);
-        l[2 * x + 1] = uint8_t((this_sum * 3 + next_sum + 7) >> 4);
-        last_sum = this_sum;
-        this_sum = next_sum;
-      }
-      l[2 * dw - 2] = uint8_t((this_sum * 3 + last_sum + 8) >> 4);
-      l[2 * dw - 1] = uint8_t((this_sum * 4 + 7) >> 4);
-      std::memcpy(o, l, size_t(W));
-    } else if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
-      const int iy = y >> 1;
-      const uint8_t* in0 = row(iy);
-      const uint8_t* in1 = row((y & 1) ? iy + 1 : iy - 1);
-      const int bias = (y & 1) ? 2 : 1;
-      for (int x = 0; x < W; ++x) o[x] = uint8_t((in0[x] * 3 + in1[x] + bias) >> 2);
-    } else {  // int_upsample: replication
-      const uint8_t* in = row(y / rv);
-      for (int x = 0; x < W; ++x) o[x] = in[x / rh];
-    }
-  }
-}
-
-int jpeg_parse_and_decode(const uint8_t* data, int64_t n, Jpeg* j, bool header_only) {
-  if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) return DIO_NOT_THIS_FORMAT;
-  int64_t pos = 2;
-  bool sof = false;
-  while (pos < n) {
-    if (data[pos] != 0xFF) {  // garbage between markers: skip to the next one
-      ++pos;
-      continue;
-    }
-    while (pos < n && data[pos] == 0xFF) ++pos;
-    if (pos >= n) break;
-    const int m = data[pos++];
-    if (m == 0xD9) break;                               // EOI
-    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // TEM, stray RSTn
-    if (pos + 2 > n) return DIO_CORRUPT;
-    const int len = u16(data + pos);
-    if (len < 2 || pos + len > n) return DIO_CORRUPT;
-    const uint8_t* b = data + pos + 2;
-    const int blen = len - 2;
-    pos += len;
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-      j->progressive = m == 0xC2;
-      int rc = parse_sof(j, b, blen);
-      if (rc) return rc;
-      sof = true;
-      if (header_only) return DIO_OK;
-    } else if ((m >= 0xC3 && m <= 0xCF) && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-      return DIO_UNSUPPORTED;  // lossless, hierarchical or arithmetic-coded
-    } else if (m == 0xC4) {    // DHT
-      int o = 0;
-      while (o + 17 <= blen) {
-        const int tc = b[o] >> 4, th = b[o] & 3;
-        int total = 0;
-        for (int i = 0; i < 16; ++i) total += b[o + 1 + i];
-        if (total > 256 || o + 17 + total > blen) return DIO_CORRUPT;
-        build_huffman(tc ? &j->ac[th] : &j->dc[th], b + o + 1, b + o + 17, total);
-        o += 17 + total;
-      }
-    } else if (m == 0xDB) {  // DQT
-      int o = 0;
-      while (o < blen) {
-        const int pq = b[o] >> 4, tq = b[o] & 3;
-        if (o + 1 + 64 * (pq + 1) > blen) return DIO_CORRUPT;
-        for (int i = 0; i < 64; ++i)
-          j->q[tq][kNatural[i]] = uint16_t(pq ? u16(b + o + 1 + 2 * i) : b[o + 1 + i]);
-        j->q_defined[tq] = true;
-        o += 1 + 64 * (pq + 1);
-      }
-    } else if (m == 0xDD) {
-      if (blen < 2) return DIO_CORRUPT;
-      j->restart_interval = u16(b);
-    } else if (m == 0xE0) {
-      if (blen >= 5 && !std::memcmp(b, "JFIF\0", 5)) j->jfif = true;
-    } else if (m == 0xEE) {
-      if (blen >= 12 && !std::memcmp(b, "Adobe", 5)) {
-        j->adobe = true;
-        j->adobe_transform = b[11];
-      }
-    } else if (m == 0xDA) {  // SOS
-      if (!sof || blen < 1 || blen < 4 + 2 * b[0]) return DIO_CORRUPT;
-      int rc;
-      pos = decode_scan(j, data, n, pos, b, &rc);
-      if (rc) return rc;
-    }
-  }
-  return sof ? DIO_OK : DIO_CORRUPT;
-}
-
-int jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t capacity) {
-  Jpeg* j = new Jpeg();
-  int rc = jpeg_parse_and_decode(data, n, j, false);
-  const int W = j->width, H = j->height, nc = j->ncomp;
-  if (!rc && int64_t(W) * H * nc > capacity) rc = DIO_CAPACITY;
-  for (int i = 0; !rc && i < nc; ++i)
-    if (!j->q_defined[j->comp[i].tq]) rc = DIO_CORRUPT;
-  if (rc) {
-    delete j;
-    return rc;
-  }
-  std::vector<std::vector<uint8_t>> full(static_cast<size_t>(nc));
-  for (int i = 0; i < nc; ++i) {
-    Component& c = j->comp[i];
-    const int64_t pstride = int64_t(c.bw) * 8;
-    std::vector<uint8_t> plane(size_t(pstride) * c.bh * 8);
-    for (int by = 0; by < c.cbh; ++by)
-      for (int bx = 0; bx < c.cbw; ++bx)
-        idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, j->q[c.tq],
-                   plane.data() + int64_t(by) * 8 * pstride + bx * 8, pstride);
-    if (nc == 1) {  // grey: the plane is the image
-      for (int y = 0; y < H; ++y)
-        std::memcpy(out + int64_t(y) * W, plane.data() + int64_t(y) * pstride, size_t(W));
-      delete j;
-      return DIO_OK;
-    }
-    full[i].resize(size_t(W) * H);
-    upsample(c, plane.data(), pstride, j->max_h / c.h, j->max_v / c.v, W, H, full[i].data());
-  }
-  // colour space as libjpeg's default_decompress_parms picks it for 3 components
-  bool rgb = false;
-  if (j->jfif) rgb = false;
-  else if (j->adobe) rgb = j->adobe_transform == 0;
-  else rgb = j->comp[0].id == 'R' && j->comp[1].id == 'G' && j->comp[2].id == 'B';
-  const uint8_t *y0 = full[0].data(), *c1 = full[1].data(), *c2 = full[2].data();
-  const int64_t npx = int64_t(W) * H;
-  if (rgb) {
-    for (int64_t i = 0; i < npx; ++i) {
-      out[3 * i] = y0[i];
-      out[3 * i + 1] = c1[i];
-      out[3 * i + 2] = c2[i];
-    }
-  } else {  // jdcolor.c: ycc_rgb_convert with its 16-bit fixed-point tables
-    const int64_t one_half = int64_t(1) << 15;
-    auto fix = [](double x) { return int64_t(x * 65536.0 + 0.5); };
-    int cr_r[256], cb_b[256];
-    int64_t cr_g[256], cb_g[256];
-    for (int i = 0; i < 256; ++i) {
-      const int64_t x = i - 128;
-      cr_r[i] = int((fix(1.40200) * x + one_half) >> 16);
-      cb_b[i] = int((fix(1.77200) * x + one_half) >> 16);
-      cr_g[i] = -fix(0.71414) * x;
-      cb_g[i] = -fix(0.34414) * x + one_half;
-    }
-    auto clamp8 = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
-    for (int64_t i = 0; i < npx; ++i) {
-      const int y = y0[i], cb = c1[i], cr = c2[i];
-      out[3 * i] = clamp8(y + cr_r[cr]);
-      out[3 * i + 1] = clamp8(y + int((cb_g[cb] + cr_g[cr]) >> 16));
-      out[3 * i + 2] = clamp8(y + cb_b[cb]);
-    }
-  }
-  delete j;
-  return DIO_OK;
-}
-
 }  // namespace
 
 extern "C" {
@@ -965,7 +311,12 @@ extern "C" {
 int dio_png_info(const uint8_t* data, int64_t n, int* width, int* height, int* channels,
                  int* bit_depth) {
   PngHeader h;
-  int rc = png_parse(data, n, &h);
+  int rc;
+  try {
+    rc = png_parse(data, n, &h);
+  } catch (const std::bad_alloc&) {
+    return DIO_NO_MEMORY;
+  }
   if (rc) return rc;
   *width = h.width;
   *height = h.height;
@@ -975,24 +326,11 @@ int dio_png_info(const uint8_t* data, int64_t n, int* width, int* height, int* c
 }
 
 int dio_png(const uint8_t* data, int64_t n, void* out, int64_t capacity_bytes) {
-  return png_decode(data, n, out, capacity_bytes);
-}
-
-// Fills width, height and channels (3 for colour, 1 for grey).
-int dio_jpeg_info(const uint8_t* data, int64_t n, int* width, int* height, int* channels) {
-  Jpeg* j = new Jpeg();
-  int rc = jpeg_parse_and_decode(data, n, j, true);
-  if (!rc) {
-    *width = j->width;
-    *height = j->height;
-    *channels = j->ncomp;
+  try {
+    return png_decode(data, n, out, capacity_bytes);
+  } catch (const std::bad_alloc&) {  // no exception may cross into ctypes
+    return DIO_NO_MEMORY;
   }
-  delete j;
-  return rc;
-}
-
-int dio_jpeg(const uint8_t* data, int64_t n, uint8_t* out, int64_t capacity) {
-  return jpeg_decode(data, n, out, capacity);
 }
 
 // uint16 depth (mm) -> [-1, 1] float (native/dataio.cpp's depth_to_norm).

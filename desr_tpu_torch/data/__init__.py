@@ -9,8 +9,6 @@ decoders alone.
 
 from __future__ import annotations
 
-import argparse
-
 
 def find_dataset_using_name(dataset_mode):
     """The dataset class ``--dataset_mode`` names (reference data/__init__.py:19-39)."""
@@ -41,19 +39,13 @@ def find_dataset_using_name(dataset_mode):
 def get_option_setter(dataset_mode):
     """The dataset's flag hook, ``setter(parser, is_train) -> parser``
     (reference data/__init__.py:42-45): the class's
-    ``modify_commandline_options`` where it has one; an unknown mode, or a
-    hook whose flags the parser already has, leaves the parser as it is."""
+    ``modify_commandline_options`` where it has one. An unknown mode adds no
+    flags, as in the JAX parser, whose stages pick their dataset by
+    ``--model_type``; a hook whose flags clash with the parser's raises."""
     try:
         cls = find_dataset_using_name(dataset_mode)
     except NotImplementedError:
         cls = None
-
-    def setter(parser, is_train):
-        if cls is None or not hasattr(cls, "modify_commandline_options"):
-            return parser
-        try:
-            return cls.modify_commandline_options(parser, is_train)
-        except argparse.ArgumentError:
-            return parser
-
-    return setter
+    if cls is None or not hasattr(cls, "modify_commandline_options"):
+        return lambda parser, is_train: parser
+    return cls.modify_commandline_options

@@ -19,7 +19,7 @@ def load_image(path):
     """A frame's pixels with the JAX function's dtypes (base_dataset.py:21-31):
     a PNG decodes as uint16 there, cut to uint8 for colour within 0..255, so
     8-bit grey comes back uint16 and 16-bit colour within 0..255 uint8; a
-    JPEG (PIL there) is uint8."""
+    JPEG (PIL in both packages) is uint8."""
     arr = read_image(path)
     if not str(path).endswith(".png"):
         return arr

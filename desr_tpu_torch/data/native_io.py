@@ -1,24 +1,27 @@
 """Native image decode (counterpart of ``desr_tpu/data/native_io.py``), and
 the one place that routes the port's image reads.
 
-The library is ``csrc/dataio.cpp``, built with the host compiler into
+PNG goes through ``csrc/dataio.cpp``, built with the host compiler into
 ``desr_tpu_torch/_build/`` on first use (``ops/_build.py``) and loaded with
-``ctypes``; nothing is built at import. It decodes PNG on zlib and JPEG with
-libjpeg's default arithmetic (ISLOW IDCT, fancy upsampling), neither through
-libpng nor libjpeg, which the card's machine does not have.
+``ctypes``; nothing is built at import. It decodes on zlib, not libpng, which
+the card's machine does not have. JPEG goes through PIL, whose bundled
+libjpeg-turbo is what imageio (and so the JAX package) reads JPEGs with, at
+libjpeg's defaults (ISLOW IDCT, fancy upsampling): the same pixels.
 
 ``read_image(path)`` is the port's reader: a PNG or JPEG file (told by its
 first bytes) to a uint8 array, or uint16 for a 16-bit PNG, (H, W) for grey
 and (H, W, C) otherwise, palette PNGs expanded to RGB(A), as imageio reads
-them. ``route()`` says which route it takes, and why:
+them. A malformed file raises ValueError. ``route()`` says which route it
+takes, and why:
 
-- ``("native", <library>)``: both formats through the library;
-- ``("stdlib", <reason>)`` when the library cannot be built (no ``g++`` or no
-  zlib header): PNGs through ``data/png.py`` (the same values; no palette,
-  sub-byte or interlaced files), and a JPEG raises, naming what is missing.
+- ``("native", <library>; <JPEG decoder>)``: PNG through the library;
+- ``("stdlib", <reason>; <JPEG decoder>)`` when the library cannot be built
+  (no ``g++`` or no zlib header): PNGs through ``data/png.py`` (the same
+  values; no palette, sub-byte or interlaced files).
 
-The CLIs log the route once at start. This module imports no torch: the
-serving CLI's and the metrics' spawned workers read through it.
+On either route a JPEG needs PIL, and without it raises, naming what is
+missing. The CLIs log the route once at start. This module imports no torch:
+the serving CLI's and the metrics' spawned workers read through it.
 
 The JAX module's interface is kept beside it: ``decode_png`` (every PNG as
 uint16, 8-bit values unscaled), ``load_depth_normalized``,
@@ -29,6 +32,7 @@ the JAX functions return None.
 from __future__ import annotations
 
 import ctypes
+import io
 import threading
 
 import numpy as np
@@ -36,9 +40,9 @@ import numpy as np
 from desr_tpu_torch.data.png import decode_png as _stdlib_png
 
 _ERRORS = {-1: "not a PNG or JPEG file", -2: "corrupt or truncated",
-           -3: "an encoding the decoder does not take (interlaced PNG; 12-bit, lossless, "
-               "hierarchical or arithmetic-coded JPEG)",
-           -4: "output buffer too small", -5: "a CMYK / YCCK JPEG (colour decodes to RGB only)"}
+           -3: "an encoding the decoder does not take (an interlaced PNG, or one of "
+               "more than 4 GiB of pixels)",
+           -4: "output buffer too small", -5: "out of host memory"}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _JPEG_SOI = b"\xff\xd8"
 
@@ -60,11 +64,8 @@ def _load():
                 c_int_p = ctypes.POINTER(ctypes.c_int)
                 buf = (ctypes.c_char_p, ctypes.c_int64)
                 lib.dio_png_info.argtypes = [*buf] + [c_int_p] * 4
-                lib.dio_jpeg_info.argtypes = [*buf] + [c_int_p] * 3
-                lib.dio_png.argtypes = lib.dio_jpeg.argtypes = [*buf, ctypes.c_void_p,
-                                                                ctypes.c_int64]
-                for fn in (lib.dio_png_info, lib.dio_jpeg_info, lib.dio_png, lib.dio_jpeg):
-                    fn.restype = ctypes.c_int
+                lib.dio_png.argtypes = [*buf, ctypes.c_void_p, ctypes.c_int64]
+                lib.dio_png_info.restype = lib.dio_png.restype = ctypes.c_int
                 f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
                 u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
                 lib.depth_to_norm.argtypes = [u16, f32, ctypes.c_int64, ctypes.c_float]
@@ -77,11 +78,23 @@ def _load():
         return _state
 
 
+def _jpeg_decoder():
+    """PIL's Image module and what it decodes JPEG with, or None and why not."""
+    try:
+        from PIL import Image, features
+    except ImportError as e:
+        return None, f"JPEG: no decoder (PIL is not installed: {e})"
+    turbo = features.version("libjpeg_turbo")
+    jpeg = f"libjpeg-turbo {turbo}" if turbo else f"libjpeg {features.version('jpg')}"
+    return Image, f"JPEG: PIL {Image.__version__} ({jpeg})"
+
+
 def route():
-    """``("native", library path)`` or ``("stdlib", why the library is missing)``;
-    builds the library on the first call (the CLIs call it before they spawn
-    workers)."""
+    """``("native", library path; JPEG decoder)`` or ``("stdlib", why the
+    library is missing; JPEG decoder)``; builds the library on the first call
+    (the CLIs call it before they spawn workers)."""
     lib, detail = _load()
+    detail = f"{detail}; {_jpeg_decoder()[1]}"
     return ("native", detail) if lib is not None else ("stdlib", detail)
 
 
@@ -110,13 +123,17 @@ def _decode_png_bytes(lib, data, path):
     return out[..., 0] if c.value == 1 else out
 
 
-def _decode_jpeg_bytes(lib, data, path):
-    w, h, c = (ctypes.c_int() for _ in range(3))
-    _check(lib.dio_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
-                             ctypes.byref(c)), path)
-    out = np.empty((h.value, w.value, c.value), np.uint8)
-    _check(lib.dio_jpeg(data, len(data), out.ctypes.data, out.nbytes), path)
-    return out[..., 0] if c.value == 1 else out
+def _decode_jpeg_bytes(data, path):
+    Image, detail = _jpeg_decoder()
+    if Image is None:
+        raise RuntimeError(f"{path}: {detail}")
+    try:
+        with Image.open(io.BytesIO(data), formats=["JPEG"]) as im:
+            if im.mode not in ("L", "RGB"):
+                raise ValueError(f"{path}: a {im.mode} JPEG (colour decodes to RGB only)")
+            return np.array(im)
+    except (OSError, SyntaxError) as e:  # PIL's errors for a malformed file
+        raise ValueError(f"{path}: {_ERRORS[-2]} ({e})") from e
 
 
 def read_image(path) -> np.ndarray:
@@ -127,10 +144,7 @@ def read_image(path) -> np.ndarray:
     if data.startswith(_PNG_SIG):
         return _stdlib_png(data) if lib is None else _decode_png_bytes(lib, data, path)
     if data.startswith(_JPEG_SOI):
-        if lib is None:
-            raise RuntimeError(f"{path}: a JPEG needs the native image library, which could "
-                               f"not be built ({_load()[1]})")
-        return _decode_jpeg_bytes(lib, data, path)
+        return _decode_jpeg_bytes(data, path)
     raise ValueError(f"{path}: {_ERRORS[-1]}")
 
 

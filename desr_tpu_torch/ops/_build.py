@@ -3,7 +3,7 @@
 Each source is compiled on first use into a shared library with a plain C
 interface under ``desr_tpu_torch/_build/`` (listed in ``.gitignore``) and
 loaded with ``ctypes``: a CUDA source (``*.cu``) with ``nvcc`` for
-``sm_90a``, a host C++ source (``*.cpp``, the image decoders) with the host
+``sm_90a``, a host C++ source (``*.cpp``, the PNG decoder) with the host
 compiler ``g++``, which ``nvcc`` needs anyway. Nothing here runs when the
 package is imported; the first CUDA call of a kernel wrapper, or the first
 native image decode, triggers the build. A library whose file name carries

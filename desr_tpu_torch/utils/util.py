@@ -1,7 +1,8 @@
 """Host-side output helpers (counterpart of ``desr_tpu/utils/util.py``).
 
-Images are written through the port's stdlib PNG codec (``data/png.py``):
-the port needs no PIL.
+Images are written through the port's stdlib PNG codec (``data/png.py``);
+only ``save_image``'s aspect stretch goes through PIL, as the JAX function
+does.
 """
 
 from __future__ import annotations
@@ -31,59 +32,18 @@ def tensor2im(arr, imtype=np.uint8):
     return np.clip(a, 0, 255).astype(imtype)
 
 
-def _pil_bicubic_taps(in_size, out_size):
-    """(taps, weights) of PIL's BICUBIC resample along one axis, each
-    ``(out_size, ksize)``: the source indices and the weights of Resample.c's
-    ``precompute_coeffs`` (a = -0.5, support 2 widened by the scale when it
-    shrinks, each output's weights normalised to sum 1) in
-    ``normalize_coeffs_8bpc``'s 22-bit fixed point (rounded half away from 0).
-    Weights past an output's last tap are 0, their indices clamped in range."""
-    def cubic(x):
-        x = np.abs(x)
-        return np.where(x < 1.0, (1.5 * x - 2.5) * x * x + 1,
-                        np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * -0.5, 0.0))
-
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)  # C's (int): toward 0
-    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
-    x = np.arange(ksize)[None, :]
-    w = cubic((x + xmin[:, None] - center[:, None] + 0.5) / filterscale)
-    w = np.where(x < xmax[:, None], w, 0.0)
-    ww = w.sum(axis=1, keepdims=True)
-    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
-    fixed = np.where(w < 0, w * (1 << 22) - 0.5, w * (1 << 22) + 0.5).astype(np.int64)
-    return np.minimum(xmin[:, None] + x, in_size - 1), fixed
-
-
-def _pil_bicubic_resize(img, axis, size):
-    """PIL's ``Image.resize(..., Image.BICUBIC)`` of a uint8 (H, W) or (H, W, 3)
-    array along one axis (0: the height, 1: the width), in integers as
-    ImagingResample{Horizontal,Vertical}_8bpc: sums from 2^21, shifted down
-    22 bits, clamped to 0..255."""
-    taps, k = _pil_bicubic_taps(img.shape[axis], size)
-    src = np.moveaxis(np.asarray(img, np.int64), axis, 0)
-    acc = np.full((size,) + src.shape[1:], 1 << 21, np.int64)
-    kk = k.reshape(k.shape + (1,) * (src.ndim - 1))
-    for t in range(k.shape[1]):
-        acc += src[taps[:, t]] * kk[:, t]
-    return np.moveaxis(np.clip(acc >> 22, 0, 255).astype(np.uint8), 0, axis)
-
-
 def save_image(image_numpy, image_path, aspect_ratio=1.0):
     """Write a uint8 (H, W, 3) image as a PNG, its width stretched by
     ``aspect_ratio`` above 1 or its height by 1 / ``aspect_ratio`` below 1
-    with PIL's bicubic filter, as the JAX function does through PIL
-    (util.py:30-38); written here in numpy, so the port needs no PIL."""
+    with PIL's bicubic filter, as the JAX function does (util.py:30-38). Only
+    the stretch needs PIL."""
     img = np.ascontiguousarray(image_numpy)
-    h, w = img.shape[:2]
-    if aspect_ratio > 1.0:
-        img = _pil_bicubic_resize(img, 1, int(w * aspect_ratio))
-    if aspect_ratio < 1.0:
-        img = _pil_bicubic_resize(img, 0, int(h / aspect_ratio))
+    if aspect_ratio != 1.0:
+        from PIL import Image
+
+        h, w = img.shape[:2]
+        size = (int(w * aspect_ratio), h) if aspect_ratio > 1.0 else (w, int(h / aspect_ratio))
+        img = np.asarray(Image.fromarray(img).resize(size, Image.BICUBIC))
     write_png(image_path, np.ascontiguousarray(img))
 
 

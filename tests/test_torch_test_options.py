@@ -47,9 +47,9 @@ def test_train_options_stay_train():
 @pytest.mark.parametrize("shape", [(37, 53, 3), (64, 80, 3)])
 def test_save_image_stretch_equals_pil(tmp_path, aspect_ratio, shape):
     """save_image(aspect_ratio) stretches the width (> 1) or the height
-    (< 1) as PIL's Image.BICUBIC does (PIL 12.1.0 here, through the JAX
-    function): the decoded pixels byte-equal, flat areas and hard edges
-    included (the filter's over- and undershoot clamp)."""
+    (< 1) to the JAX function's size with PIL's Image.BICUBIC, and writes it
+    through the port's PNG codec: the decoded pixels byte-equal to the JAX
+    function's PIL-written file, flat areas and hard edges included."""
     from desr_tpu.utils.util import save_image as jax_save_image
 
     rng = np.random.default_rng(int(aspect_ratio * 100))
@@ -62,16 +62,3 @@ def test_save_image_stretch_equals_pil(tmp_path, aspect_ratio, shape):
     got, want = png.read_png(tmp_path / "port.png"), np.array(Image.open(tmp_path / "jax.png"))
     assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
     np.testing.assert_array_equal(got, want)
-
-
-@pytest.mark.parametrize("size", [9, 20, 52, 131])
-def test_pil_bicubic_resize_shrinks_and_grows_as_pil(size):
-    """The stretch's resample along one axis, down (support widened by the
-    scale) and up, on colour and grey: equal to PIL's."""
-    rng = np.random.default_rng(size)
-    img = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
-    np.testing.assert_array_equal(util._pil_bicubic_resize(img, 1, size),
-                                  np.array(Image.fromarray(img).resize((size, 37), Image.BICUBIC)))
-    grey = img[..., 0]
-    np.testing.assert_array_equal(util._pil_bicubic_resize(grey, 0, size),
-                                  np.array(Image.fromarray(grey).resize((53, size), Image.BICUBIC)))

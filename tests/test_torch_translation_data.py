@@ -1,7 +1,7 @@
 """The port's stage-2 data path and CLIs on the CPU: the Lanczos resize against
 cv2 and the JAX package's ``transforms.resize``, ``TranslationDataset``'s
-items against the JAX dataset's, the ``.jpg`` refusal without the native
-image library, and a ``python -m
+items against the JAX dataset's, the ``.jpg`` refusal without a JPEG
+decoder, and a ``python -m
 desr_tpu_torch.train --model_type translation`` epoch whose checkpoints
 ``predict --translate`` serves, held against the JAX ``predict.py`` on the
 same ``.pth`` files.
@@ -11,6 +11,7 @@ block in both packages here (tests/test_torch_translator.py holds it at full
 width)."""
 
 import os
+import sys
 from types import SimpleNamespace
 
 import cv2
@@ -96,11 +97,10 @@ def test_translation_dataset_matches_jax(tmp_path, stage):
 
 
 def test_translation_dataset_refuses_jpg(tmp_path, monkeypatch):
-    """A .jpg frame passes the extension check, as in the JAX dataset; on the
-    stdlib route (no native image library: selected here) it stops the item
-    with an error that names the frame and what is missing.
-    tests/test_torch_native_io.py loads such frames on the native route."""
-    from desr_tpu_torch.data import native_io
+    """A .jpg frame passes the extension check, as in the JAX dataset; with
+    no JPEG decoder (no PIL: selected here) it stops the item with an error
+    that names the frame and what is missing.
+    tests/test_torch_native_io.py loads such frames through PIL."""
     from desr_tpu_torch.data.translation_dataset import TranslationDataset
 
     _write_dataroot(tmp_path, 2, 2)
@@ -108,9 +108,9 @@ def test_translation_dataset_refuses_jpg(tmp_path, monkeypatch):
     img = cv2.imread(str(png_path), cv2.IMREAD_UNCHANGED)
     os.remove(png_path)
     cv2.imwrite(str(png_path.with_suffix(".jpg")), img[..., :3])
-    monkeypatch.setattr(native_io, "_state", (None, "no g++ (selected by the test)"))
+    monkeypatch.setitem(sys.modules, "PIL", None)
     ds = TranslationDataset(_opt(tmp_path), "train")
-    with pytest.raises(RuntimeError, match=r"f00\.jpg.*native image library.*no g\+\+"):
+    with pytest.raises(RuntimeError, match=r"f00\.jpg: JPEG: no decoder.*PIL"):
         ds[0]
 
 
