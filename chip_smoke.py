@@ -29,7 +29,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     the main step's on its 384x512 crops (B=12, 96x128x128, reflect; G_A_d
     B=6, 96x128x256, replicate), the translators serving (B=8,
     128x160x256, replicate) and training in stage 2 (B=6, 64x64x256,
-    replicate).
+    replicate). Then K1 at phase (p)'s shapes: the blocks at 32x32 (width
+    8: B=8 32->32; the default widths: B=8 128->128, the translator B=4
+    256->256), SR's HR crops (B=8 64x64x128, B=4 64x64x256), I2D's crops
+    (B=8 96x128x128), the translator serving 320x320 scenes (B=2
+    96x96x256) and I2D / SR-LR serving batches of 2 (B=2 128x160x128).
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -39,7 +43,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 (b') K3 = masked_loss_sums (one launch a call) and its backward
     masked_loss_grads, at the train step's shape (6, 512, 640) and on its
     384x512 crops (6, 384, 512), the SR step's
-    (1, 1024, 1280) and (1, 512, 640) and a ragged (3, 37, 41), float32 and
+    (1, 1024, 1280) and (1, 512, 640), phase (p)'s (4, 128, 128) and
+    (4, 256, 256) and a ragged (3, 37, 41), float32 and
     bf16 pred/target, binary masks, against their plain versions: the sums
     within 1e-5, two launches bit-equal; dp (and dt, with and without it)
     bit-equal at float32, within one bf16 step at bf16. Then 100 back-to-back launches give the same bits,
@@ -180,6 +185,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     native library and data/png.py in turns (medians), and the decode of the
     committed 968x1296 JPEG fixture, timed and held to the sha256 of
     imageio's pixels.
+(p) the quality chain (``desr_tpu_torch/tools/quality_eval.py``, in-process,
+    one chain at a time, on synthetic scenes that can be learnt): train
+    through ``train.main``, serve through ``predict.main``, score with the
+    offline metrics. (p1) main at --width 8, float32, 180 steps (the JAX
+    tool's QUALITY_r03 configuration); (p2) main at the default widths,
+    bf16, 240 steps; (p3) SR at its 480x640 / 960x1280 geometry, default
+    widths, bf16, a 4-step main pretrain and 2 SR steps, served through
+    --export / --from_export; (p4) I2D at 480x640 and stage 2 at 320x320,
+    2 steps each. Checks: every split's nine metrics finite, one PNG a
+    test frame, in (p1) and (p2) trained rmse and rmse_h below the degraded
+    input's, launches exactly as the steps and one serving batch give
+    (path ``quality``); prints each chain's JSON, its wall split into data
+    write, train, serve and score, the train steps/s and the shapes K1 and
+    K3 were launched at.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -189,14 +208,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
     the main serving shape, the translator's, the SR step's two HR shapes,
     the I2D step's, the augmented main step's two, the translators' serving
-    shape and stage 2's (with the time of K1's backward there,
+    shape, stage 2's and phase (p)'s eight (one in float32; with the time of
+    K1's backward at stage 2's shape,
     ``backward_ms`` by CUDA events and ``backward_device_ms`` by the
     profiler, and cuDNN's conv backward alone, ``library_backward_ms`` and
     ``library_backward_device_ms``)
-    (``launches_at_shape`` says which path runs each); K3's
-    sums and its backward each at the main step's two shapes and the SR
-    step's HR shape, with the wrapper's host time per call (host_ms) and the kernels
-    a call launches; the sums rows also time the earlier two-launch design
+    (``launches_at_shape`` says which path runs each; ``launches_quality``
+    counts phase (p)'s); K3's sums and its backward each at the main step's
+    two shapes, the SR step's HR shape and phase (p)'s 4x128x128, with the
+    wrapper's host time per call (host_ms) and the kernels a call launches;
+    the sums rows also time the earlier two-launch design
     (desr_tpu_torch/tools/masked_loss_two_launch.cu, built in phase (a)) on
     the same inputs (two_launch_ms). Device times flush L2 before each call;
     a profiler round that traced no kernel is run again (the profiler can
@@ -251,6 +272,19 @@ I2D_K1_PER_BATCH = 12     # the same, serving
 TRANSLATE_K1_PER_BATCH = 18  # 9 ResnetBlockT x 2 convs
 # stage 2 training: batch 6 of 256x256 crops, G_A's and G_B's ResnetBlockT
 STAGE2_SHAPE = (6, 64, 64, 256)
+# phase (p)'s ResnetBlocks at the quality tool's 128x128 scenes (32x32 in the
+# blocks), batch 4, two branches batched: width 8 (32 channels) in float32,
+# the default widths in bf16; SR's HR crops, I2D's crops, the translators
+Q_W8_SHAPE = (8, 32, 32, 32)           # I2D_features, Depth_f at --width 8 (2B)
+Q_SHAPE = (8, 32, 32, 128)             # the same at the default widths; SR at LR
+Q_TRANS_SHAPE = (4, 32, 32, 256)       # G_A_d (replicate), f32 and bf16
+Q_SR_HR_SHAPE = (8, 64, 64, 128)       # Depth_f at SR's 256x256 HR crops (2B)
+Q_SR_TRANS_SHAPE = (4, 64, 64, 256)    # G_A_d at HR; G_A/G_B in stage 2 on 256x256 crops
+Q_I2D_SHAPE = (8, 96, 128, 128)        # Image_f on I2D's 384x512 crops (2B, B=4)
+Q_TRANSLATE_SHAPE = (2, 96, 96, 256)   # G_B serving 320x320 scenes padded to 384x384
+Q_SERVE_SHAPE = (2, 128, 160, 128)     # --I2D serving 480x640 (Image_f); SR serving at LR
+Q_LOSS_SHAPE = (4, 128, 128)           # K3 at the main chains' scenes and SR's LR crops
+Q_SR_LOSS_SHAPE = (4, 256, 256)        # K3 at SR's HR crops
 STAGE2_K1_PER_ITER = 216  # 18 a G apply x 4 live applies a G step x 3 G steps
 
 
@@ -451,7 +485,10 @@ def phase_kernels():
 
     worst = {"K1": 0.0, "K2": 0.0, "K1 translator": 0.0, "K1 SR LR": 0.0, "K1 SR HR": 0.0,
              "K1 SR Depth_f": 0.0, "K1 SR translator": 0.0, "K1 I2D": 0.0, "K1 aug": 0.0,
-             "K1 aug translator": 0.0, "K1 translate": 0.0, "K1 stage2": 0.0}
+             "K1 aug translator": 0.0, "K1 translate": 0.0, "K1 stage2": 0.0,
+             "K1 quality w8": 0.0, "K1 quality w8 float32": 0.0, "K1 quality": 0.0, "K1 quality translator": 0.0,
+             "K1 quality SR HR": 0.0, "K1 quality SR translator": 0.0, "K1 quality I2D": 0.0,
+             "K1 quality translate": 0.0, "K1 quality serve": 0.0}
     # the serving path's variants and borders; the translator's ResnetBlockT
     # (G_A_d on the train path) runs stats, then norm+relu+stats, replicate;
     # the SR stage's ResnetBlocks at LR and HR, and its translators at HR
@@ -469,7 +506,15 @@ def phase_kernels():
             (" aug", AUG_SHAPE, ("reflect",), K1_VARIANTS[:2]),
             (" aug translator", AUG_TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
             (" translate", TRANSLATE_SHAPE, ("replicate",), K1_VARIANTS[:2]),
-            (" stage2", STAGE2_SHAPE, ("replicate",), K1_VARIANTS[:2])):
+            (" stage2", STAGE2_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" quality w8", Q_W8_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" quality", Q_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" quality translator", Q_TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" quality SR HR", Q_SR_HR_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" quality SR translator", Q_SR_TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" quality I2D", Q_I2D_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" quality translate", Q_TRANSLATE_SHAPE, ("replicate",), K1_VARIANTS[:2]),
+            (" quality serve", Q_SERVE_SHAPE, ("reflect",), K1_VARIANTS[:2])):
         n_pix = shape[1] * shape[2]
         for dtype in (torch.float32, torch.bfloat16):
             x, w, scale, shift = _inputs(dtype, shape=shape)
@@ -483,6 +528,8 @@ def phase_kernels():
                     e = _compare(f"K1{tag} {variant} {mode} {dt}", got, want, dtype, n_pix)
                     if dtype == torch.bfloat16:
                         worst["K1" + tag] = max(worst["K1" + tag], e)
+                    elif tag == " quality w8":  # phase (p1) runs this shape in float32
+                        worst["K1 quality w8 float32"] = max(worst["K1 quality w8 float32"], e)
                 if tag:  # K2 runs only at the main serving shape
                     continue
                 got = K.conv3x3(x, w, mode)
@@ -590,7 +637,8 @@ def phase_masked_loss():
 
     worst, worst_bwd = {}, {}
     g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
-    for shape in (LOSS_SHAPE, AUG_LOSS_SHAPE, *SR_LOSS_SHAPES, (3, 37, 41)):
+    for shape in (LOSS_SHAPE, AUG_LOSS_SHAPE, *SR_LOSS_SHAPES, Q_LOSS_SHAPE, Q_SR_LOSS_SHAPE,
+                  (3, 37, 41)):
         for dtype in (torch.float32, torch.bfloat16):
             ins = _loss_inputs(shape, dtype, seed=sum(shape))
             got = torch.stack(K3.masked_loss_sums(*ins))
@@ -603,7 +651,8 @@ def phase_masked_loss():
             print(f"[b'] {name}: sums max |d| {err:.3g}, max rel {rel:.3g} (bound 1e-5), two "
                   f"launches bit-equal; backward max |d| {bwd:.3g}, {n_bits} values with other "
                   "bits than plain (dp, dt)")
-            if shape in (LOSS_SHAPE, AUG_LOSS_SHAPE, SR_LOSS_SHAPES[0]) and dtype == torch.float32:
+            if shape in (LOSS_SHAPE, AUG_LOSS_SHAPE, SR_LOSS_SHAPES[0], Q_LOSS_SHAPE) \
+                    and dtype == torch.float32:
                 worst[shape], worst_bwd[shape] = err, bwd
             del ins
     # the ticket: the last block resets it, so launch after launch gives the same bits
@@ -2898,6 +2947,125 @@ def phase_bench_io(tmp):
     return {"train_bench": launches}
 
 
+# ------------------------------------------------------------------ (p)
+
+# (tag, the quality tool's argv after --root, width: None runs the options'
+# default widths, whether trained rmse and rmse_h must beat the degraded input)
+QUALITY_CHAINS = (
+    ("p1 main width 8 f32", ["--stage", "main", "--width", "8", "--epochs", "30",
+                             "--n_train", "24", "--n_test", "8", "--batch_size", "4",
+                             "--hw", "128", "128", "--compute_dtype", "float32",
+                             "--seed", "0"], 8, True),
+    ("p2 main full width bf16", ["--stage", "main", "--compute_dtype", "bfloat16"], None, True),
+    ("p3 sr full width bf16", ["--stage", "sr", "--compute_dtype", "bfloat16", "--n_train", "4",
+                               "--n_test", "2", "--sr_pre_epochs", "4", "--epochs", "2"],
+     None, False),
+    ("p4 i2d full width bf16", ["--stage", "i2d", "--compute_dtype", "bfloat16", "--n_train", "4",
+                                "--n_test", "2", "--epochs", "2"], None, False),
+    ("p4 translation bf16", ["--stage", "translation", "--hw", "320", "320", "--compute_dtype",
+                             "bfloat16", "--n_train", "4", "--n_test", "2", "--epochs", "2"],
+     None, False),
+)
+# launches by stage: K1 a train step (an iteration of stage 2), K1 a serving
+# batch, K3 (and its backward) a step (a gallery forward: K3 alone), K1 a
+# gallery forward (None: no chain of the stage reaches one)
+QUALITY_LAUNCHES = {"main": (K1_PER_STEP, LAUNCHES_PER_BATCH, K3_PER_STEP, K1_PER_STEP),
+                    "sr": (SR_K1_PER_STEP, LAUNCHES_PER_BATCH, K3_PER_STEP, None),
+                    "i2d": (I2D_K1_PER_STEP, I2D_K1_PER_BATCH, 0, None),
+                    "translation": (STAGE2_K1_PER_ITER, TRANSLATE_K1_PER_BATCH, 0, None)}
+DISPLAY_FREQ = 400  # the train CLI's --display_freq, which the tool leaves at its default
+QUALITY_METRICS = ("rmse", "mae", "rmse_h", "rmse_d", "psnr", "ssim", "mae_h", "mae_d", "mse_v")
+
+
+def _launch_log():
+    """Patches that log each K1 and K3 launch's shape beside the counters:
+    ({(x's NHWC shape, C_out, dtype, pad mode): launches}, {(K3 shape, dtype): launches})."""
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import masked_loss as K3
+
+    k1, k3 = {}, {}
+    launch1, launch3 = K._launch, K3._launch
+
+    def log1(x, w, scale, shift, pad_mode, relu, stats):
+        key = (tuple(x.shape), w.shape[0], str(x.dtype)[6:], pad_mode)
+        k1[key] = k1.get(key, 0) + 1
+        return launch1(x, w, scale, shift, pad_mode, relu, stats)
+
+    def log3(pred, target, m1, m2):
+        key = (tuple(pred.shape), str(pred.dtype)[6:])
+        k3[key] = k3.get(key, 0) + 1
+        return launch3(pred, target, m1, m2)
+
+    patches = (mock.patch.object(K, "_launch", log1), mock.patch.object(K3, "_launch", log3))
+    return k1, k3, patches
+
+
+def phase_quality(tmp):
+    """(p) the quality chain on the card: ``desr_tpu_torch.tools.quality_eval``
+    in-process, one chain at a time (train -> serve -> score on synthetic
+    scenes), with the kernels' launches counted and their shapes logged."""
+    import torch
+
+    from desr_tpu_torch.tools import quality_eval as qe
+
+    total = {"K1": 0, "K2": 0, "K3": 0, "K3 backward": 0}
+    for tag, argv, width, must_learn in QUALITY_CHAINS:
+        args = qe.parse_args(["--root", os.path.join(tmp, tag.replace(" ", "_"))] + argv)
+        args.width = width
+        k1_log, k3_log, patches = _launch_log()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with patches[0], patches[1]:
+            res = qe.run(args)  # prints the chain's JSON line
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        torch.cuda.empty_cache()
+        splits = [s for s in ("baseline", "baseline_bicubic", "baseline_mean", "trained")
+                  if s in res]
+        for split in splits:
+            bad = {k: res[split].get(k) for k in QUALITY_METRICS
+                   if not math.isfinite(res[split].get(k, math.nan))}
+            check(not bad, f"[p] {tag}: {split} metrics not finite: {bad}")
+        preds = os.listdir(os.path.join(args.root, "pred_" + args.name))
+        check(len(preds) == args.n_test and all(p.endswith(".png") for p in preds),
+              f"[p] {tag}: {len(preds)} predictions for {args.n_test} test frames")
+        if must_learn:
+            for k in ("rmse", "rmse_h"):
+                check(res["trained"][k] < res["baseline"][k],
+                      f"[p] {tag}: trained {k} {res['trained'][k]:.2f} not below the degraded "
+                      f"input's {res['baseline'][k]:.2f}")
+        if args.stage == "sr":
+            check(os.path.exists(os.path.join(args.root, "export_" + args.name, "serving.pt2")),
+                  f"[p] {tag}: no exported artifact")
+        steps = res["steps"] + (args.sr_pre_epochs * (args.n_train // args.batch_size)
+                                if args.stage == "sr" else 0)
+        sec = res["seconds"]
+        print(f"[p] {tag}: {wall:.1f} s (data {sec['data']:.1f}, train {sec['train']:.1f}, "
+              f"serve {sec['serve']:.1f}, score {sec['score']:.1f}); {steps} train steps, "
+              f"{steps / sec['train']:.2f} steps/s with the train CLI's set-up; "
+              f"launches {launches}")
+        for k in ("rmse", "rmse_h"):
+            print(f"[p] {tag}: {k} {res['baseline'][k]:.2f} (degraded input) -> "
+                  f"{res['trained'][k]:.2f} (trained)")
+        print(f"[p] {tag}: K1 launches by (NHWC x, C_out, dtype, pad): "
+              + json.dumps({str(k): v for k, v in sorted(k1_log.items())}))
+        print(f"[p] {tag}: K3 sums launches by (shape, dtype): "
+              + json.dumps({str(k): v for k, v in sorted(k3_log.items())}))
+        # the train steps', the gallery forwards' (one every --display_freq
+        # images) and one serving batch's (n_test frames)
+        k1_step, k1_batch, k3_step, k1_eval = QUALITY_LAUNCHES[args.stage]
+        shows = steps * args.batch_size // DISPLAY_FREQ
+        want = {"K1": steps * k1_step + shows * (k1_eval or 0) + k1_batch, "K2": 0,
+                "K3": (steps + shows) * k3_step, "K3 backward": steps * k3_step}
+        check(k1_eval is not None or not shows, f"[p] {tag}: {shows} gallery forwards")
+        check(launches == want, f"[p] {tag}: launches {launches}; want {want} for {steps} "
+              f"steps and {shows} gallery forwards")
+        for k, v in launches.items():
+            total[k] += v
+        shutil.rmtree(args.root)
+    return {"quality": total}
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -2922,9 +3090,10 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
         serving = sum(v for p, v in by_path.items() if p.startswith("serve"))
         train = sum(v for p, v in by_path.items() if p.startswith("train"))
         artifact = sum(v for p, v in by_path.items() if p.startswith("serve_artifact"))
-        return {"launches": serving + train, "launches_serving": serving,
+        quality = by_path.get("quality", 0)
+        return {"launches": serving + train + quality, "launches_serving": serving,
                 "launches_train": train, "launches_artifact": artifact,
-                "launches_by_path": by_path}
+                "launches_quality": quality, "launches_by_path": by_path}
 
     rows = []
     # K1 and K2 at the main serving shape (reflect), K1 at the translator's
@@ -2933,7 +3102,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     # the translators' serving shape; each with its own bound.
     # "launches_at_shape" says which path launches K1 at that shape, how often
     k1 = "desr_tpu/ops/pallas_conv.py:353"
-    for name, entry, shape, mode, replaces, at_shape in (
+    for name, entry, shape, mode, replaces, at_shape, *rest in (
             ("conv3x3_fused", "K1", SERVE_SHAPE, "reflect", k1,
              "main serving 24 a batch (I2D_features, Depth_f); I2D serving 12 (Image_f); "
              "main step 24 at B=12"),
@@ -2956,9 +3125,32 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
              f"stage-2 iteration {STAGE2_K1_PER_ITER} (G_A, G_B: 18 an apply, 4 applies a "
              "G step, 3 G steps; each with a backward)"),
             ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309",
-             "main serving --pallas_conv route 24 a batch")):
+             "main serving --pallas_conv route 24 a batch"),
+            # phase (p)'s shapes (the quality chains; the launches are K1's on that path)
+            ("conv3x3_fused", "K1 quality w8 float32", Q_W8_SHAPE, "reflect", k1,
+             "quality p1 (main, --width 8, float32): I2D_features, Depth_f 24 a step at "
+             "B=8, serving 24 a batch of 8", torch.float32),
+            ("conv3x3_fused", "K1 quality", Q_SHAPE, "reflect", k1,
+             "quality p2 (main, default widths): 24 a step at B=8, serving 24 a batch of 8; "
+             "p3's pretrain 24 a step, its SR fine-tune 12 (I2D_features at LR)"),
+            ("conv3x3_fused", "K1 quality translator", Q_TRANS_SHAPE, "replicate", k1,
+             f"quality p1 (float32) and p2, p3's pretrain: {K1_TRANS_PER_STEP} a step (G_A_d)"),
+            ("conv3x3_fused", "K1 quality SR HR", Q_SR_HR_SHAPE, "reflect", k1,
+             "quality p3's SR fine-tune 12 a step (Depth_f at HR, with a backward)"),
+            ("conv3x3_fused", "K1 quality SR translator", Q_SR_TRANS_SHAPE, "replicate", k1,
+             f"quality p3's SR fine-tune {K1_TRANS_PER_STEP} a step (G_A_d at HR); p4's "
+             "stage-2 iterations (G_A, G_B, each with a backward)"),
+            ("conv3x3_fused", "K1 quality I2D", Q_I2D_SHAPE, "reflect", k1,
+             f"quality p4's I2D steps {I2D_K1_PER_STEP} (Image_f)"),
+            ("conv3x3_fused", "K1 quality translate", Q_TRANSLATE_SHAPE, "replicate", k1,
+             f"quality p4's --translate BtoA serving {TRANSLATE_K1_PER_BATCH} a batch of 2"),
+            ("conv3x3_fused", "K1 quality serve", Q_SERVE_SHAPE, "reflect", k1,
+             f"quality p4's --I2D serving {I2D_K1_PER_BATCH} a batch of 2; p3's SR serving "
+             "12 (I2D_features at LR) from the artifact")):
+        dtype = rest[0] if rest else torch.bfloat16
+        dt = str(dtype)[6:]
         b, h, w, c = shape
-        x, wt, scale, shift = _inputs(torch.bfloat16, seed=1, shape=shape)
+        x, wt, scale, shift = _inputs(dtype, seed=1, shape=shape)
         if name == "conv3x3_fused":
             fn = lambda: K.conv3x3_fused(x, wt, scale, shift, mode, True, True)  # noqa: E731
             plain = lambda: K.conv3x3_fused_plain(x, wt, scale, shift, mode, True, True)  # noqa: E731
@@ -2968,11 +3160,14 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             plain = lambda: K.conv3x3_fused_plain(x, wt, pad_mode=mode)  # noqa: E731
             extra_bytes = 0
         flops = 2.0 * 9 * c * c * b * h * w
-        io = 2 * b * h * w * c * 2 + 9 * c * c * 2  # bf16 x read and out written, bf16 w read
+        size = x.element_size()
+        io = 2 * b * h * w * c * size + 9 * c * c * size  # x read and out written, w read
         xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode)
         xp = xp.contiguous(memory_format=torch.channels_last)
-        wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, (io + extra_bytes) / PEAK_HBM * 1e3
+        wb = wt.to(dtype).contiguous(memory_format=torch.channels_last)
+        # float32 runs on the CUDA cores (TF32 is off), bf16 on the tensor cores
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        t_ops, t_bytes = flops / peak * 1e3, (io + extra_bytes) / PEAK_HBM * 1e3
         row = {
             "name": name, "route": "cuda", "source": "desr_tpu_torch/csrc/conv3x3.cu",
             "replaces": replaces, **counts(entry.split()[0]),
@@ -2983,7 +3178,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "plain_ms": cuda_ms(plain, iters=5),
             "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": cuda_ms(lambda: F.conv2d(xp, wb)),
-            "shape": f"B={b} {h}x{w} {c}->{c} bf16 {mode}"
+            "shape": f"B={b} {h}x{w} {c}->{c} {dt} {mode}"
                      + (" norm+relu+stats" if name == "conv3x3_fused" else ""),
             "flops": flops,
         }
@@ -3006,7 +3201,8 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
     for shape, at_shape in ((LOSS_SHAPE, f"main step {K3_PER_STEP} (--no_aug)"),
                             (AUG_LOSS_SHAPE, f"augmented main step {K3_PER_STEP}"),
-                            (SR_LOSS_SHAPES[0], "SR step and the bench's 1 (+1 at 1x512x640)")):
+                            (SR_LOSS_SHAPES[0], "SR step and the bench's 1 (+1 at 1x512x640)"),
+                            (Q_LOSS_SHAPE, f"quality p1 and p2 {K3_PER_STEP} a step")):
         ins = _loss_inputs(shape, torch.float32, seed=2)
         n = ins[0].numel()
         label = f"{'x'.join(map(str, shape))} f32 pred/target, f32 masks"
@@ -3167,7 +3363,7 @@ def main():
         for phase in (phase_serving, phase_training, phase_sr_serving, phase_deployment,
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
                       phase_i2d_training, phase_translation_training, phase_device_aug,
-                      phase_train_surface, phase_bench_io):
+                      phase_train_surface, phase_bench_io, phase_quality):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

@@ -94,6 +94,23 @@ def _wandb(opt):
     return wandb
 
 
+def create_model(opt, device):
+    """The model ``opt`` trains (models/__init__.py:create_model): ``I2DModel``,
+    ``TranslationModel``, ``MainModel`` or under ``--SR`` ``MainSRModel``, in
+    ``--compute_dtype``, its nets' weights drawn from ``--seed``."""
+    import torch
+
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
+
+    dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
+    model_cls = {"I2D": I2DModel, "translation": TranslationModel}.get(
+        opt.model_type, MainSRModel if opt.SR else MainModel)
+    return model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
+
+
 def main(argv=None):
     """Run the CLI; returns the last step's losses (the mean test losses when
     only ``--do_test`` is given)."""
@@ -101,10 +118,6 @@ def main(argv=None):
 
     from desr_tpu_torch import resolve_device
     from desr_tpu_torch.data.loader import create_dataset, dataset_for_model
-    from desr_tpu_torch.models.i2d_model import I2DModel
-    from desr_tpu_torch.models.main_model import MainModel
-    from desr_tpu_torch.models.main_sr_model import MainSRModel
-    from desr_tpu_torch.models.translation_model import TranslationModel
     from desr_tpu_torch.options import train_options
 
     opt = train_options.parse(argv)
@@ -116,11 +129,8 @@ def main(argv=None):
 
     # builds the decode library here, before the loader spawns its workers
     print("image decode route: %s (%s)" % native_io.route())
-    dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
-    model_cls = {"I2D": I2DModel, "translation": TranslationModel}.get(
-        opt.model_type, MainSRModel if opt.SR else MainModel)
-    model = model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
-    print(f"model [{model_cls.__name__}] was created")
+    model = create_model(opt, device)
+    print(f"model [{type(model).__name__}] was created")
     dataset_cls = dataset_for_model(opt)
     dataset = create_dataset(opt, dataset_cls, device=device) if opt.do_train else None
     test_dataset = create_dataset(opt, dataset_cls, stage="test") if opt.do_test else None

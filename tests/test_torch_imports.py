@@ -37,7 +37,8 @@ def test_importing_the_port_loads_neither_jax_nor_desr_tpu():
             "desr_tpu_torch.data.translation_dataset", "desr_tpu_torch.serving",
             "desr_tpu_torch.metrics", "desr_tpu_torch.ops.ssim", "desr_tpu_torch.bench",
             "desr_tpu_torch.data.native_io", "desr_tpu_torch.data.legacy_datasets",
-            "desr_tpu_torch.options.test_options"} <= set(mods)
+            "desr_tpu_torch.options.test_options",
+            "desr_tpu_torch.tools.quality_eval"} <= set(mods)
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'desr_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
