@@ -129,9 +129,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     one untimed iteration each with --netD Gu
     (BatchNorm counts 3 G applies + real + fake), --use_spnorm and --inp_B
     depth.
-(l) --device_aug at the README geometry: 528 synthetic 480x640 frames a
+(l) --device_aug at the README geometry: 384 synthetic 480x640 frames a
     domain with intrinsics (24 written, the rest hard links to them), and
-    44 with 968x1296 colour (ScanNet's; 8 written) for SR.
+    32 with 968x1296 colour (ScanNet's; 8 written) for SR.
     For main (batch 6, 384x512 crops), I2D (batch 12) and SR (batch 1, LR
     512x640): one host batch of the --device_aug dataset through its
     device_finish on the card against the same function on the CPU (main
@@ -140,12 +140,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     its depths within 2e-3; SR within 1e-5), the upload from pinned memory
     and device_finish's time by CUDA events and by the profiler; then the
     train CLI with 4 loader workers and TF32 as the CLI leaves it (PyTorch's
-    defaults), host augmentation and then --device_aug, 44 steps each:
+    defaults), host augmentation and then --device_aug, 32 steps each:
     launches per step as in (e), (g), (j), finite losses; after the
     loader's first 8 batches (2 a worker, all queued when the epoch starts)
-    the wall of 20 steps (5 rounds of the 4 workers) unprofiled gives the
+    the wall of 12 steps (3 rounds of the 4 workers) unprofiled gives the
     step's time and pairs/s with the feed (with the host's time inside the
-    steps and the spread of the rounds), and the next 8 steps under a
+    steps and the spread of the rounds), and the next 4 steps under a
     CUDA-only profiler the card's busy share (kernels and copies over their
     wall) and the profiled step's time; the epoch's last 8 steps, which the
     workers feed back to back, are not read; then 2 I2D steps
@@ -199,6 +199,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     (path ``quality``); prints each chain's JSON, its wall split into data
     write, train, serve and score, the train steps/s and the shapes K1 and
     K3 were launched at.
+(q) the data mesh (``desr_tpu_torch/parallel``, ``--num_devices``): two
+    ranks on the one card over gloo with CUDA tensors (NCCL takes one rank
+    a card; gloo goes through the host), float32, TF32 off, torch's
+    deterministic mode. Each rank takes its rows of the same global batches
+    and runs the main step at stage 3's flags (batch 6 on 384x512 crops, 3 a
+    rank), a stage-2 iteration with --netD Gu (one G step and the D step,
+    batch 4 at 256x256), an I2D --use_D step (batch 4 at 384x512, a pool of
+    2) and the SR step at batch 1 (HR 256x256: both ranks take the whole
+    batch), at the default widths with seeded weights; each held against
+    the one-process step on the same batch (``phase_data_parallel`` states
+    the bounds), the ranks bit-equal on what they reduced, K1 and K3
+    launched on every rank as on one (phase (e)'s, (j)'s, (k)'s and (g)'s
+    counts, paths ``train_dp_<step>_rank<r>``), the replay pools' draws
+    equal. Prints the 2-rank main step's ms and the gradient average's ms
+    (the two ranks share the card: not a scaling figure). Then ``predict
+    --num_devices 1`` gives the CLI's PNGs without the flag, bit for bit,
+    and ``--num_devices 2`` on this one card is refused by predict and train.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -1900,7 +1917,7 @@ FED_WORKERS = 4             # the loader's default --num_threads
 # batches back to back, faster than mid-epoch, where it waits on the
 # in-order consumer for its next index
 FED_WARM = 2 * FED_WORKERS
-FED_TIMED, FED_PROFILED = 5 * FED_WORKERS, 2 * FED_WORKERS
+FED_TIMED, FED_PROFILED = 3 * FED_WORKERS, FED_WORKERS
 FED_STEPS = FED_WARM + FED_TIMED + FED_PROFILED + FED_WARM
 FED_UNIQUE = 24             # frames written a domain (~0.7 s each); the rest are hard links
 JIT_BOUNDS = (10.0, 1e-4, 2e-3)  # ColorJitter, 0-255 scale: max, share above 1, above 1e-3
@@ -3066,6 +3083,362 @@ def phase_quality(tmp):
     return {"quality": total}
 
 
+# ------------------------------------------------------------------ (q)
+
+DP_RANKS = 2               # two gloo ranks time-share the one card
+DP_DEVICE = "cuda"         # phase (q)'s device (a CPU rehearsal sets "cpu")
+DP_MAIN = (6, 384, 512)    # the main step's global batch on the README's crops: 3 a rank
+DP_I2D = (4, 384, 512)     # I2D --use_D, 2 a rank; a pool of 2 swaps in the first step
+DP_TRANS = (4, 256, 256)   # stage 2 with --netD Gu, 2 a rank
+DP_SR_LR = (128, 128)      # the SR step at batch 1 (the replicate path), HR 256x256
+DP_TIMED = 3               # main steps timed on the ranks after the checked one
+DP_REDUCE = 5              # gradient averages timed after them
+DP_LAUNCHES = {            # a rank's launches: phase (e)'s, (j)'s, (k)'s with one G step, (g)'s
+    "main": {"K1": K1_PER_STEP, "K3": K3_PER_STEP, "K3 backward": K3_PER_STEP},
+    "i2d": {"K1": I2D_K1_PER_STEP, "K3": 0, "K3 backward": 0},
+    "translation": {"K1": 4 * TRANSLATE_K1_PER_BATCH, "K3": 0, "K3 backward": 0},
+    "sr": {"K1": SR_K1_PER_STEP, "K3": K3_PER_STEP, "K3 backward": K3_PER_STEP},
+}
+
+
+def _dp_host(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _dp_model(kind, tmp, mesh):
+    """Phase (q)'s model of ``kind`` on ``mesh``'s device, float32, its
+    weights drawn from seed 8 (alike on every rank and in one process)."""
+    import torch
+
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
+    from desr_tpu_torch.options import train_options
+
+    f32 = ["--compute_dtype", "float32"]
+    argv, cls = {
+        "main": (_train_argv(tmp, "q", f32, aug=True), MainModel),
+        "sr": (_sr_train_argv(tmp, "q") + f32 + ["--crop_size_h", str(DP_SR_LR[0]),
+                                                  "--crop_size_w", str(DP_SR_LR[1])],
+               MainSRModel),
+        "i2d": (_i2d_train_argv(tmp, "q", f32 + ["--batch_size", str(DP_I2D[0]),
+                                                 "--pool_size", "2"]), I2DModel),
+        "translation": (_translation_argv(tmp, "q", f32 + [
+            "--batch_size", str(DP_TRANS[0]), "--netD", "Gu", "--num_iter_gen", "1"]),
+            TranslationModel),
+    }[kind]
+    opt = train_options.parse(argv, print_options=False)
+    return cls(opt, device=mesh.device, compute_dtype=torch.float32, is_train=True,
+               generator=torch.Generator().manual_seed(8), mesh=mesh)
+
+
+def _dp_batches():
+    b, h, w = DP_TRANS
+    t = _synthetic_batch(b, h, w, 43)
+    return {"main": _synthetic_batch(*DP_MAIN, 41),
+            "i2d": _synthetic_batch(*DP_I2D, 42),
+            "translation": {"A_depth": t["A_d"], "A_img": t["A_i"], "B_depth": t["B_d"],
+                            "B_img": t["B_i"]},
+            "sr": _synthetic_batch(1, 2 * DP_SR_LR[0], 2 * DP_SR_LR[1], 44, lr_hw=DP_SR_LR)}
+
+
+def _dp_step(kind, tmp, mesh, batch, perturb=False):
+    """One step of ``kind`` on ``mesh`` (its launches counted from just
+    before the step to just after): the global metrics, the gradients left
+    on the nets the step trains (G and, where it has one, D), the running
+    statistics, and for I2D the replay pool. ``perturb``: K1's outputs
+    jittered by 1e-6 relative (``_train_parity``'s yardstick)."""
+    import torch
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    model = _dp_model(kind, tmp, mesh)
+    model.set_input(batch)
+    iters = len(next(iter(batch.values())))
+    run = K._fused_forward
+    noise = torch.Generator(device=mesh.device).manual_seed(12)
+
+    def jittered(*args):
+        res = run(*args)
+        out = res[0] if isinstance(res, tuple) else res
+        out = out * (1 + 1e-6 * torch.randn(out.shape, generator=noise, device=out.device))
+        return (out, *res[1:]) if isinstance(res, tuple) else out
+
+    with mock.patch.object(K, "_fused_forward", jittered if perturb else run):
+        torch.cuda.synchronize()
+        _reset_counts()
+        model.optimize_parameters(iters)
+        torch.cuda.synchronize()
+        counts = _counts()
+    nets = list(model.optimized_nets)
+    res = {"metrics": {k: float(v) for k, v in model.metrics.items()}, "counts": counts,
+           "split": model.step_group is not None,
+           "grads": {f"{n}.{k}": _dp_host(p.grad) for n in nets
+                     for k, p in model.nets[n].named_parameters() if p.grad is not None},
+           "weights": {f"{n}.{k}": _dp_host(p) for n in nets
+                       for k, p in model.nets[n].named_parameters()},
+           "stats": {f"{n}.{k}": _dp_host(v) for n in model.model_names
+                     for k, v in model.nets[n].state_dict().items() if "running" in k}}
+    if kind == "i2d":
+        pool = model.fake_depth_pool
+        res.update(pool=_dp_host(torch.stack(pool.images)), pool_rng=pool.rng.getstate())
+    return model, res, iters
+
+
+def _dp_time(model, batch, iters):
+    """Host ms a step of ``DP_TIMED`` main steps, the card synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIMED):
+        model.set_input(batch)
+        model.optimize_parameters(iters)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / DP_TIMED
+
+
+def _dp_rank(mesh, tmp):
+    """One of phase (q)'s ranks: the four steps on its rows of each global
+    batch, then the main step timed (``DP_TIMED`` steps, both ranks on the
+    one card) and the gradient average alone (``DP_REDUCE`` calls)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    with _Deterministic():
+        batches = _dp_batches()
+        for kind in ("main", "translation", "i2d", "sr"):
+            model, out[kind], iters = _dp_step(kind, tmp, mesh, batches[kind])
+            if kind != "main":
+                continue
+            dist.barrier()
+            out["step_ms"] = _dp_time(model, batches[kind], iters)
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(DP_REDUCE):
+                model.reduce_grads(model.trainable_nets)
+            torch.cuda.synchronize()
+            out["reduce_ms"] = (time.perf_counter() - t0) * 1e3 / DP_REDUCE
+            out["reduce_mib"] = sum(p.numel() for n in model.trainable_nets
+                                    for p in model.nets[n].parameters()) * 4 / 2 ** 20
+            del model
+            torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rel(a, b, scale=None):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / (scale or max(np.linalg.norm(b), 1e-30)))
+
+
+def _dp_check(kind, ranks, one, yards, term_rtol, stats_tol=None, weights_tol=None):
+    """Phase (q)'s checks of one step: the ranks split the batch (not SR's
+    batch of 1) and agree bit for bit on what they reduced; each rank ran
+    the kernels as the one-process path does. Against the one-process step
+    ``one``: each term within max(``term_rtol``, 3x its gap in the
+    one-process steps ``yards``); each weight gradient within max(1e-3, 3x
+    that gap) relative L2 and each bias within 1e-3 of its net's largest
+    weight gradient, or with ``weights_tol`` (rtol, atol) the weights after
+    the step instead, as the CPU tests of the adversarial stages hold them;
+    the running statistics within ``stats_tol`` (rtol, atol). Returns the
+    worst gaps."""
+    import numpy as np
+
+    def yard(key, k, rel):
+        return max(rel(y[key][k], one[key][k]) for y in yards)
+
+    def term_bound(k):
+        return max(term_rtol, 3 * yard("metrics", k, lambda a, b: abs(a - b) / max(abs(b), 1e-12)))
+
+    def grad_bound(k):
+        return max(1e-3, 3 * yard("grads", k, _dp_rel))
+
+    r0, r1 = ranks
+    check(r0["split"] == r1["split"] == (kind != "sr") and not one["split"],
+          f"[q] {kind}: split {r0['split']}, {r1['split']}, one process {one['split']}")
+    for key in ("metrics", "grads", "weights", "stats"):
+        for k in r0[key]:
+            check(np.array_equal(r0[key][k], r1[key][k]), f"[q] {kind}: the ranks differ on {k}")
+    for r, res in enumerate(ranks):
+        check(res["counts"] == one["counts"] == {**DP_LAUNCHES[kind], "K2": 0},
+              f"[q] {kind}: rank {r} launches {res['counts']}, one process {one['counts']}, "
+              f"want {DP_LAUNCHES[kind]}")
+    terms = {k: abs(r0["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in one["metrics"].items()}
+    bad = [k for k, v in one["metrics"].items()
+           if abs(r0["metrics"][k] - v) > term_bound(k) * abs(v) + 1e-7]
+    check(not bad, f"[q] {kind}: terms off "
+          + ", ".join(f"{k} ({terms[k]:.3g} > {term_bound(k):.3g})" for k in bad))
+    net_scale = {}
+    for k, v in one["grads"].items():
+        if not k.endswith("bias"):
+            n = k.split(".")[0]
+            net_scale[n] = max(net_scale.get(n, 0.0), float(np.linalg.norm(v)))
+    gaps, bad = {}, []
+    for k, v in one["grads"].items():
+        scale = net_scale[k.split(".")[0]] if k.endswith("bias") else None
+        gaps[k] = _dp_rel(r0["grads"][k], v, scale)
+        if gaps[k] > (1e-3 if k.endswith("bias") else grad_bound(k)):
+            bad.append(k)
+    if weights_tol:
+        rtol, atol = weights_tol
+        bad = [k for k, v in one["weights"].items()
+               if not np.allclose(r0["weights"][k], v, rtol=rtol, atol=atol)]
+    check(not bad, f"[q] {kind}: " + ("weights after the step off in " + ", ".join(bad[:5])
+                                      if weights_tol else "gradients off " + ", ".join(
+        f"{k} ({gaps[k]:.3g} > {grad_bound(k):.3g})" for k in bad[:5])))
+    weights_gap = max(float(np.abs(r0["weights"][k] - v).max())
+                      for k, v in one["weights"].items())
+    stats = {k: float(np.abs(r0["stats"][k] - v).max()) for k, v in one["stats"].items()}
+    if stats_tol:
+        rtol, atol = stats_tol
+        bad = [k for k, v in one["stats"].items()
+               if not np.allclose(r0["stats"][k], v, rtol=rtol, atol=atol)]
+        check(not bad, f"[q] {kind}: running statistics off in {bad[:5]}")
+    weights = sorted(v for k, v in gaps.items() if not k.endswith("bias"))
+    return {"terms_max_rel": max(terms.values()), "grad_median_rel": weights[len(weights) // 2],
+            "grad_worst_rel": weights[-1],
+            "floor_grad_worst_rel": max(yard("grads", k, _dp_rel) for k in gaps
+                                        if not k.endswith("bias")),
+            "bias_worst": max([v for k, v in gaps.items() if k.endswith("bias")] or [0.0]),
+            "weights_max_abs": weights_gap,
+            "stats_max_abs": max(stats.values()) if stats else None}
+
+
+def _dp_predict(tmp):
+    """``predict --num_devices 1`` against the CLI without the flag (today's
+    output) on 4 frames at the default widths; ``--num_devices 2`` on this
+    one-card machine raises, in the serving and the train CLI."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import predict, train
+    from desr_tpu_torch.models.main_model import NET_NAMES, MainModel, NetOptions
+
+    _write_frames(os.path.join(tmp, "req"), 4, seed=5)
+    model = MainModel(NetOptions(), device="cuda", generator=torch.Generator().manual_seed(1))
+    for name in NET_NAMES:
+        ckpt.save_net(model.nets[name], ckpt.net_ckpt_path(tmp, "dp", "latest", name))
+    base = ["--name", "dp", "--checkpoints_dir", tmp,
+            "--input_depth", os.path.join(tmp, "req", "depth"),
+            "--input_img", os.path.join(tmp, "req", "img"), "--batch_size", "4"]
+    outs = {}
+    # cuDNN's default bf16 forward does not repeat bit for bit (phase (m))
+    with _Deterministic():
+        for tag, extra in (("default", []), ("one", ["--num_devices", "1"])):
+            predict.main(base + ["--output", os.path.join(tmp, tag)] + extra)
+            outs[tag] = _read_outputs(os.path.join(tmp, tag), 4)
+    check(np.array_equal(outs["one"], outs["default"]),
+          "[q] predict --num_devices 1 differs from the CLI without it")
+    refused = {}
+    for name, fn, argv in (
+            ("predict", predict.main, base + ["--output", os.path.join(tmp, "two"),
+                                              "--num_devices", "2"]),
+            ("train", train.main, _train_argv(tmp, "dp2", ["--num_devices", "2"]))):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            try:
+                fn(argv)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        refused[name] = err.getvalue().strip().splitlines()[-1]
+        check(code not in (0, None) and "only 1 CUDA device" in refused[name],
+              f"[q] {name} --num_devices 2 on one card: exit {code}, {refused[name]!r}")
+    print(f"[q] predict --num_devices 1: PNGs bit-equal to the CLI without the flag (4 frames, "
+          f"480x640, bf16, deterministic cuDNN); --num_devices 2 on this one card refused: "
+          f"{refused}")
+
+
+def phase_data_parallel(tmp):
+    """(q): the data mesh over two gloo ranks on the one card (NCCL takes
+    one rank a card), float32, TF32 off, torch's deterministic mode: the
+    main step, a stage-2 iteration with --netD Gu, an I2D --use_D step and
+    the SR step at batch 1, each against the one-process step on the same
+    global batch; then ``predict --num_devices 1`` and the refusal of 2.
+
+    The bounds are the CPU tests' (tests/test_torch_parallel_steps.py,
+    _gan.py): terms 1e-5 relative (stage 2: 2e-3), the Gu running
+    statistics rtol 2e-3 and atol 5e-4, weight gradients 1e-3 relative L2;
+    each widened to 3x the one-process step's own floor where that is
+    larger: its gap to the same step run again (SR's bicubic backward has
+    no deterministic version) and to the step with K1's outputs jittered by
+    1e-6 relative, the scale of the float32 rounding that cuDNN's other
+    algorithms at 3 frames a rank than at 6 leave, on steps that are
+    ill-conditioned at a random init (phase (e)). SR at batch 1 runs the
+    whole batch on both ranks (JAX's replicated case): the average of equal
+    gradients."""
+    import torch
+
+    from desr_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_dp_rank, [f"{DP_DEVICE}:0"] * DP_RANKS, backend="gloo",
+                            args=(tmp,), workdir=tmp)
+    launch_s = time.perf_counter() - t0
+    one = parallel.make_mesh([DP_DEVICE])
+    batches = _dp_batches()
+    gaps = {}
+    with _Deterministic():
+        # (term rtol, running statistics (rtol, atol), weights after the step (rtol,
+        # atol)): the CPU tests'; I2D's Adam moves a weight by lr (2e-4) whatever
+        # its gradient's size, so a sign flip at the noise floor moves it by 2 lr
+        for kind, term_rtol, stats_tol, weights_tol in (
+                ("main", 1e-5, None, None), ("sr", 1e-5, None, None),
+                ("translation", 2e-3, (2e-3, 5e-4), (2e-3, 6e-4)),
+                ("i2d", 1e-5, None, (0.0, 2 * 2e-4 + 1e-7))):
+            model, ref, iters = _dp_step(kind, tmp, one, batches[kind])
+            if kind == "main":
+                one_ms = _dp_time(model, batches[kind], iters)
+            del model
+            # the one-process step's own floors: run again, and with K1 jittered
+            yards = [_dp_step(kind, tmp, one, batches[kind], perturb=p)[1] for p in (False, True)]
+            gaps[kind] = _dp_check(kind, [r[kind] for r in ranks], ref, yards, term_rtol,
+                                   stats_tol, weights_tol)
+            if kind == "i2d":
+                pools = (ranks[0]["i2d"], ranks[1]["i2d"], ref)
+            torch.cuda.empty_cache()
+    import numpy as np
+
+    check(pools[0]["pool_rng"] == pools[1]["pool_rng"] == pools[2]["pool_rng"],
+          "[q] i2d: the ranks' replay pools drew otherwise than one process")
+    pool_gap = float(np.abs(pools[0]["pool"] - pools[2]["pool"]).max())
+    check(pool_gap <= 1e-4, f"[q] i2d: the pool's images off by {pool_gap:.3g}")
+    for kind, g in gaps.items():
+        print(f"[q] {kind}: 2 ranks vs one process: terms max rel {g['terms_max_rel']:.3g}, "
+              f"weight grads rel L2 median {g['grad_median_rel']:.3g} worst "
+              f"{g['grad_worst_rel']:.3g} (the one-process floor's worst "
+              f"{g['floor_grad_worst_rel']:.3g}), biases worst {g['bias_worst']:.3g}, "
+              f"weights after the step max |d| {g['weights_max_abs']:.3g}"
+              + (f", running stats max |d| {g['stats_max_abs']:.3g}"
+                 if g["stats_max_abs"] is not None else "")
+              + f"; launches a rank {ranks[0][kind]['counts']}")
+    print(f"[q] i2d: pool draws equal, images max |d| {pool_gap:.3g}")
+    step_ms = [r["step_ms"] for r in ranks]
+    reduce_ms = [r["reduce_ms"] for r in ranks]
+    print(f"[q] main step over 2 gloo ranks that share one card (not a scaling figure): "
+          f"{max(step_ms):.1f} ms a step (ranks {step_ms[0]:.1f}, {step_ms[1]:.1f}; batch "
+          f"{DP_MAIN[0]} at {DP_MAIN[1]}x{DP_MAIN[2]}, {DP_MAIN[0] // DP_RANKS} a rank, "
+          f"float32, deterministic), one process on the whole batch {one_ms:.1f} ms; the "
+          f"gradient average alone {max(reduce_ms):.2f} ms a call ({ranks[0]['reduce_mib']:.1f} "
+          f"MiB, gloo through the host); launch and all steps {launch_s:.1f} s")
+    _dp_predict(tmp)
+    print("[q] " + json.dumps({"step_ms": step_ms, "one_process_ms": one_ms,
+                               "reduce_ms": reduce_ms,
+                               "reduce_mib": ranks[0]["reduce_mib"], "launch_s": launch_s,
+                               "gaps": gaps, "pool_max_abs": pool_gap}))
+    return {f"train_dp_{kind}_rank{r}": res[kind]["counts"]
+            for r, res in enumerate(ranks) for kind in DP_LAUNCHES}
+
+
 # ------------------------------------------------------------------ (d)
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
@@ -3363,7 +3736,8 @@ def main():
         for phase in (phase_serving, phase_training, phase_sr_serving, phase_deployment,
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
                       phase_i2d_training, phase_translation_training, phase_device_aug,
-                      phase_train_surface, phase_bench_io, phase_quality):
+                      phase_train_surface, phase_bench_io, phase_quality,
+                      phase_data_parallel):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

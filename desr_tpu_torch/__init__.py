@@ -20,6 +20,8 @@ layout so each counterpart is found under the same path:
                                ``--from_export``).
 - ``desr_tpu_torch.metrics`` — ``python -m desr_tpu_torch.metrics``.
 - ``desr_tpu_torch.train``   — ``python -m desr_tpu_torch.train``.
+- ``desr_tpu_torch.parallel`` — the ``--num_devices`` data mesh: the ranks'
+                               launch, batch split and reductions.
 
 The package imports nothing of ``desr_tpu`` and nothing of JAX. Entry points
 run on the card unless the caller passes ``device="cpu"``; without a card they

@@ -12,13 +12,21 @@ process hands each collated batch, in pinned memory, to the dataset's
 ``device_finish``, which uploads it without blocking (the copy and the warp
 queue behind the running step) and augments it there. The model's ``set_input``
 then takes the tensors where they lie.
+
+Over a data mesh of N ranks (``--num_devices``) each rank's loader draws the
+same global order from ``--seed`` and decodes only its rows of each global
+batch (``RankBatchSampler``); its batches come as ``parallel.Shard``s that
+carry the global batch's rows (``RankLoader``). ``--num_threads`` workers
+run per rank.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils.data import DataLoader, Subset
+from torch.utils.data import BatchSampler, DataLoader, RandomSampler, SequentialSampler, Subset
+
+from desr_tpu_torch.parallel.mesh import Shard
 
 
 def collate(samples):
@@ -66,6 +74,40 @@ class DeviceLoader:
             yield batch
 
 
+class RankBatchSampler:
+    """A rank's rows (``Mesh.rows``) of each index batch of ``batch_sampler``."""
+
+    def __init__(self, batch_sampler, mesh):
+        self.batch_sampler, self.mesh = batch_sampler, mesh
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        for idx in self.batch_sampler:
+            lo, hi = self.mesh.rows(len(idx))
+            yield idx[lo:hi]
+
+
+class RankLoader:
+    """Iterates a rank's ``loader`` (over a ``RankBatchSampler``) and hands
+    each batch on as a ``Shard`` of the global batch of ``batch_size`` (the
+    last one shorter) of which it holds the rows."""
+
+    def __init__(self, loader, batch_size, mesh):
+        self.loader, self.batch_size, self.mesh = loader, batch_size, mesh
+        self.dataset = loader.dataset
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        n = len(self.dataset)
+        for k, batch in enumerate(self.loader):
+            size = min(self.batch_size, n - k * self.batch_size)
+            yield Shard(batch, (*self.mesh.rows(size), size))
+
+
 def dataset_for_model(opt):
     """The dataset class of ``--model_type`` (data/__init__.py:34-42):
     I2DDataset for I2D, TranslationDataset for translation; for main,
@@ -82,11 +124,12 @@ def dataset_for_model(opt):
     return NaiveSRDataset if getattr(opt, "SR", False) else MainDataset
 
 
-def create_dataset(opt, dataset_cls, stage="train", device=None):
+def create_dataset(opt, dataset_cls, stage="train", device=None, mesh=None):
     """The loader of ``dataset_cls(opt, stage)`` (loader.py:144-165), at most
     ``--max_dataset_size`` items; ``len(loader.dataset)`` is their number.
     When the dataset ships ``--device_aug`` halves, a ``DeviceLoader`` that
-    finishes each batch on ``device``."""
+    finishes each batch on ``device``. Over a ``mesh`` of more than one rank,
+    a ``RankLoader`` of this rank's rows."""
     dataset = dataset_cls(opt, stage=stage)
     print(f"dataset [{type(dataset).__name__}] was created")
     finish = None
@@ -98,13 +141,22 @@ def create_dataset(opt, dataset_cls, stage="train", device=None):
     if n < len(dataset):
         dataset = Subset(dataset, range(n))
     workers = int(opt.num_threads) if int(opt.num_threads) > 1 else 0
-    loader = DataLoader(dataset,
-                        batch_size=opt.batch_size if stage == "train" else opt.batch_size_val,
-                        shuffle=not opt.serial_batches,
+    batch_size = opt.batch_size if stage == "train" else opt.batch_size_val
+    generator = torch.Generator().manual_seed(getattr(opt, "seed", 0))
+    ranks = mesh is not None and mesh.size > 1
+    if ranks:  # the sampler DataLoader builds for shuffle, over the same generator
+        sampler = (SequentialSampler(dataset) if opt.serial_batches
+                   else RandomSampler(dataset, generator=generator))
+        split = dict(batch_sampler=RankBatchSampler(BatchSampler(sampler, batch_size, False), mesh))
+    else:
+        split = dict(batch_size=batch_size, shuffle=not opt.serial_batches)
+    loader = DataLoader(dataset, **split,
                         collate_fn=collate if finish is None else collate_tensors,
                         num_workers=workers,
-                        generator=torch.Generator().manual_seed(getattr(opt, "seed", 0)),
+                        generator=generator,
                         multiprocessing_context="spawn" if workers else None,
                         persistent_workers=workers > 0,
                         pin_memory=finish is not None and torch.device(device).type == "cuda")
-    return loader if finish is None else DeviceLoader(loader, finish, device)
+    if finish is not None:
+        loader = DeviceLoader(loader, finish, device)
+    return RankLoader(loader, batch_size, mesh) if ranks else loader

@@ -17,6 +17,16 @@ main_model.py:47-56), ``--remat_blocks`` and ``--remat_tails`` the runs of
 layers inside every net (``layers.set_remat``). A frozen net runs under
 no_grad and keeps no activations, so a checkpoint there would change
 nothing: ``remat_call`` makes it the plain call.
+
+A model owns its data mesh (``self.mesh``, ``desr_tpu_torch/parallel``; one
+device unless the caller passes the mesh of its rank). ``set_input`` and
+``optimize_parameters_multi`` take global batches and stage this rank's
+rows of each (``shard``); while the staged batch is split over the ranks,
+``step_group`` is their process group, over which BatchNorm takes its
+moments and the losses their denominators, and the metrics are averaged
+(``global_metrics``). ``reduce_grads`` averages the trained nets'
+gradients between each backward and its Adam step. Checkpoints are written
+by rank 0 and read by every rank.
 """
 
 from __future__ import annotations
@@ -29,8 +39,14 @@ import torch.nn as nn
 
 from desr_tpu_torch import checkpoints as ckpt
 from desr_tpu_torch import resolve_device
-from desr_tpu_torch.models.layers import remat_call, set_remat, with_batch_norm_mode
+from desr_tpu_torch.models.layers import (
+    remat_call,
+    set_batch_norm_group,
+    set_remat,
+    with_batch_norm_mode,
+)
 from desr_tpu_torch.ops import optim
+from desr_tpu_torch.parallel import mesh as M
 
 
 def remat_modes(opt):
@@ -52,10 +68,12 @@ class BaseModel(nn.Module):
     _dump_rows = 16  # the rows --save_all crops off each side
     _multi_step = True  # optimize_parameters_multi may group steps
 
-    def __init__(self, opt, device=None, compute_dtype=torch.bfloat16):
+    def __init__(self, opt, device=None, compute_dtype=torch.bfloat16, mesh=None):
         super().__init__()
         self.opt = opt
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else M.make_mesh([self.device])
+        self.step_group = None
         self.compute_dtype = compute_dtype
         self.loss_names = []
         self.metrics = {}
@@ -141,9 +159,13 @@ class BaseModel(nn.Module):
         else:
             names = self.pretrained_nets()
         self.load_networks(opt.checkpoints_dir, opt.name, suffix, names)
+        M.replicate(self.nets, self.mesh)
         self.print_networks(getattr(opt, "verbose", False))
 
     def save_networks(self, epoch):
+        """``<epoch>_net_<Net>.pth`` of every net, written by rank 0 alone."""
+        if self.mesh.rank != 0:
+            return
         for name in self.model_names:
             ckpt.save_net(self.nets[name],
                           ckpt.net_ckpt_path(self.opt.checkpoints_dir, self.opt.name, epoch, name))
@@ -202,9 +224,40 @@ class BaseModel(nn.Module):
         the JAX package builds its scan, base_model.py:178-197)."""
         return self._multi_step
 
+    def shard(self, batch):
+        """This rank's rows of a global host batch (``parallel.shard_batch``:
+        a ``Shard`` holding its ``rows``; a rank loader's batch as it is)."""
+        return M.shard_batch(batch, self.mesh)
+
     def stage(self, batch):
-        """The device tensors ``set_input`` would stage for ``batch``."""
+        """(a ``Shard`` of device tensors, paths): what ``set_input`` stages
+        for this rank's rows of ``batch``."""
         raise NotImplementedError
+
+    def set_input(self, batch):
+        """Stage this rank's rows of a host batch on the device (``stage``)."""
+        self.use_batch(*self.stage(batch))
+
+    def use_batch(self, batch, paths):
+        """Make a staged batch the current one. While it is split over the
+        ranks, ``step_group`` is the mesh's process group and every
+        BatchNorm takes its moments over it; else None (a single rank, or
+        every rank holding the whole batch, JAX's replicated case)."""
+        self._batch, self._paths = batch, paths
+        group = self.mesh.group if batch.split else None
+        if group is not self.step_group:
+            set_batch_norm_group(self.nets, group)
+            self.step_group = group
+
+    def reduce_grads(self, net_names):
+        """Average the gradients of the nets ``net_names`` over the ranks
+        (``parallel.reduce_grads``; nothing on one rank)."""
+        M.reduce_grads([p for n in net_names for p in self.nets[n].parameters()], self.mesh)
+
+    def global_metrics(self, metrics):
+        """The metrics of the step as global values (``parallel.mean_over_ranks``
+        over ``step_group``)."""
+        return M.mean_over_ranks(metrics, self.step_group, self.device)
 
     def optimize_parameters_multi(self, batches, iters):
         """``len(batches)`` train steps back to back: every batch is uploaded
@@ -216,15 +269,19 @@ class BaseModel(nn.Module):
         stays staged."""
         staged = [self.stage(b) for b in batches]
         for batch, paths in staged:
-            self._batch, self._paths = batch, paths
+            self.use_batch(batch, paths)
             self.optimize_parameters(iters)
 
     def _dump_predictions(self, pred):
         """uint16 PNG dump of ``pred`` (B, H, W), x5100, rows [r:-r] with
         r = ``_dump_rows`` (main and I2D: 16, main_model.py:453-462,
         i2d_model.py:268-278; SR: 32 of the HR prediction), one file per
-        B path's stem under ``--save_image_folder``."""
+        B path's stem under ``--save_image_folder``. Each rank writes its rows
+        of a split batch; rank 0 alone a batch every rank holds whole."""
         from desr_tpu_torch.utils.util import save_uint16_png
+
+        if self.mesh.rank and not self._batch.split:
+            return
 
         os.makedirs(self.opt.save_image_folder, exist_ok=True)
         pred = pred.float().cpu().numpy()

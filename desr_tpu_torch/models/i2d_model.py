@@ -27,6 +27,7 @@ from desr_tpu_torch.models.layers import batch_norm_mode
 from desr_tpu_torch.models.main_model import NetOptions, _to_device
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
+from desr_tpu_torch.parallel.mesh import Shard, all_gather_rows
 from desr_tpu_torch.utils.image_pool import ImagePool
 
 BORDER = -0.97  # i2d_model.py:122-123
@@ -40,7 +41,9 @@ class I2DModel(BaseModel):
     ``is_train=True`` (then ``D_depth`` too under ``--use_D``). Parameters are
     float32; the nets run in ``compute_dtype`` with float32 losses.
     ``generator`` seeds the initial weights; the replay pool draws its swaps
-    from a ``random.Random`` seeded with ``--seed``.
+    from a ``random.Random`` seeded with ``--seed``. ``mesh``: this rank's
+    data mesh (``BaseModel``); over split batches every rank queries an
+    identical pool with the global batch's features and keeps its rows.
     """
 
     model_names = ("Image_f", "Task")
@@ -48,9 +51,9 @@ class I2DModel(BaseModel):
                     "real_image", "real_depth", "pred_real_depth")  # i2d_model.py:55
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16, generator=None,
-                 is_train=False):
+                 is_train=False, mesh=None):
         opt = opt or NetOptions()
-        super().__init__(opt, device, compute_dtype)
+        super().__init__(opt, device, compute_dtype, mesh)
         self.is_train = is_train
         self.use_D = is_train and opt.use_D
         if generator is None:
@@ -154,20 +157,19 @@ class I2DModel(BaseModel):
             return self.nets["D_depth"](feats).float()
 
     def stage(self, batch):
-        """(device tensors, paths) of a host batch (``--direction BtoA``
-        swaps the domains)."""
+        """(device tensors, paths) of this rank's rows of a host batch
+        (``--direction BtoA`` swaps the domains)."""
+        batch = self.shard(batch)
+        rows = batch.rows
         batch = self.apply_direction(batch)
-        return ({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS},
+        return (Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}, rows),
                 {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")})
-
-    def set_input(self, batch):
-        """Stage a host batch on the device (``stage``)."""
-        self._batch, self._paths = self.stage(batch)
 
     def compute_grads(self, batch=None):
         """Forward, loss_G and its backward (i2d_model.py:141-179); the
-        gradients are left on the trainable nets' parameters. Returns the
-        metrics. The features are kept, detached, for the D step."""
+        gradients, averaged over the ranks, are left on the trainable nets'
+        parameters. Returns this rank's metrics. The features are kept,
+        detached, for the D step."""
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
         feats_syn, feats_real, pred_syn, pred_real = self.forward_all(batch)
@@ -176,6 +178,7 @@ class I2DModel(BaseModel):
             # the reference's unweighted loss_G_pred through the frozen D
             loss_g = loss_g + L.gan_loss(self._d_logits(feats_real), True, self.opt.gan_mode)
         loss_g.backward()
+        self.reduce_grads(self.trainable_nets)
         self._feats = (feats_syn.detach(), feats_real.detach())
         return {k: v.detach() for k, v in m.items()}
 
@@ -189,6 +192,7 @@ class I2DModel(BaseModel):
             loss = 0.5 * (L.gan_loss(self._d_logits(feats_syn, track=True), True, mode)
                           + L.gan_loss(self._d_logits(fake, track=True), False, mode))
             loss.backward()
+            self.reduce_grads(["D_depth"])
             self.optimizer_D.step()
         finally:
             net.requires_grad_(False)
@@ -205,14 +209,23 @@ class I2DModel(BaseModel):
         forward of it."""
         self.metrics = self.compute_grads()
         self.optimizer.step()
-        if not self.use_D:
-            return
+        if self.use_D:
+            self._d_and_g_pred(iters, fr)
+        self.metrics = self.global_metrics(self.metrics)
+
+    def _d_and_g_pred(self, iters, fr):
+        """The --use_D half of ``optimize_parameters``."""
         feats_syn, feats_real = self._feats
         if "Image_f" in self.trainable_nets or self.opt.norm == "batch":
             with torch.no_grad():
                 feats_syn, feats_real = self.forward_all(self._batch, train=False)[:2]
         if iters % (fr * self.opt.batch_size) == 0 or iters < 800:
-            fake = self.fake_depth_pool.query(feats_real)
+            # the JAX step queries one host pool with the global batch
+            # (i2d_model.py:251); every rank holds an identical pool
+            fake = self.fake_depth_pool.query(all_gather_rows(feats_real, self.step_group))
+            if self.step_group is not None:
+                lo, hi, _ = self._batch.rows
+                fake = fake[lo:hi]
             self.metrics["D_depth"] = self.d_step(feats_syn, fake)
         with torch.no_grad():
             mode = self.opt.gan_mode
@@ -226,7 +239,7 @@ class I2DModel(BaseModel):
         test predictions are written as uint16 PNGs (rows [16:-16])."""
         batch = self._batch
         _, _, pred_syn, pred_real = self.forward_all(batch, train=False)
-        _, self.metrics = self.losses(pred_syn, pred_real, batch)
+        self.metrics = self.global_metrics(self.losses(pred_syn, pred_real, batch)[1])
         vis = {"syn_image": batch["A_i"], "syn_depth": batch["A_d"][..., 0],
                "pred_syn_depth": pred_syn, "real_image": batch["B_i"],
                "real_depth": batch["B_d"][..., 0], "pred_real_depth": pred_real}

@@ -47,6 +47,8 @@ from torch.nn import (  # noqa: F401  (re-exported for networks.py)
     Upsample,
 )
 
+from desr_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def _cast(p, x):
     return None if p is None else p.to(x.dtype)
@@ -191,7 +193,18 @@ class BatchNorm2d(nn.Module):
     and the result is rounded to the input's dtype. Keys ``weight``,
     ``bias``, ``running_mean``, ``running_var`` and ``num_batches_tracked``
     (int64).
+
+    With a process group in ``group`` (``set_batch_norm_group``: the ranks
+    that split the batch) the train-mode moments are the global batch's, as
+    GSPMD computes them in the JAX package: the per-channel sum, sum of
+    squares and count are summed over the ranks in one differentiable
+    all_reduce, and the mean and biased variance taken from them in one
+    pass (E[x^2] - E[x]^2, clamped at 0, as InstanceNorm's here); the
+    running variance's unbiased factor uses the global count.
+    ``torch.nn.SyncBatchNorm`` does not serve: it refuses CPU tensors.
     """
+
+    group = None
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
         super().__init__()
@@ -205,12 +218,20 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         x32 = x.float()
         train, track = _BN_MODE[-1] if _BN_MODE else (self.training, self.training)
-        if train:
+        n = x32.numel() // self.c
+        if train and self.group is None:
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+        elif train:
+            sums = all_reduce_sum(torch.stack([
+                x32.sum(dim=(0, 2, 3)), x32.square().sum(dim=(0, 2, 3)),
+                x32.new_full((self.c,), float(n))]), self.group)
+            n = sums[2]
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
         if track:
             with torch.no_grad():
-                n = x32.numel() // self.c
-                unbiased = var * (n / (n - 1)) if n > 1 else var
+                # a global count (a tensor) spans at least two ranks' pixels
+                unbiased = var * (n / (n - 1)) if torch.is_tensor(n) or n > 1 else var
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
@@ -219,6 +240,14 @@ class BatchNorm2d(nn.Module):
             mean, var = self.running_mean, self.running_var
         out = (x32 - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
         return (out * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
+
+
+def set_batch_norm_group(module, group):
+    """The process group over which every ``BatchNorm2d`` in ``module``
+    takes its train-mode moments (None: the local batch's)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = group
 
 
 class SpectralNormConv2d(nn.Module):

@@ -25,6 +25,7 @@ from desr_tpu_torch.ops import depth as DPT
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
 from desr_tpu_torch.ops.masked_loss import fused_hole_means
+from desr_tpu_torch.parallel.mesh import Shard
 
 BORDER = -0.97  # main_model.py:44
 NET_NAMES = ("I2D_features", "Image2Depth", "Depth_f", "Task")  # the serving nets
@@ -121,7 +122,9 @@ class MainModel(BaseModel):
     default) with float32 losses and normals. ``generator`` seeds the initial
     weights, which ``setup`` / ``load_networks`` then replace from ``.pth``
     files; ``hole_generator`` draws the train-time hole masks (on the model's
-    device; seeded from ``--seed`` when None).
+    device; seeded from ``--seed`` when None), the whole global batch's on
+    every rank, which keeps its own rows. ``mesh``: this rank's data mesh
+    (``BaseModel``).
     """
 
     model_names = ("G_A_d", "I2D_features", "Image2Depth", "Task", "Depth_f")
@@ -138,9 +141,10 @@ class MainModel(BaseModel):
     _hole_p, _hole_max_frac = (0.90, 0.90), 8      # train-time (real, syn) p, main_model.py:210-217
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16,
-                 use_masked=True, generator=None, is_train=False, hole_generator=None):
+                 use_masked=True, generator=None, is_train=False, hole_generator=None,
+                 mesh=None):
         opt = opt or NetOptions()
-        super().__init__(opt, device, compute_dtype)
+        super().__init__(opt, device, compute_dtype, mesh)
         self.is_train = is_train
         self.use_masked = getattr(opt, "use_masked", use_masked)
         if is_train:
@@ -293,7 +297,8 @@ class MainModel(BaseModel):
 
         if self.use_masked:
             n, (p_real, p_syn) = (60, self._hole_p) if train else (11, (0.0, 0.0))
-            holes = dict(n_max=n, max_frac=self._hole_max_frac, generator=self.hole_generator)
+            holes = dict(n_max=n, max_frac=self._hole_max_frac, generator=self.hole_generator,
+                         rows=getattr(batch, "rows", None))
             gt_mask_real = DPT.random_rect_holes(real_mask, p=p_real, **holes)
             depth_masked = DPT.punch_holes(real_input_depth, gt_mask_real)
             gt_mask_syn = DPT.random_rect_holes(syn_mask, p=p_syn, **holes)
@@ -350,8 +355,8 @@ class MainModel(BaseModel):
             norm_syn_o = NRM.surface_normals_planar(syn_depth) * 100
             norm_syn_pred_o = NRM.surface_normals_planar(pred_syn) * 100
             norm_real_pred_o = NRM.surface_normals_planar(pred_real) * 100
-            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o) * 1e-7
-            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_o) * 1e-7
+            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o, self.step_group) * 1e-7
+            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_o, self.step_group) * 1e-7
             m["syn_norms_old"] = L.mse_loss(norm_syn_o * mask1, norm_syn_pred_o * mask1)
             # intrinsics-based normals (main_model.py:286-296)
             norm_syn = NRM.surface_normals_from_K_planar(syn_depth, batch["K_A"], batch["crop_A"])
@@ -359,8 +364,8 @@ class MainModel(BaseModel):
                                                               batch["crop_A"])
             norm_real_pred = NRM.surface_normals_from_K_planar(pred_real, batch["K_B"],
                                                                batch["crop_B"])
-            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred) * 1e-7
-            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred) * 1e-7
+            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred, self.step_group) * 1e-7
+            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred, self.step_group) * 1e-7
             m["syn_norms"] = L.l1_loss(norm_syn * mask1, norm_syn_pred * mask1)
             mask2 = (syn_mask * mask_syn_add_holes)[:, None]
             m["syn_norms_holes"] = L.l1_loss(norm_syn * mask2, norm_syn_pred * mask2)
@@ -406,28 +411,29 @@ class MainModel(BaseModel):
     # ------------------------------------------------------------------
 
     def stage(self, batch):
-        """(device tensors, paths) of a host batch (``--direction BtoA`` swaps
-        the image and depth tensors only, base_model.py:161-176)."""
+        """(device tensors, paths) of this rank's rows of a host batch
+        (``--direction BtoA`` swaps the image and depth tensors only,
+        base_model.py:161-176)."""
+        batch = self.shard(batch)
+        rows = batch.rows
         batch = self.apply_direction(batch)
-        return ({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS},
+        return (Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}, rows),
                 {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")})
 
-    def set_input(self, batch):
-        """Stage a host batch on the device (``stage``)."""
-        self._batch, self._paths = self.stage(batch)
-
     def compute_grads(self, batch=None):
-        """Forward, losses and backward of one train step; the gradients are
-        left on the trainable nets' parameters. Returns the metrics."""
+        """Forward, losses and backward of one train step; the gradients,
+        averaged over the ranks, are left on the trainable nets' parameters.
+        Returns this rank's metrics."""
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
         loss_g, m = self.losses(self.forward_all(batch, train=True), batch)
         loss_g.backward()
+        self.reduce_grads(self.trainable_nets)
         return {k: v.detach() for k, v in m.items()}
 
     def optimize_parameters(self, iters=None, fr=1):
         """One train step: forward, loss_G backward, Adam on Depth_f and Task."""
-        self.metrics = self.compute_grads()
+        self.metrics = self.global_metrics(self.compute_grads())
         self.optimizer.step()
 
     @torch.no_grad()
@@ -438,7 +444,7 @@ class MainModel(BaseModel):
         predictions are written as uint16 PNGs."""
         f = self.forward_all(self._batch, train=False)
         _, m = self.losses(f, self._batch)
-        self.metrics = m
+        self.metrics = self.global_metrics(m)
         self.visuals = {k: f[k] for k in self.visual_names if k in f}
         if getattr(self.opt, "save_all", False) and stage == "test":
             self._dump_predictions(f[self._dump_key])

@@ -130,8 +130,8 @@ class MainSRModel(MainModel):
             norm_syn_o = NRM.surface_normals_planar(syn_depth) * 100
             norm_syn_pred_o = NRM.surface_normals_planar(pred_syn) * 100
             norm_real_pred_hr_o = NRM.surface_normals_planar(pred_real_hr) * 100
-            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o) * 1e-7
-            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_hr_o) * 1e-7
+            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o, self.step_group) * 1e-7
+            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_hr_o, self.step_group) * 1e-7
             m["syn_norms_old"] = L.l1_loss(norm_syn_o, norm_syn_pred_o)  # unmasked (:278)
             # intrinsics-based normals (:280-292)
             K_A, K_B, crop_A, crop_B = batch["K_A"], batch["K_B"], batch["crop_A"], batch["crop_B"]
@@ -140,8 +140,8 @@ class MainSRModel(MainModel):
             norm_real_pred = NRM.surface_normals_from_K_planar(pred_real, K_B, crop_B)
             # as shipped: the HR real normals with K_A / crop_A (:286)
             norm_real_pred_hr = NRM.surface_normals_from_K_planar(pred_real_hr, K_A, crop_A)
-            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred) * 1e-7
-            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred) * 1e-7
+            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred, self.step_group) * 1e-7
+            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred, self.step_group) * 1e-7
             # as shipped: synthetic normals against the HR real ones (:290)
             m["syn_norms"] = L.mse_loss(norm_syn * mask1, norm_real_pred_hr * mask1)
             mask2 = (syn_mask * mask_syn_add_holes)[:, None]

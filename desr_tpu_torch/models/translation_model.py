@@ -37,6 +37,7 @@ from desr_tpu_torch.models.base_model import BaseModel
 from desr_tpu_torch.models.main_model import NetOptions, _to_device
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops.normals import surface_normals_fov_planar
+from desr_tpu_torch.parallel.mesh import Shard
 from desr_tpu_torch.utils.util import to_numpy
 
 HOLE_BORDER = -0.98  # translation_model.py:42
@@ -53,6 +54,8 @@ class TranslationModel(BaseModel):
     "BtoA", the generator ``serve_forward`` applies. Parameters are float32;
     the nets run in ``compute_dtype`` with float32 normals and losses.
     ``generator`` seeds the initial weights (G_A, G_B, then the Ds).
+    ``mesh``: this rank's data mesh (``BaseModel``); each G and D step
+    averages its gradients over the ranks before its Adam step.
     """
 
     model_names = ("G_A", "G_B")
@@ -60,7 +63,7 @@ class TranslationModel(BaseModel):
     _multi_step = False  # one iteration a call, as in the JAX trainer
 
     def __init__(self, opt=None, device=None, compute_dtype=torch.bfloat16, generator=None,
-                 direction="AtoB", is_train=False):
+                 direction="AtoB", is_train=False, mesh=None):
         opt = opt or NetOptions()
         if direction not in ("AtoB", "BtoA"):
             raise ValueError(f"direction {direction!r}: AtoB or BtoA")
@@ -70,7 +73,7 @@ class TranslationModel(BaseModel):
             raise NotImplementedError(
                 "--l_mean_A / --l_mean_B > 0: the JAX package's mean-difference term fails "
                 "on the stage's planar depth maps; not ported")
-        super().__init__(opt, device, compute_dtype)
+        super().__init__(opt, device, compute_dtype, mesh)
         if generator is None:
             generator = torch.Generator().manual_seed(getattr(opt, "seed", 0))
         gen_opt = TN.default_translator_opt(init_type=opt.init_type)
@@ -226,10 +229,10 @@ class TranslationModel(BaseModel):
         """depth_dif_A / depth_dif_B: masked L1 in meters (:381-384)."""
         return {"depth_dif_A": L.masked_l1_loss(self._meters(f["real_depth_A"]),
                                                 self._meters(f["fake_depth_B"]),
-                                                ~f["hole_mask_A"]),
+                                                ~f["hole_mask_A"], group=self.step_group),
                 "depth_dif_B": L.masked_l1_loss(self._meters(f["real_depth_B"]),
                                                 self._meters(f["fake_depth_A"]),
-                                                ~f["hole_mask_B"])}
+                                                ~f["hole_mask_B"], group=self.step_group)}
 
     def g_losses(self, f):
         """(loss_G, terms) of translation_model.py:220-272 (the refused
@@ -248,10 +251,10 @@ class TranslationModel(BaseModel):
         if opt.use_cycle_A:
             not_hole = ~f["hole_mask_A"]
             m["cycle_A"] = L.masked_l1_loss(f["rec_depth_A"], f["real_depth_A"],
-                                            not_hole) * l_cycle_A
+                                            not_hole, group=self.step_group) * l_cycle_A
             m["cycle_n_A"] = L.masked_cos_sim_loss_planar(
-                f["rec_norm_A"], f["real_norm_A"],
-                not_hole[:, None].expand(-1, 3, -1, -1)) * opt.l_normal * l_cycle_A
+                f["rec_norm_A"], f["real_norm_A"], not_hole[:, None].expand(-1, 3, -1, -1),
+                group=self.step_group) * opt.l_normal * l_cycle_A
             loss_A = loss_A + m["cycle_A"] + m["cycle_n_A"]
         if opt.use_cycle_B:
             m["cycle_B"] = L.l1_loss(f["rec_depth_B"], f["real_depth_B"]) * l_cycle_B
@@ -269,9 +272,11 @@ class TranslationModel(BaseModel):
             m["tv_norm_A"] = L.tv_norm_planar(f["fake_norm_B"]) * opt.l_tv_A
             loss_A = loss_A + m["tv_norm_A"]
         m["depth_range_A"] = L.masked_l1_loss(f["fake_depth_B"], f["real_depth_A"],
-                                              ~f["hole_mask_A"]) * max(self.l_depth_A, 0.0)
+                                              ~f["hole_mask_A"], group=self.step_group) \
+            * max(self.l_depth_A, 0.0)
         m["depth_range_B"] = L.masked_l1_loss(f["fake_depth_A"], f["real_depth_B"],
-                                              ~f["hole_mask_B"]) * max(self.l_depth_B, 0.0)
+                                              ~f["hole_mask_B"], group=self.step_group) \
+            * max(self.l_depth_B, 0.0)
         return loss_A + m["depth_range_A"] + loss_B + m["depth_range_B"], m
 
     def _d_pair(self, name, real, fake):
@@ -308,19 +313,23 @@ class TranslationModel(BaseModel):
 
     # -- steps -----------------------------------------------------------------
 
-    def set_input(self, batch):
-        """Stage a host batch (A_depth, A_img, B_depth, B_img) on the device."""
-        self._batch = {k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}
+    def stage(self, batch):
+        """(device tensors, no paths) of this rank's rows of a host batch
+        (A_depth, A_img, B_depth, B_img)."""
+        batch = self.shard(batch)
+        return Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS},
+                     batch.rows), {}
 
     def compute_grads(self, batch=None):
         """The G step's forward, losses and backward (:354-371), gradients
-        left on G_A and G_B. Returns (terms and depth_difs, detached; the
-        D step's feed, detached)."""
+        (averaged over the ranks) left on G_A and G_B. Returns (this rank's
+        terms and depth_difs, detached; the D step's feed, detached)."""
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
         f = self.gen_forward(batch)
         loss, m = self.g_losses(f)
         loss.backward()
+        self.reduce_grads(self.trainable_nets)
         with torch.no_grad():
             m.update(self.depth_difs(f))
         return ({k: v.detach() for k, v in m.items()},
@@ -328,13 +337,15 @@ class TranslationModel(BaseModel):
 
     def d_grads(self, f):
         """The D step's losses and backward on the forward tensors ``f``,
-        gradients left on the Ds. Returns the terms, detached."""
+        gradients (averaged over the ranks) left on the Ds. Returns this
+        rank's terms, detached."""
         for dn in self.disc_names:
             self.nets[dn].requires_grad_(True)
         try:
             self.optimizer_D.zero_grad(set_to_none=True)
             total, m = self.d_losses(f)
             total.backward()
+            self.reduce_grads(self.disc_names)
         finally:
             for dn in self.disc_names:
                 self.nets[dn].requires_grad_(False)
@@ -353,13 +364,14 @@ class TranslationModel(BaseModel):
                     feed = self.gen_forward(self._batch, idt=False)
             self.metrics.update(self.d_grads(feed))
             self.optimizer_D.step()
+        self.metrics = self.global_metrics(self.metrics)
 
     @torch.no_grad()
     def calculate(self, stage="test"):
         """The eval forward (:424-433, :545-548): depth_dif_A/B in meters,
         and the visuals of ``visual_names`` (NHWC images, planar depths)."""
         f = self.gen_forward(self._batch, idt=False)
-        self.metrics = self.depth_difs(f)
+        self.metrics = self.global_metrics(self.depth_difs(f))
         self.visuals = {k: f[k] for k in self.visual_names if k in f}
 
     def calc_test_loss(self):

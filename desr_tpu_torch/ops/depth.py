@@ -25,7 +25,7 @@ def valid_mask(depth, border=-0.97):
 
 
 def random_rect_holes(base_valid_mask, *, n_max=60, n_min=10, p=0.90,
-                      min_frac=150, max_frac=8, generator=None):
+                      min_frac=150, max_frac=8, generator=None, rows=None):
     """Per-sample random rectangle hole masks (depth.py:84-164), planar (B, H, W).
 
     0 where a rectangle covers a pixel that ``base_valid_mask`` marks valid
@@ -36,11 +36,15 @@ def random_rect_holes(base_valid_mask, *, n_max=60, n_min=10, p=0.90,
     sample. With p=0 every rectangle has size 0 and the mask is all ones
     (depth.py:117-126): the eval and serving case, which draws nothing.
     ``generator``: a ``torch.Generator`` on the mask's device (its default
-    generator when None).
+    generator when None). ``rows`` = (lo, hi, n): the mask holds rows lo..hi
+    of a global batch of n (a data-parallel rank's share); the draws are
+    then the whole batch's and the rank keeps its rows, so that every world
+    size punches the same holes.
     """
     if p == 0.0:
         return torch.ones_like(base_valid_mask)
-    b, h, w = base_valid_mask.shape
+    _, h, w = base_valid_mask.shape
+    r0, r1, b = rows if rows is not None else (0, len(base_valid_mask), len(base_valid_mask))
     dev = base_valid_mask.device
     n_rect = n_max - 1 if n_max > n_min else n_min
 
@@ -56,6 +60,7 @@ def random_rect_holes(base_valid_mask, *, n_max=60, n_min=10, p=0.90,
     bern = (torch.rand((b, 2), generator=generator, device=dev) < p).long()
     sizes_x = sizes_x * bern[:, :1]
     sizes_y = sizes_y * bern[:, 1:]
+    active, xs, ys, sizes_x, sizes_y = (t[r0:r1] for t in (active, xs, ys, sizes_x, sizes_y))
     # covered[b, y, x] = OR_r (row_in[b, r, y] AND col_in[b, r, x]): one
     # (H, R) x (R, W) product per sample, no (B, R, H, W) broadcast
     yy = torch.arange(h, device=dev)[None, None, :]

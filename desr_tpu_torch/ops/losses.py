@@ -4,6 +4,14 @@ Depth maps are (B, H, W), normal and image maps (B, C, H, W); each loss
 returns a scalar. The masked (task, holes, holes_l2) triplets of stage 3 run
 on the K3 kernel (``ops/masked_loss.py``); stage 2's masked L1s are plain
 sums, as in the JAX package.
+
+Over data-parallel ranks (``desr_tpu_torch/parallel``) each rank's loss is N
+times its share of the global one, so that the ranks' mean gradient is the
+global gradient. A mean over the equal shards already is, and needs nothing.
+The losses whose value is not such a mean take ``group``, the process group
+of the ranks that split the batch (None: one process, the batch's own
+value): ``masked_l1_loss`` and ``masked_cos_sim_loss_planar`` divide by the
+global mask count, ``tv_loss_planar``'s sum is scaled by N.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from desr_tpu_torch.ops.normals import safe_norm
+from desr_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 
 
 def l1_loss(x, y):
@@ -25,10 +34,19 @@ def mse_loss(x, y):
     return (x - y).square().mean()
 
 
-def masked_l1_loss(x, y, mask, eps=1e-6):
-    """sum(|y - x| * mask) / (sum(mask) + eps) (losses.py:31)."""
+def _over_count(total, count, eps, group):
+    """total / (count + eps); over ``group``'s N ranks N total over the
+    global count."""
+    if group is None:
+        return total / (count + eps)
+    return total * group_size(group) / (all_reduce_sum(count, group) + eps)
+
+
+def masked_l1_loss(x, y, mask, eps=1e-6, group=None):
+    """sum(|y - x| * mask) / (sum(mask) + eps) (losses.py:31); over ``group``
+    N times this rank's sum over the global count."""
     mask = mask.to(x.dtype)
-    return ((y - x).abs() * mask).sum() / (mask.sum() + eps)
+    return _over_count(((y - x).abs() * mask).sum(), mask.sum(), eps, group)
 
 
 def tv_norm_planar(x):
@@ -51,13 +69,14 @@ def cos_sim_loss_planar(x, y, eps=1e-8):
     return (1.0 - _cos_planar(x, y, eps)).mean()
 
 
-def masked_cos_sim_loss_planar(x, y, mask_b3hw, eps=1e-8):
+def masked_cos_sim_loss_planar(x, y, mask_b3hw, eps=1e-8, group=None):
     """sum((1 - cos) * mask) / (sum(mask) + 1e6) on (B, C, H, W) maps with a
     (B, C, H, W) mask (losses.py:246, the as-shipped ``compat_bug=True``
-    denominator)."""
+    denominator); over ``group`` N times this rank's sum over the global
+    count."""
     loss = (1.0 - _cos_planar(x, y, eps))[:, None]
     mask = mask_b3hw.to(x.dtype)
-    return (loss * mask).sum() / (mask.sum() + 1e6)
+    return _over_count((loss * mask).sum(), mask.sum(), 1e6, group)
 
 
 def gan_loss(prediction, target_is_real, mode="lsgan"):
@@ -73,11 +92,12 @@ def gan_loss(prediction, target_is_real, mode="lsgan"):
     raise NotImplementedError(f"gan mode {mode} not implemented")
 
 
-def tv_loss_planar(img):
-    """Unnormalised total variation over the last two dims (losses.py:219)."""
+def tv_loss_planar(img, group=None):
+    """Unnormalised total variation over the last two dims (losses.py:219);
+    over ``group`` N times this rank's sum."""
     w_var = (img[..., :, :-1] - img[..., :, 1:]).square().sum()
     h_var = (img[..., :-1, :] - img[..., 1:, :]).square().sum()
-    return h_var + w_var
+    return h_var + w_var if group is None else (h_var + w_var) * group_size(group)
 
 
 @functools.lru_cache(maxsize=128)

@@ -6,12 +6,12 @@ main_model.py:67-75, i2d_model.py:39-47, translation_model.py:49-74):
 
 Every flag of the JAX parser is known here, under its JAX name. Those the
 port honours keep the JAX defaults (several are read by no part of the main
-stage in either package, as in the reference). The rest stop the run with a
-clear error: ``NOT_PORTED`` ("not yet ported": the mesh flags, which need
-more than one card) and ``XLA_ONLY``, the JAX package's switches of XLA's
-lowering, compiler and buffers, which have no counterpart in the port. An
-unknown flag gets argparse's own error. The port adds ``--device`` (default
-``cuda``).
+stage in either package, as in the reference). ``--spatial_devices`` above 1
+stops the run ("not yet ported"), and so do ``XLA_ONLY``, the JAX package's
+switches of XLA's lowering, compiler and buffers, which have no counterpart
+in the port. An unknown flag gets argparse's own error. The port adds
+``--device`` (default ``cuda``). ``--num_devices`` N trains on N ranks
+(``desr_tpu_torch/parallel``), ``--batch_size`` being the global batch.
 
 ``--remat_tails`` keeps the JAX default None, which the JAX models turn into
 their per-stage default (on for SR, I2D and translation); the port reads None
@@ -23,8 +23,6 @@ from __future__ import annotations
 import argparse
 import os
 
-# flags of the JAX parser that change what its main stage does, not ported yet
-NOT_PORTED = ("spatial_devices", "num_devices")
 # XLA-lowering switches of the JAX package (layers.py Ctx): same math there;
 # and XLA's compiler options, buffer donation and compile cache
 XLA_ONLY = ("pallas_fuse", "no_pallas_fuse", "pallas_fuse_frozen", "fused_pad",
@@ -48,7 +46,7 @@ _VALUED = [
     ("preprocess", str, "resize_and_crop"), ("display_winsize", int, 256),
     ("epoch", str, "latest"), ("load_iter", int, 0), ("suffix", str, ""),
     ("compute_dtype", str, "bfloat16"), ("seed", int, 0), ("profile_dir", str, ""),
-    ("steps_per_call", int, 1),
+    ("steps_per_call", int, 1), ("num_devices", int, 0), ("spatial_devices", int, 1),
     # train_options.py:12-136
     ("display_freq", int, 400), ("display_ncols", int, 4), ("display_id", int, 1),
     ("display_server", str, "http://localhost"), ("display_env", str, "main"),
@@ -106,10 +104,21 @@ _SWITCHES = [
 ]
 
 
+# the flags whose meaning the port states (the rest are the JAX package's)
+_HELP = {
+    "num_threads": "loader workers per rank (spawned; 0 or 1: inline)",
+    "batch_size": "the global batch: over --num_devices N ranks each trains on 1/N of it",
+    "num_devices": "data-parallel ranks: N > 1 spawns N processes, one a card (NCCL), or "
+                   "under --device cpu N CPU ranks (gloo); 0: every visible card "
+                   "(one under --device cpu); more than the visible cards raises",
+    "spatial_devices": "the image-H axis of the mesh: above 1 not yet ported",
+}
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="python -m desr_tpu_torch.train")
     for name, typ, default in _VALUED:
-        p.add_argument(f"--{name}", type=typ, default=default)
+        p.add_argument(f"--{name}", type=typ, default=default, help=_HELP.get(name))
     for name in _SWITCHES:
         p.add_argument(f"--{name}", action="store_true")
     p.add_argument("--no_dropout", action="store_true", default=True)
@@ -125,7 +134,7 @@ def build_parser():
     p.add_argument("--no_remat_tails", dest="remat_tails", action="store_false")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a GPU, cpu must be asked for")
-    for name in NOT_PORTED + XLA_ONLY:
+    for name in XLA_ONLY:
         p.add_argument(f"--{name}", dest=f"_refused_{name}", nargs="?", const=True,
                        default=None, help=argparse.SUPPRESS)
     return p
@@ -148,13 +157,13 @@ def parse_with(parser, argv, is_train, print_options):
     parser.set_defaults(no_dropout=known.model_type in ("main", "I2D"))
     parser = get_option_setter(known.dataset_mode)(parser, is_train)
     opt = parser.parse_args(argv)
-    for name in NOT_PORTED + XLA_ONLY:
+    for name in XLA_ONLY:
         if getattr(opt, f"_refused_{name}") is not None:
-            parser.error(
-                f"--{name} is not yet ported to desr_tpu_torch (train with the JAX main.py)"
-                if name in NOT_PORTED else
-                f"--{name} steers XLA in desr_tpu and has no counterpart in desr_tpu_torch")
+            parser.error(f"--{name} steers XLA in desr_tpu and has no counterpart in desr_tpu_torch")
         delattr(opt, f"_refused_{name}")
+    if opt.spatial_devices > 1:
+        parser.error("--spatial_devices > 1 is not yet ported to desr_tpu_torch "
+                     "(train with the JAX main.py)")
     if opt.model_type not in ("main", "I2D", "translation"):
         parser.error(f"--model_type {opt.model_type} is not known to desr_tpu_torch "
                      "(it trains --model_type main, I2D and translation)")

@@ -42,8 +42,15 @@ Usage:
         [--num_workers 4] [--export DIR | --from_export DIR] [--device cuda] \
         [--net_args --Task_basef 64 ...]
 
-``--num_devices`` and ``--spatial_devices`` are not yet ported and exit with
-an error.
+``--num_devices N`` (0: every visible card; under ``--device cpu`` N CPU
+replicas, 0: one) serves live on N cards from one process: a replica of the
+serving forward a card, each request's batch split into N contiguous shards
+(when N does not divide it, the first card serves it whole, where the JAX
+mesh replicates it), each shard launched on its card and the predictions
+gathered in order (predict.py:269). ``--export`` records one device, as the
+JAX CLI forces (predict.py:218-219), and ``--from_export`` serves on one.
+More devices than the visible cards raise. ``--spatial_devices`` above 1 is
+not yet ported and exits with an error.
 """
 
 from __future__ import annotations
@@ -62,7 +69,6 @@ from desr_tpu_torch.utils.util import save_uint16_png
 # torch is imported in main: the --num_workers pool's spawned workers import
 # this module for decode_frame and save_uint16_png alone
 DTYPES = ("bfloat16", "float32")
-NOT_PORTED = ("num_devices", "spatial_devices")
 
 
 def pad_to_shape(arr, hw):
@@ -160,15 +166,18 @@ def main(argv=None):
     parser.add_argument("--from_export", default=None, metavar="DIR",
                         help="serve from an exported artifact: no model classes, options "
                              "or .pth files, just the saved program and params.npz")
-    for flag in NOT_PORTED:
-        parser.add_argument(f"--{flag}", default=None, type=int, help="not yet ported")
+    parser.add_argument("--num_devices", type=int, default=0,
+                        help="serve on this many cards, one replica a card, each batch split "
+                             "over them (0: every visible card; --device cpu: CPU replicas, "
+                             "0: one); --export and --from_export use one")
+    parser.add_argument("--spatial_devices", type=int, default=1,
+                        help="the image-H axis of the mesh: above 1 not yet ported")
     parser.add_argument("--net_args", nargs=argparse.REMAINDER, default=[],
                         help="net-width flags (--Task_basef 64 ...; see NetOptions)")
     args = parser.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to desr_tpu_torch "
-                         "(serve it with the JAX predict.py)")
+    if args.spatial_devices > 1:
+        parser.error("--spatial_devices > 1 is not yet ported to desr_tpu_torch "
+                     "(serve it with the JAX predict.py)")
     if args.name is None and not args.from_export:
         parser.error("--name is required unless serving --from_export")
     if args.export and args.from_export:
@@ -198,16 +207,37 @@ def main(argv=None):
             pool.join()
 
 
-def _serve(args, parser, pool):
+def serve_on_devices(forwards, devices, batch):
+    """One request over the replicas ``forwards``, one on each of
+    ``devices``: the batch's rows split as ``parallel.shard_batch`` splits
+    them over so many ranks, each shard's forward launched on its device,
+    the predictions gathered in order on the first. A batch that the count
+    does not divide goes whole to the first device."""
     import torch
 
-    from desr_tpu_torch import resolve_device
+    from desr_tpu_torch.parallel.mesh import Mesh, shard_batch
+
+    shards = [shard_batch(batch, Mesh(tuple(devices), r)) for r in range(len(devices))]
+    if not shards[0].split:
+        return forwards[0](batch)
+    preds = [fwd(shard) for fwd, shard in zip(forwards, shards)]
+    return torch.cat([p.to(preds[0].device) for p in preds])
+
+
+def _serve(args, parser, pool):
+    import functools
+
+    import torch
+
     from desr_tpu_torch.data.base_dataset import load_depth_png
+    from desr_tpu_torch.parallel import resolve_devices
 
     try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
+        devices = resolve_devices(args.device, 1 if args.export or args.from_export
+                                  else args.num_devices)
+    except (RuntimeError, ValueError) as e:
         parser.error(str(e))
+    device = devices[0]
     img_paths = sorted(glob.glob(os.path.join(args.input_img, "*")))
     if args.input_depth is None:  # --I2D from RGB alone: stems from the images
         depth_paths = img_paths
@@ -245,14 +275,20 @@ def _serve(args, parser, pool):
             h, w = load_depth_png(depth_paths[0]).shape[:2]
             net_args += ["--crop_size_h", str(-(-h // 256) * 128),
                          "--crop_size_w", str(-(-w // 256) * 128)]
-        kw = dict(device=device, compute_dtype=getattr(torch, args.compute_dtype))
-        if args.translate:
-            model = TranslationModel(parse_net_args(net_args), direction=args.translate, **kw)
-        else:
-            model_cls = I2DModel if args.I2D else MainSRModel if args.SR else MainModel
-            model = model_cls(parse_net_args(net_args), **kw)
-        model.load_networks(args.checkpoints_dir, args.name, args.epoch)
-        run = model.serve_forward
+        def replica(dev):
+            kw = dict(device=dev, compute_dtype=getattr(torch, args.compute_dtype))
+            if args.translate:
+                m = TranslationModel(parse_net_args(net_args), direction=args.translate, **kw)
+            else:
+                model_cls = I2DModel if args.I2D else MainSRModel if args.SR else MainModel
+                m = model_cls(parse_net_args(net_args), **kw)
+            m.load_networks(args.checkpoints_dir, args.name, args.epoch)
+            return m
+
+        models = [replica(d) for d in devices]
+        model = models[0]
+        run = (model.serve_forward if len(models) == 1 else
+               functools.partial(serve_on_devices, [m.serve_forward for m in models], devices))
     mult = 256 if args.SR else 128  # the padding of a live batch
     # --I2D reads no depth: the forward does not use it
     read_depth = not args.I2D

@@ -55,12 +55,20 @@ three-shear map, not cv2's warp. ``--profile_dir <dir>`` records the
 epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
 trace format), with a ``train_step`` span around each step and a
 ``device_finish`` span around each batch's upload and warp (main.py:43-47,
-180-184). Still refused: the multi-device flags
-(``options/train_options.py:NOT_PORTED``) and the XLA-only switches.
+180-184). Still refused: ``--spatial_devices`` above 1 and the XLA-only
+switches.
+
+``--num_devices N`` (N > 1; 0: every visible card) trains data-parallel
+(``desr_tpu_torch/parallel``): N spawned ranks, NCCL on the cards (rank r on
+``cuda:r``) or gloo under ``--device cpu``, each on its rows of every global
+batch of ``--batch_size``, computing the step one process would compute on
+the whole batch. Rank 0 alone prints, writes the loss log, the gallery, the
+checkpoints and the profiler trace, and runs wandb; every rank loads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -79,9 +87,10 @@ def at_freq(total_iters, start_iter, freq, spc, batch_size):
     return d == 0 if spc == 1 else d < batch_size * spc
 
 
-def _wandb(opt):
-    """The wandb module, initialised, under ``--use_wandb``; None (console
-    logging) without it or when it cannot be imported (main.py:33-41)."""
+def _wandb(opt, lead=True):
+    """The wandb module under ``--use_wandb``, initialised on the ``lead``
+    rank; None (console logging) without it or when it cannot be imported
+    (main.py:33-41)."""
     if not opt.use_wandb:
         return None
     try:
@@ -89,15 +98,17 @@ def _wandb(opt):
     except ImportError:
         print("wandb not available; falling back to console logging")
         return None
-    wandb.init(project="translation_compare")
-    wandb.config.update(vars(opt))
+    if lead:
+        wandb.init(project="translation_compare")
+        wandb.config.update(vars(opt))
     return wandb
 
 
-def create_model(opt, device):
+def create_model(opt, device, mesh=None):
     """The model ``opt`` trains (models/__init__.py:create_model): ``I2DModel``,
     ``TranslationModel``, ``MainModel`` or under ``--SR`` ``MainSRModel``, in
-    ``--compute_dtype``, its nets' weights drawn from ``--seed``."""
+    ``--compute_dtype``, its nets' weights drawn from ``--seed``, on this
+    rank's ``mesh`` (one device when None)."""
     import torch
 
     from desr_tpu_torch.models.i2d_model import I2DModel
@@ -108,42 +119,66 @@ def create_model(opt, device):
     dtype = torch.float32 if opt.compute_dtype in ("float32", "f32") else torch.bfloat16
     model_cls = {"I2D": I2DModel, "translation": TranslationModel}.get(
         opt.model_type, MainSRModel if opt.SR else MainModel)
-    return model_cls(opt, device=device, compute_dtype=dtype, is_train=True)
+    return model_cls(opt, device=device, compute_dtype=dtype, is_train=True, mesh=mesh)
 
 
 def main(argv=None):
     """Run the CLI; returns the last step's losses (the mean test losses when
-    only ``--do_test`` is given)."""
-    import torch
-
-    from desr_tpu_torch import resolve_device
-    from desr_tpu_torch.data.loader import create_dataset, dataset_for_model
+    only ``--do_test`` is given; rank 0's under ``--num_devices`` N > 1)."""
+    from desr_tpu_torch import parallel
     from desr_tpu_torch.options import train_options
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     opt = train_options.parse(argv)
     try:
-        device = resolve_device(opt.device)
-    except RuntimeError as e:
+        devices = parallel.resolve_devices(opt.device, opt.num_devices)
+    except (RuntimeError, ValueError) as e:
         train_options.build_parser().error(str(e))
+    if len(devices) > 1:
+        return parallel.launch(_rank_main, devices, args=(argv,))[0]
+    return train(opt, devices[0])
+
+
+def _rank_main(mesh, argv):
+    """One rank of ``--num_devices`` N: ``train`` on the rank's device; the
+    ranks after 0 print nothing."""
+    from desr_tpu_torch.options import train_options
+
+    opt = train_options.parse(argv, print_options=False)
+    if mesh.rank == 0:
+        return train(opt, mesh.device, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return train(opt, mesh.device, mesh)
+
+
+def train(opt, device, mesh=None):
+    """The epoch loop on ``device``, as rank ``mesh.rank`` of ``mesh`` (one
+    process when None); returns ``main``'s losses."""
+    import torch
+
     from desr_tpu_torch.data import native_io
+    from desr_tpu_torch.data.loader import create_dataset, dataset_for_model
 
     # builds the decode library here, before the loader spawns its workers
     print("image decode route: %s (%s)" % native_io.route())
-    model = create_model(opt, device)
+    model = create_model(opt, device, mesh)
+    lead = mesh is None or mesh.rank == 0
     print(f"model [{type(model).__name__}] was created")
     dataset_cls = dataset_for_model(opt)
-    dataset = create_dataset(opt, dataset_cls, device=device) if opt.do_train else None
-    test_dataset = create_dataset(opt, dataset_cls, stage="test") if opt.do_test else None
+    dataset = (create_dataset(opt, dataset_cls, device=device, mesh=mesh)
+               if opt.do_train else None)
+    test_dataset = (create_dataset(opt, dataset_cls, stage="test", mesh=mesh)
+                    if opt.do_test else None)
     if dataset is not None:
         print("The number of training images = %d" % len(dataset.dataset))
     model.setup(opt)
     from desr_tpu_torch.utils.visualizer import Visualizer
 
-    visualizer = Visualizer(opt)
-    wandb = _wandb(opt)
+    visualizer = Visualizer(opt) if lead else None
+    wandb = _wandb(opt, lead)
 
     profiler = None
-    if opt.profile_dir:
+    if opt.profile_dir and lead:
         from torch.profiler import ProfilerActivity, profile
 
         profiler = profile(activities=[ProfilerActivity.CPU]
@@ -183,8 +218,10 @@ def main(argv=None):
                 if due(opt.print_freq):
                     losses = model.get_current_losses()
                     t_comp = (time.time() - iter_start) / (opt.batch_size * spc)
-                    visualizer.print_current_losses(epoch, total_iters, losses, t_comp, t_data)
-                    if wandb:
+                    if lead:
+                        visualizer.print_current_losses(epoch, total_iters, losses, t_comp,
+                                                        t_data)
+                    if wandb and lead:
                         wandb.log(losses, step=total_iters)
                 if due(opt.save_latest_freq * opt.batch_size):
                     print("saving the latest model (epoch %d, total_iters %d)"
@@ -217,7 +254,7 @@ def main(argv=None):
                                            n / max(opt.batch_size_val, 1))
             if mean_losses:  # the plateau policy's metric: the mean test loss
                 plateau_metric = float(next(iter(mean_losses.values())))
-            if wandb:
+            if wandb and lead:
                 wandb.log({"test": dict(mean_losses)}, step=total_iters)
             print("stage:  test")
             print(dict(mean_losses))
@@ -239,11 +276,15 @@ def display(model, opt, visualizer, wandb, epoch, total_iters):
     """The image panels of main.py:95-120: an extra eval forward
     (``calculate(stage="train")``) on the staged batch (with
     ``--steps_per_call`` the group's last), its visuals to the wandb panels
-    or the HTML gallery; the train step's metrics are restored after it."""
+    or the HTML gallery; the train step's metrics are restored after it.
+    Every rank runs the forward (its reductions are collectives); rank 0,
+    the one with a ``visualizer``, writes its rows' panels."""
     train_metrics = model.metrics
     model.calculate(stage="train")
-    visuals = model.get_current_visuals()
     model.metrics = train_metrics
+    if visualizer is None:
+        return
+    visuals = model.get_current_visuals()
     if wandb:
         from desr_tpu_torch.utils import plots
 

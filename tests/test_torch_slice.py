@@ -120,7 +120,7 @@ def test_predict_refuses_to_run_on_the_cpu_unasked(tmp_path, monkeypatch, capsys
         predict.main(args)
     assert e.value.code != 0 and "no CUDA device" in capsys.readouterr().err
     with pytest.raises(SystemExit) as e:
-        predict.main(args + ["--device", "cpu", "--num_devices", "2"])
+        predict.main(args + ["--device", "cpu", "--spatial_devices", "2"])
     assert e.value.code != 0 and "not yet ported" in capsys.readouterr().err
 
 

@@ -587,7 +587,7 @@ def test_every_port_flag_default_equals_jax():
     known to the port, so none gets argparse's unknown-flag error."""
     jp, tp = _jax_parser(), train_options.build_parser()
     port = {s: a for a in tp._actions for s in a.option_strings}
-    refused = {f"--{n}" for n in train_options.NOT_PORTED + train_options.XLA_ONLY}
+    refused = {f"--{n}" for n in train_options.XLA_ONLY}
     checked = 0
     for a in jp._actions:
         for s in a.option_strings:
@@ -602,7 +602,8 @@ def test_every_port_flag_default_equals_jax():
 
 
 @pytest.mark.parametrize("flag,msg", [
-    (["--num_devices", "2"], "not yet ported"), (["--spatial_devices", "2"], "not yet ported"),
+    (["--num_devices", "2", "--spatial_devices", "2"], "not yet ported"),
+    (["--spatial_devices", "2"], "not yet ported"),
     (["--no_donate"], "no counterpart"), (["--fold_norm"], "no counterpart"),
     (["--lr_policy", "bogus"], "not implemented"), (["--bogus_flag"], "unrecognized"),
 ])

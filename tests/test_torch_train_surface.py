@@ -369,7 +369,8 @@ def test_newly_accepted_flags_parse(flags, attr, value):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--num_devices", "2"], "not yet ported"), (["--spatial_devices", "2"], "not yet ported"),
+    (["--num_devices", "2", "--spatial_devices", "2"], "not yet ported"),
+    (["--spatial_devices", "2"], "not yet ported"),
     (["--compiler_option", "xla_tpu_scoped_vmem_limit_kib=65536"], "steers XLA"),
     (["--no_donate"], "steers XLA"), (["--compile_cache_dir", "/x"], "steers XLA"),
 ])
