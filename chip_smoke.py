@@ -34,6 +34,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     256->256), SR's HR crops (B=8 64x64x128, B=4 64x64x256), I2D's crops
     (B=8 96x128x128), the translator serving 320x320 scenes (B=2
     96x96x256) and I2D / SR-LR serving batches of 2 (B=2 128x160x128).
+    Then K1 (stats; normalise+ReLU+stats) and K2 with halo rows
+    (``--spatial_devices``): the serving blocks' input B=8 128x160 split in
+    two bands of 64 rows and one halo row, (0, 1) and (1, 0), and a middle
+    band of four, (1, 1); 128 -> 128 reflect and 256 -> 256 replicate,
+    float32 and bf16, each against the plain version, and the two bands'
+    outputs concatenated (and the middle band's) against the whole frame's
+    launch: bit-equal expected, any difference printed.
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -216,6 +223,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     (the two ranks share the card: not a scaling figure). Then ``predict
     --num_devices 1`` gives the CLI's PNGs without the flag, bit for bit,
     and ``--num_devices 2`` on this one card is refused by predict and train.
+(r) the spatial mesh axis (``--spatial_devices``, ``parallel/spatial.py``):
+    two gloo ranks on the one card, one spatial group, each frame's rows
+    split between them. Through the CLI's rank (``predict._rank_serve``,
+    what ``predict --num_devices 2 --spatial_devices 2`` runs in each rank;
+    rank 0 gathers the rows and writes the PNGs) at the default widths in
+    bf16 with seeded weights: main on 8 480x640 frames, --SR on 4 960x1280
+    (HR 1024x1280), --I2D and --translate AtoB on the 8, and main under
+    --pallas_conv (K2); every K1 / K2 launch of a rank must read a halo row
+    (paths ``serve_spatial_<mode>_rank<r>``, counts ``K1 halo`` and ``K2
+    halo``), the ranks alike. Each against ``predict --num_devices 1`` on
+    the same frames (PNGs: max and mean mm), and each mode's forward over
+    the two ranks against one process's: float32 under deterministic cuDNN
+    within 1e-3, bf16 within the larger of 0.045 and the one process's own
+    bf16-vs-float32 gap; prints the launches, halo exchanges, moment
+    all-reduces and gathers a forward, ms a batch (two processes sharing
+    one card: not a scaling figure) and peak memory a rank against one
+    process's.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -231,7 +255,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     profiler, and cuDNN's conv backward alone, ``library_backward_ms`` and
     ``library_backward_device_ms``)
     (``launches_at_shape`` says which path runs each; ``launches_quality``
-    counts phase (p)'s); K3's sums and its backward each at the main step's
+    counts phase (p)'s); K1 (128 and 256 channels) and K2 with a halo row
+    at a rank's band of the serving blocks' input, B=8 (64+1)x160, their
+    launches phase (r)'s halo launches, cuDNN on the same rows; K3's sums and its backward each at the main step's
     two shapes, the SR step's HR shape and phase (p)'s 4x128x128, with the
     wrapper's host time per call (host_ms) and the kernels a call launches;
     the sums rows also time the earlier two-launch design
@@ -578,6 +604,70 @@ def phase_kernels():
                      (K.conv3x3_fused_plain(x, w, pad_mode=mode),), torch.bfloat16, n_pix)
         del x, w, scale, shift
     torch.cuda.synchronize()
+    return worst
+
+
+# K1/K2 with halo rows (``--spatial_devices``): the serving blocks' input,
+# B=8 128x160 (a 512x640 frame at /4), split over two ranks (64 rows each
+# and one halo row: (0, 1) and (1, 0)) and a middle band of four (1, 1);
+# the main nets' 128 -> 128 reflect and the translator's 256 -> 256 replicate
+HALO_SHAPES = (((8, 128, 160, 128), "reflect", ""), ((8, 128, 160, 256), "replicate",
+                                                       " translator"))
+HALO_BANDS = ((0, 65, 0, 1), (63, 128, 1, 0), (31, 97, 1, 1))  # x rows lo..hi, halo rows
+HALO_SHAPE = (8, 65, 160, 128)   # phase (d)'s halo rows: a rank's band of two, (1, 0)
+
+
+def phase_halo_kernels():
+    """(b) K1 (stats; norm+relu+stats) and K2 with halo rows against their
+    plain versions, float32 and bf16, on each band of ``HALO_BANDS``; then
+    the two ranks' bands concatenated (and the middle band) against the
+    whole frame's launch: each output pixel sums the same taps and channels
+    in the same order, so they should be bit-equal; any difference is
+    printed and held to ``_compare``'s bound. Returns the worst bf16
+    max |d| against the plain version of each."""
+    import torch
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    worst = {"K1 halo": 0.0, "K1 halo translator": 0.0, "K2 halo": 0.0}
+    equal = {}
+    for shape, mode, tag in HALO_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            x, w, scale, shift = _inputs(dtype, seed=7, shape=shape)
+            runs = [("K1 " + v, lambda xb, *h, p=p, r=r: K.conv3x3_fused(
+                        xb, w, *((scale, shift) if p else (None, None)), mode, r, True, *h),
+                     lambda xb, *h, p=p, r=r: K.conv3x3_fused_plain(
+                        xb, w, *((scale, shift) if p else (None, None)), mode, r, True, *h))
+                    for v, p, r, _ in K1_VARIANTS[:2]]
+            if not tag:
+                runs.append(("K2", lambda xb, *h: (K.conv3x3(xb, w, mode, *h),),
+                             lambda xb, *h: (K.conv3x3_fused_plain(
+                                 xb, w, pad_mode=mode, halo_top=h[0], halo_bottom=h[1]),)))
+            for name, fn, plain in runs:
+                whole = fn(x)[0]
+                outs = []
+                for lo, hi, top, bottom in HALO_BANDS:
+                    xb = x[:, lo:hi].contiguous()
+                    got, want = fn(xb, top, bottom), plain(xb, top, bottom)
+                    e = _compare(f"{name} halo{tag} ({top}, {bottom}) {mode} {dt}", got, want,
+                                 dtype, (hi - lo - top - bottom) * shape[2])
+                    if dtype == torch.bfloat16:
+                        key = ("K2 halo" if name == "K2" else "K1 halo" + tag)
+                        worst[key] = max(worst[key], e)
+                    outs.append(got[0])
+                for label, got, ref in (("2 ranks", torch.cat(outs[:2], 1), whole),
+                                        ("middle band", outs[2], whole[:, 32:96])):
+                    key = f"{name}{tag} {mode} {dt} {label}"
+                    equal[key] = bool(torch.equal(got, ref))
+                    if not equal[key]:
+                        _compare(f"{key} vs the whole frame's launch", (got,), (ref,), dtype, 0)
+            del x, w, scale, shift
+            torch.cuda.synchronize()
+    same = [k for k, v in equal.items() if v]
+    print(f"[b] halo bands vs the whole frame's launch: {len(same)} of {len(equal)} bit-equal"
+          + ("" if len(same) == len(equal) else
+             f"; not: {sorted(k for k, v in equal.items() if not v)}"))
     return worst
 
 
@@ -3003,10 +3093,10 @@ def _launch_log():
     k1, k3 = {}, {}
     launch1, launch3 = K._launch, K3._launch
 
-    def log1(x, w, scale, shift, pad_mode, relu, stats):
+    def log1(x, w, scale, shift, pad_mode, relu, stats, *halo):
         key = (tuple(x.shape), w.shape[0], str(x.dtype)[6:], pad_mode)
         k1[key] = k1.get(key, 0) + 1
-        return launch1(x, w, scale, shift, pad_mode, relu, stats)
+        return launch1(x, w, scale, shift, pad_mode, relu, stats, *halo)
 
     def log3(pred, target, m1, m2):
         key = (tuple(pred.shape), str(pred.dtype)[6:])
@@ -3441,6 +3531,268 @@ def phase_data_parallel(tmp):
 
 # ------------------------------------------------------------------ (d)
 
+# ------------------------------------------------------------------ (r)
+
+SP_RANKS = 2                # two gloo ranks time-share the one card: one spatial group
+SP_DEVICE = "cuda"          # phase (r)'s device (a CPU rehearsal sets "cpu")
+SP_ARGV = ()                # flags appended to phase (r)'s CLI runs (a rehearsal's widths)
+SP_NET_ARGS = ()            # --net_args of its models (a rehearsal's widths)
+# mode: (the CLI's flags, frames, their size, a batch, K1 launches a batch)
+SP_MODES = {
+    "main": ((), "frames", (480, 640), 8, LAUNCHES_PER_BATCH),
+    "sr": (("--SR",), "frames_sr", (960, 1280), 4, LAUNCHES_PER_BATCH),
+    "i2d": (("--I2D",), "frames", (480, 640), 8, I2D_K1_PER_BATCH),
+    "translate": (("--translate", "AtoB"), "frames", (480, 640), 8, TRANSLATE_K1_PER_BATCH),
+}
+SP_CKPT = {"main": "sp_main", "sr": "sp_main", "i2d": "sp_i2d", "translate": "sp_tr"}
+SP_F32_BATCH = 2            # the float32 check's batch (the bf16 one serves the CLI's)
+SP_TIMED = 5                # forwards timed a mode, after one
+SP_F32_BOUND = 1e-3         # float32, deterministic cuDNN: (c)'s bound of the kernels' route
+
+
+def _sp_argv(tmp, mode, out, extra=(), net_extra=()):
+    """The CLI's argv for ``mode`` (bf16, the mode's batch) writing to ``out``."""
+    flags, folder, _, batch, _ = SP_MODES[mode]
+    argv = ["--name", SP_CKPT[mode], "--checkpoints_dir", tmp, *flags,
+            "--input_img", os.path.join(tmp, folder, "img"), "--output", out,
+            "--batch_size", str(batch), "--compute_dtype", "bfloat16", *SP_ARGV, *extra]
+    if mode != "i2d":
+        argv += ["--input_depth", os.path.join(tmp, folder, "depth")]
+    net_args = list(SP_NET_ARGS) + list(net_extra)
+    return argv + (["--net_args", *net_args] if net_args else [])
+
+
+def _sp_model(mode, tmp, mesh):
+    """The mode's model on ``mesh``'s device, its checkpoints loaded, bf16."""
+    import torch
+
+    from desr_tpu_torch import predict
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
+
+    hw = SP_MODES[mode][2]
+    # the SR grid's LR half of the frame padded to /256, as the CLI takes it
+    lr = [str(-(-n // 256) * 128) for n in hw]
+    opt = predict.parse_net_args(list(SP_NET_ARGS) + (
+        ["--crop_size_h", lr[0], "--crop_size_w", lr[1]] if mode == "sr" else []))
+    kw = dict(device=mesh.device, compute_dtype=torch.bfloat16, mesh=mesh)
+    model = (TranslationModel(opt, direction="AtoB", **kw) if mode == "translate" else
+             {"main": MainModel, "sr": MainSRModel, "i2d": I2DModel}[mode](opt, **kw))
+    model.load_networks(tmp, SP_CKPT[mode], verbose=False)
+    return model
+
+
+def _sp_batch(tmp, mode, n):
+    """The first ``n`` frames of the mode's folder as one global host batch."""
+    import numpy as np
+
+    from desr_tpu_torch import predict
+
+    _, folder, _, _, _ = SP_MODES[mode]
+    frames = [predict.decode_frame(os.path.join(tmp, folder, "depth", f"f{i:02d}.png"),
+                                   os.path.join(tmp, folder, "img", f"f{i:02d}.png"), 5100.0,
+                                   256 if mode == "sr" else 128) for i in range(n)]
+    return {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
+
+
+def _sp_counts():
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.parallel import spatial as S
+
+    return {"K1": K.conv3x3_fused.launches, "K1 halo": K.conv3x3_fused.launches_halo,
+            "K2": K.conv3x3.launches, "K2 halo": K.conv3x3.launches_halo, **S.COUNTS}
+
+
+def _sp_reset():
+    import torch
+
+    from desr_tpu_torch.parallel import spatial as S
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    K.conv3x3_fused.launches_halo = K.conv3x3.launches_halo = 0
+    S.reset_counts()
+
+
+def _sp_forwards(mode, tmp, mesh):
+    """One mode's serving forward on ``mesh``: launches and collectives of
+    one bf16 forward of the CLI's batch, its peak memory (this process's),
+    ms a forward (CUDA events, ``SP_TIMED`` after one; the ranks in step),
+    its predictions (this rank's rows, on the host), then float32 under
+    deterministic cuDNN on ``SP_F32_BATCH`` frames."""
+    import torch
+
+    model = _sp_model(mode, tmp, mesh)
+    batch = _sp_batch(tmp, mode, SP_MODES[mode][3])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _sp_reset()
+    pred = model.serve_forward(batch)
+    torch.cuda.synchronize()
+    out = {"counts": _sp_counts(), "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bf16": pred.float().cpu().numpy()}
+    out["ms"] = cuda_ms(lambda: model.serve_forward(batch), iters=SP_TIMED, warmup=1)
+    model.compute_dtype = torch.float32
+    small = {k: v[:SP_F32_BATCH] for k, v in batch.items()}
+    with _Deterministic():
+        out["f32"] = model.serve_forward(small).cpu().numpy()
+        model.compute_dtype = torch.bfloat16
+        out["bf16_small"] = model.serve_forward(small).float().cpu().numpy()
+    del model, pred
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_rank(mesh, tmp):
+    """One of phase (r)'s ranks: the CLI's rank (``predict._rank_serve``) in
+    each mode, then under ``--pallas_conv`` (K2), each with its launches and
+    collectives; then ``_sp_forwards`` of each mode."""
+    import torch
+
+    from desr_tpu_torch import predict
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"cli": {}, "forward": {}}
+    for mode in SP_MODES:
+        _sp_reset()
+        t0 = time.perf_counter()
+        predict._rank_serve(mesh, _sp_argv(tmp, mode, os.path.join(tmp, f"out2_{mode}")))
+        torch.cuda.synchronize()
+        res["cli"][mode] = dict(_sp_counts(), wall_s=time.perf_counter() - t0)
+    _sp_reset()
+    predict._rank_serve(mesh, _sp_argv(tmp, "main", os.path.join(tmp, "out2_k2"),
+                                       net_extra=["--pallas_conv"]))
+    res["cli"]["main_pallas_conv"] = _sp_counts()
+    for mode in SP_MODES:
+        res["forward"][mode] = _sp_forwards(mode, tmp, mesh)
+    return res
+
+
+def _sp_gap(a, b):
+    import numpy as np
+
+    d = np.abs(a - b)
+    return float(d.max()), float(d.mean())
+
+
+def phase_spatial(tmp):
+    """(r): ``predict --num_devices 2 --spatial_devices 2`` over two gloo
+    ranks on the one card (NCCL takes one rank a card), each frame's rows
+    split between them: main, --SR (960x1280 frames, HR 1024x1280),
+    --I2D and --translate AtoB at the default widths in bf16, and main
+    under --pallas_conv, through the CLI's rank entry
+    (``predict._rank_serve``: rank 0 gathers and writes the PNGs), against
+    ``predict --num_devices 1``. Then each mode's forward: launches and
+    collectives a forward, peak memory a rank, ms a batch (two processes
+    time-sharing one card: not a scaling figure), and the predictions:
+    float32 under deterministic cuDNN within ``SP_F32_BOUND``; bf16 within
+    the one-process route's own spread (its bf16 against its float32 on the
+    same frames, and PERF.md's 0.045 between live runs, the larger)."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import parallel, predict
+    from desr_tpu_torch.models.main_model import MainModel, NetOptions
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
+
+    t0 = time.perf_counter()
+    for seed, (_, folder, hw, n, _) in enumerate(SP_MODES.values()):
+        if not os.path.isdir(os.path.join(tmp, folder)):
+            _write_frames(os.path.join(tmp, folder), n, seed=90 + seed, hw=hw)
+    opt = predict.parse_net_args(list(SP_NET_ARGS))
+    for name, cls, seed in (("sp_main", MainModel, 1), ("sp_i2d", I2DModel, 3),
+                            ("sp_tr", TranslationModel, 4)):
+        model = cls(opt, device=SP_DEVICE, generator=torch.Generator().manual_seed(seed))
+        names = model.model_names if name != "sp_main" else (
+            "I2D_features", "Image2Depth", "Depth_f", "Task")
+        for n in names:
+            ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(tmp, name, "latest", n))
+        del model
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_sp_rank, [f"{SP_DEVICE}:0"] * SP_RANKS, backend="gloo",
+                            args=(tmp,), workdir=tmp, spatial=SP_RANKS)
+    ranks_s = time.perf_counter() - t0
+    one = parallel.make_mesh([SP_DEVICE])
+    report = {"setup_s": setup_s, "ranks_s": ranks_s}
+    paths = {}
+    for mode, (_, _, hw, n, k1) in SP_MODES.items():
+        _sp_reset()
+        out1 = os.path.join(tmp, f"out1_{mode}")
+        t1 = time.perf_counter()
+        predict.main(_sp_argv(tmp, mode, out1, ["--num_devices", "1"]))
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t1
+        want = {"K1": k1, "K1 halo": 0, "K2": 0, "K2 halo": 0}
+        got1 = {k: v for k, v in _sp_counts().items() if k in want}
+        check(got1 == want, f"[r] {mode} --num_devices 1: launches {got1}; want {want}")
+        for r, rank in enumerate(ranks):
+            c = rank["cli"][mode]
+            # every ResnetBlock is split at these frames: each launch has a halo row
+            check(c["K1"] == k1 and c["K1 halo"] == k1 and c["K2"] == 0,
+                  f"[r] {mode} rank {r}: launches {c}; want K1 {k1}, all with a halo row")
+            paths[f"serve_spatial_{mode}_rank{r}"] = {k: c[k] for k in ("K1", "K1 halo")}
+        check(ranks[0]["cli"][mode] == {**ranks[1]["cli"][mode],
+                                        "wall_s": ranks[0]["cli"][mode]["wall_s"]},
+              f"[r] {mode}: the ranks issued other launches or collectives: "
+              f"{ranks[0]['cli'][mode]} / {ranks[1]['cli'][mode]}")
+        png1 = _read_outputs(out1, n, hw=hw)
+        png2 = _read_outputs(os.path.join(tmp, f"out2_{mode}"), n, hw=hw)
+        check(int(png2.max()) > 0, f"[r] {mode}: all zeros")
+        d_png = np.abs(png2 - png1)
+        fwd1 = _sp_forwards(mode, tmp, one)
+        fwd2 = [rank["forward"][mode] for rank in ranks]
+        f32_2 = np.concatenate([f["f32"] for f in fwd2], 1)
+        bf_2 = np.concatenate([f["bf16_small"] for f in fwd2], 1)
+        check(f32_2.shape == fwd1["f32"].shape and np.isfinite(f32_2).all(),
+              f"[r] {mode}: float32 rows {f32_2.shape} or non-finite")
+        g32 = _sp_gap(f32_2, fwd1["f32"])
+        gbf = _sp_gap(bf_2, fwd1["bf16_small"])
+        spread = _sp_gap(fwd1["bf16_small"], fwd1["f32"])
+        bound = max(0.045, spread[0])
+        check(g32[0] <= SP_F32_BOUND, f"[r] {mode} float32: 2 ranks vs one process max |d| "
+              f"{g32[0]:.3g} > {SP_F32_BOUND}")
+        check(gbf[0] <= bound, f"[r] {mode} bf16: 2 ranks vs one process max |d| {gbf[0]:.3g} "
+              f"> {bound:.3g}")
+        c = fwd2[0]["counts"]
+        report[mode] = {
+            "png_max_mm": int(d_png.max()), "png_mean_mm": float(d_png.mean()),
+            "f32_max": g32[0], "f32_mean": g32[1], "bf16_max": gbf[0], "bf16_mean": gbf[1],
+            "one_process_bf16_vs_f32_max": spread[0], "one_process_bf16_vs_f32_mean": spread[1],
+            "ms_2_ranks": [f["ms"] for f in fwd2], "ms_one_process": fwd1["ms"],
+            "peak_gib_ranks": [f["peak_gib"] for f in fwd2], "peak_gib_one_process": fwd1["peak_gib"],
+            "forward_counts_rank": c, "cli_wall_s_ranks": [r["cli"][mode]["wall_s"] for r in ranks],
+            "cli_wall_s_one_process": wall1}
+        print(f"[r] {mode} ({n} frames {hw[0]}x{hw[1]}): per rank K1 {c['K1']} a forward, "
+              f"{c['K1 halo']} with halo rows; {c['exchange']} halo exchanges, {c['all_reduce']} "
+              f"moment all-reduces, {c['gather']} gathers along H a forward; "
+              f"{max(report[mode]['ms_2_ranks']):.2f} ms a batch over 2 gloo ranks sharing one "
+              f"card (not a scaling figure) vs one process {fwd1['ms']:.2f}; peak memory a rank "
+              f"{max(report[mode]['peak_gib_ranks']):.3f} GiB vs one process "
+              f"{fwd1['peak_gib']:.3f}; float32 max |d| {g32[0]:.3g} (bound {SP_F32_BOUND}); "
+              f"bf16 max |d| {gbf[0]:.3g}, mean {gbf[1]:.3g} (bound {bound:.3g}: the one "
+              f"process's bf16 vs float32 max {spread[0]:.3g}); PNGs max {int(d_png.max())} mm, "
+              f"mean {float(d_png.mean()):.3f} mm")
+    k2 = ranks[0]["cli"]["main_pallas_conv"]
+    check(k2["K2"] == LAUNCHES_PER_BATCH and k2["K2 halo"] == LAUNCHES_PER_BATCH
+          and k2["K1"] == 0, f"[r] --pallas_conv over 2 ranks: launches {k2}")
+    for r, rank in enumerate(ranks):
+        paths[f"serve_spatial_pallas_conv_rank{r}"] = {
+            k: rank["cli"]["main_pallas_conv"][k] for k in ("K2", "K2 halo")}
+    print(f"[r] main --pallas_conv over 2 ranks: per rank K2 {k2['K2']}, {k2['K2 halo']} with "
+          "halo rows")
+    print("[r] " + json.dumps(report))
+    return paths
+
+
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     """One row per kernel and shape (K1 has four, K3's sums and backward two
     each); ``launches``
@@ -3565,6 +3917,50 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
                   f"{row['library_backward_device_ms']} ms); the forward "
                   f"{row['event_ms']:.4g} / {row['device_ms']} ms")
         rows.append(row)
+        del x, wt, scale, shift, xp, wb
+    # K1 and K2 with halo rows at a rank's band of the serving blocks' input
+    # (phase (r)'s: 64 of 128 rows and one halo row); launches: the halo
+    # launches of every path (phase (r)'s ranks); cuDNN on the same rows,
+    # padded at the frame's edge alone
+    for name, entry, shape, mode, replaces, at_shape in (
+            ("conv3x3_fused", "K1 halo", HALO_SHAPE, "reflect", k1,
+             "--spatial_devices 2 serving, a rank: main 24 a batch of 8 (I2D_features, "
+             "Depth_f), --SR 12 at B=4 (Depth_f at HR; I2D_features' 12 at B=4 64+1x160), "
+             "--I2D 12 (Image_f); all with halo rows"),
+            ("conv3x3_fused", "K1 halo translator", HALO_SHAPE[:3] + (256,), "replicate", k1,
+             "--spatial_devices 2 --translate serving, a rank: 18 a batch (G_A)"),
+            ("conv3x3", "K2 halo", HALO_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309",
+             "--spatial_devices 2 main serving --pallas_conv route, a rank: 24 a batch")):
+        b, h_in, w, c = shape
+        h = h_in - 1
+        x, wt, scale, shift = _inputs(torch.bfloat16, seed=1, shape=shape)
+        if name == "conv3x3_fused":
+            fn = lambda: K.conv3x3_fused(x, wt, scale, shift, mode, True, True, 1, 0)  # noqa: E731
+            plain = lambda: K.conv3x3_fused_plain(x, wt, scale, shift, mode, True, True, 1, 0)  # noqa: E731
+            extra_bytes = 2 * b * c * 4 * 2
+        else:
+            fn = lambda: K.conv3x3(x, wt, mode, 1, 0)  # noqa: E731
+            plain = lambda: K.conv3x3_fused_plain(x, wt, pad_mode=mode, halo_top=1)  # noqa: E731
+            extra_bytes = 0
+        flops = 2.0 * 9 * c * c * b * h * w
+        io = (b * h_in * w * c + b * h * w * c + 9 * c * c) * x.element_size()
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 0, 1), mode=mode)
+        xp = xp.contiguous(memory_format=torch.channels_last)
+        wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, (io + extra_bytes) / PEAK_HBM * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": "desr_tpu_torch/csrc/conv3x3.cu",
+            "replaces": replaces, **counts(entry.split()[0] + " halo"),
+            "max_abs_err": worst[entry],
+            "event_ms": cuda_ms(fn), **_device_stats(fn, "conv3x3"),
+            "host_ms": issue_ms(fn), "plain_ms": cuda_ms(plain, iters=5),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": cuda_ms(lambda: F.conv2d(xp, wb)),
+            "shape": f"B={b} ({h}+1)x{w} {c}->{c} bfloat16 {mode}, halo rows (1, 0)"
+                     + (" norm+relu+stats" if name == "conv3x3_fused" else ""),
+            "flops": flops, "launches_at_shape": at_shape,
+        })
         del x, wt, scale, shift, xp, wb
     # K3 at the main train step's shape and at the SR step's HR one, f32
     # pred/target (the model's tail is f32): the sums, then the backward as
@@ -3730,6 +4126,7 @@ def main():
           "torch.backends.cuda.matmul.allow_tf32 = False")
     card, two_launch_so = phase_card_and_build()
     worst = phase_kernels()
+    worst.update(phase_halo_kernels())
     k3_err, k3_bwd_err = phase_masked_loss()
     paths = {}  # each path's launches by kernel, from its phase's run of the entry point
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
@@ -3737,7 +4134,7 @@ def main():
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
                       phase_i2d_training, phase_translation_training, phase_device_aug,
                       phase_train_surface, phase_bench_io, phase_quality,
-                      phase_data_parallel):
+                      phase_data_parallel, phase_spatial):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

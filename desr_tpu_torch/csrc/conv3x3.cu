@@ -15,6 +15,14 @@
 // prologue never touches. The TPU kernel instead zero-pads virtually and adds
 // the ring corrections outside (layers.py apply_ring).
 //
+// Halo rows: x may carry halo_top (0 or 1) rows above and halo_bottom (0 or
+// 1) rows below the H output rows, another rank's rows of the same frame
+// (x has H + halo_top + halo_bottom rows). Output row y reads input rows
+// y + halo_top + dy - 1, and the index map runs over x's rows, so an end of H
+// with a halo row is never padded and an end without one is padded with the
+// border mode as before. The prologue applies to the halo rows too; the
+// stats count output rows only.
+//
 // Stats: each block writes the sum and the sum of squares of its raw f32
 // accumulators (before rounding to T) for each output channel into
 // psum/psq[b][tile][o]; the caller reduces over tiles in a second pass. No
@@ -132,8 +140,8 @@ __global__ void __launch_bounds__(NTHREADS)
 conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ scale, const float* __restrict__ shift,
                    float* __restrict__ out, float* __restrict__ psum,
-                   float* __restrict__ psq, int H, int W, int Cin, int Cout,
-                   int tiles_w, int mode, int relu) {
+                   float* __restrict__ psq, int H, int Hin, int ht, int W, int Cin,
+                   int Cout, int tiles_w, int mode, int relu) {
   __shared__ float xs[CI_F][HH][HW];
   __shared__ __align__(16) float ws[9][CI_F][CO_T];
 
@@ -149,7 +157,7 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int pc = (lane & 3) * PX;    // first tile column
   const int cw = warp * CO;          // first block-local output channel
 
-  const float* xb = x + (size_t)b * H * W * Cin;
+  const float* xb = x + (size_t)b * Hin * W * Cin;
   float acc[PX][CO];
 #pragma unroll
   for (int p = 0; p < PX; ++p)
@@ -162,8 +170,8 @@ conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int pix = i / CI_F;
       const int hc = pix % HW;
       const int hr = pix / HW;
-      xs[c][hr][hc] = load_input(xb, scale, shift, b, oh0 - 1 + hr, ow0 - 1 + hc,
-                                 ci0 + c, H, W, Cin, mode, relu);
+      xs[c][hr][hc] = load_input(xb, scale, shift, b, oh0 - 1 + ht + hr, ow0 - 1 + hc,
+                                 ci0 + c, Hin, W, Cin, mode, relu);
     }
     for (int i = tid; i < 9 * CI_F * CO_T; i += NTHREADS) {
       const int o = i % CO_T;
@@ -443,7 +451,8 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<NT>::MIN_BLOCKS)
 conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
                      const float* __restrict__ scale, const float* __restrict__ shift,
                      bf16* __restrict__ out, float* __restrict__ psum, float* __restrict__ psq,
-                     int H, int W, int Cin, int Cout, int tiles_w, int mode, int relu, int vec) {
+                     int H, int Hin, int ht, int W, int Cin, int Cout, int tiles_w, int mode,
+                     int relu, int vec) {
   using C = Cfg<NT>;
   constexpr int MW = C::MW;
   extern __shared__ uint8_t smem_raw[];
@@ -461,7 +470,7 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   const int oh0 = (tile / tiles_w) * C::TH, ow0 = (tile % tiles_w) * TW;
   const int co0 = blockIdx.y * NT;
   const int nchunks = (Cin + KC - 1) / KC, nsteps = 9 * nchunks;
-  const bf16* xb = x + (size_t)b * H * W * Cin;
+  const bf16* xb = x + (size_t)b * Hin * W * Cin;
   const uint8_t* wblk = reinterpret_cast<const uint8_t*>(wp) +
                         (size_t)blockIdx.y * nsteps * C::WS_BYTES;
 
@@ -485,7 +494,8 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
   // Source pixel of entry e, or -1 (zeros border, ragged edge, channels past C_in).
   auto source = [&](int e, int ci0) -> int {
     const int p = e >> 3, hr = p / HWD, hc = p - hr * HWD;
-    const int sh = border_index(oh0 - 1 + hr, H, mode), sw = border_index(ow0 - 1 + hc, W, mode);
+    const int sh = border_index(oh0 - 1 + ht + hr, Hin, mode);
+    const int sw = border_index(ow0 - 1 + hc, W, mode);
     return (sh < 0 || sw < 0 || ci0 + 8 * (e & 7) >= Cin) ? -1 : sh * W + sw;
   };
   // chunk ch's x into raw and its scale/shift into sbuf: cp.async (16
@@ -694,8 +704,8 @@ conv3x3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wp,
 
 template <int NT>
 int launch_bf16(const void* x, const void* wp, const float* scale, const float* shift, void* out,
-                float* psum, float* psq, int B, int H, int W, int Cin, int Cout, int mode,
-                int relu, int vec, cudaStream_t stream) {
+                float* psum, float* psq, int B, int H, int Hin, int ht, int W, int Cin,
+                int Cout, int mode, int relu, int vec, cudaStream_t stream) {
   using C = Cfg<NT>;
   // above 48 KB, dynamic shared memory is opt-in (per device: set every launch)
   const cudaError_t e = cudaFuncSetAttribute(
@@ -705,7 +715,7 @@ int launch_bf16(const void* x, const void* wp, const float* scale, const float* 
   const dim3 grid(((H + C::TH - 1) / C::TH) * tiles_w, (Cout + NT - 1) / NT, B);
   conv3x3_wgmma_kernel<NT><<<grid, NTHREADS, C::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wp), scale, shift,
-      static_cast<bf16*>(out), psum, psq, H, W, Cin, Cout, tiles_w, mode, relu, vec);
+      static_cast<bf16*>(out), psum, psq, H, Hin, ht, W, Cin, Cout, tiles_w, mode, relu, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,13 +728,18 @@ int launch_bf16(const void* x, const void* wp, const float* scale, const float* 
 // launches on `stream` without synchronising and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a tiling it was not built for).
 
+// H is the output's rows; x has H + halo_top + halo_bottom (each 0 or 1).
+//
 // bf16: w packed by the wrapper as [C_out / nt][chunk][tap][nt][64], each
 // (chunk, tap) tile 128-byte swizzled; psum/psq [B][tiles][C_out] with
 // tiles = ceil(H / th) * ceil(W / 16). (nt, th) in {(64, 16), (128, 8), (256, 8)}.
 extern "C" int desr_conv3x3_bf16(const void* x, const void* wp, const void* scale,
                                  const void* shift, void* out, void* psum, void* psq, int B,
-                                 int H, int W, int Cin, int Cout, int mode, int relu, int nt,
-                                 int th, void* stream) {
+                                 int H, int W, int Cin, int Cout, int mode, int relu,
+                                 int halo_top, int halo_bottom, int nt, int th, void* stream) {
+  if (halo_top < 0 || halo_top > 1 || halo_bottom < 0 || halo_bottom > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hin = H + halo_top + halo_bottom;
   const int vec = (Cin % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
@@ -732,11 +747,14 @@ extern "C" int desr_conv3x3_bf16(const void* x, const void* wp, const void* scal
   float* pq = static_cast<float*>(psq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nt == 256 && th == wg::Cfg<256>::TH)
-    return wg::launch_bf16<256>(x, wp, sc, sh, out, ps, pq, B, H, W, Cin, Cout, mode, relu, vec, s);
+    return wg::launch_bf16<256>(x, wp, sc, sh, out, ps, pq, B, H, hin, halo_top, W, Cin, Cout,
+                                 mode, relu, vec, s);
   if (nt == 128 && th == wg::Cfg<128>::TH)
-    return wg::launch_bf16<128>(x, wp, sc, sh, out, ps, pq, B, H, W, Cin, Cout, mode, relu, vec, s);
+    return wg::launch_bf16<128>(x, wp, sc, sh, out, ps, pq, B, H, hin, halo_top, W, Cin, Cout,
+                                 mode, relu, vec, s);
   if (nt == 64 && th == wg::Cfg<64>::TH)
-    return wg::launch_bf16<64>(x, wp, sc, sh, out, ps, pq, B, H, W, Cin, Cout, mode, relu, vec, s);
+    return wg::launch_bf16<64>(x, wp, sc, sh, out, ps, pq, B, H, hin, halo_top, W, Cin, Cout,
+                                 mode, relu, vec, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -745,13 +763,15 @@ extern "C" int desr_conv3x3_bf16(const void* x, const void* wp, const void* scal
 extern "C" int desr_conv3x3_f32(const void* x, const void* w, const void* scale,
                                 const void* shift, void* out, void* psum, void* psq, int B,
                                 int H, int W, int Cin, int Cout, int mode, int relu,
-                                void* stream) {
+                                int halo_top, int halo_bottom, void* stream) {
+  if (halo_top < 0 || halo_top > 1 || halo_bottom < 0 || halo_bottom > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_w = (W + TW - 1) / TW;
   const dim3 grid(((H + TH - 1) / TH) * tiles_w, (Cout + CO_T - 1) / CO_T, B);
   conv3x3_f32_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<float*>(out), static_cast<float*>(psum), static_cast<float*>(psq), H, W, Cin,
-      Cout, tiles_w, mode, relu);
+      static_cast<float*>(out), static_cast<float*>(psum), static_cast<float*>(psq), H,
+      H + halo_top + halo_bottom, halo_top, W, Cin, Cout, tiles_w, mode, relu);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,11 +26,15 @@ rows of each (``shard``); while the staged batch is split over the ranks,
 moments and the losses their denominators, and the metrics are averaged
 (``global_metrics``). ``reduce_grads`` averages the trained nets'
 gradients between each backward and its Adam step. Checkpoints are written
-by rank 0 and read by every rank.
+by rank 0 and read by every rank. On a mesh with a spatial axis
+(``--spatial_devices``, serving only) ``serve_forward`` takes this rank's
+band of each frame's rows and returns its rows of the prediction
+(``serving_layout``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -47,6 +51,7 @@ from desr_tpu_torch.models.layers import (
 )
 from desr_tpu_torch.ops import optim
 from desr_tpu_torch.parallel import mesh as M
+from desr_tpu_torch.parallel import spatial as S
 
 
 def remat_modes(opt):
@@ -248,6 +253,19 @@ class BaseModel(nn.Module):
         if group is not self.step_group:
             set_batch_norm_group(self.nets, group)
             self.step_group = group
+
+    def serving_layout(self, batch, module):
+        """The context ``module`` (nets of this model) serves a ``Shard`` in.
+        On a spatial mesh the module's layers are tagged with this rank's
+        spatial group, and a batch whose frames the mesh leaves whole
+        (``Shard.h_split`` false: H not divisible by S or under 32 rows, or
+        a batch the data axis does not divide) runs under
+        ``spatial.whole()``, as on one process. Elsewhere a null context."""
+        sp = S.from_mesh(self.mesh)
+        if sp is None:
+            return contextlib.nullcontext()
+        S.set_spatial_group(module, sp)
+        return contextlib.nullcontext() if batch.h_split else S.whole()
 
     def reduce_grads(self, net_names):
         """Average the gradients of the nets ``net_names`` over the ranks

@@ -106,9 +106,12 @@ class I2DModel(BaseModel):
     def serve_forward(self, batch):
         """``pred_real_depth`` (B, H, W) float32 of the real branch: ``Task``
         on ``Image_f``'s features of "B_i" (B, H, W, 3) in [-1, 1], a numpy
-        array or tensor."""
+        array or tensor; on a mesh of several ranks this rank's rows, as
+        ``MainModel.serve_forward``'s."""
+        batch = self.shard(batch)
         image = _to_device(batch["B_i"], self.device).to(self.compute_dtype).permute(0, 3, 1, 2)
-        return self.nets["Task"](self.nets["Image_f"](image))[:, 0].float()
+        with self.serving_layout(batch, self.nets):
+            return self.nets["Task"](self.nets["Image_f"](image))[:, 0].float()
 
     def forward_all(self, batch, train=True):
         """(feats_syn, feats_real, pred_syn, pred_real): compute-dtype NCHW

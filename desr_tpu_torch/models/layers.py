@@ -7,8 +7,9 @@ the dtype of what it is given. Conv weights are OIHW and transposed-conv
 weights IOHW, so ``state_dict`` keys and shapes equal the JAX param dicts.
 
 Plain ``torch.nn`` modules are used where they already have the semantics
-(ReLU, LeakyReLU, Tanh, the pads, Dropout, and Upsample: nearest, and bilinear
-with align_corners=False, which is the JAX layer's ``resize_bilinear``).
+(ReLU, LeakyReLU, Tanh, Dropout), or subclassed where only the spatial axis
+needs more (the pads, and Upsample: nearest, and bilinear with
+align_corners=False, which is the JAX layer's ``resize_bilinear``).
 BatchNorm and the spectral-norm conv follow the JAX layers rather than
 ``torch.nn``'s (see each). The JAX package's XLA-steering variants of the
 same functions (ring_pad, tap_conv, split_conv, fused_pad, phase_convt,
@@ -20,6 +21,16 @@ is ``run_layers``: each maximal run of primitive layers goes under one
 ``torch.utils.checkpoint``, whole (blocks) or saving the conv outputs
 (tails); composite modules run outside and handle their own runs, and
 BatchNorm stays outside every checkpoint.
+
+Under ``--spatial_devices`` (``parallel/spatial.py``) a rank holds a band of
+each frame's rows, and the layers that read across rows take a ``spatial``
+tag (``set_spatial_group``): a conv or a pad takes the halo rows its window
+reads from the neighbouring ranks and pads H only at the frame's edges, a
+transposed conv crops its output to the rank's rows, and InstanceNorm and
+GroupNorm sum their moments over the ranks. A conv with no padding of its
+own and stride 1 reads rows that the pad before it already added (every
+such conv in the nets follows a ReflectionPad2d or a ReplicationPad2d, or
+is 1x1).
 """
 
 from __future__ import annotations
@@ -40,34 +51,139 @@ from torch.nn import (  # noqa: F401  (re-exported for networks.py)
     Dropout,
     Identity,
     LeakyReLU,
-    ReflectionPad2d,
     ReLU,
-    ReplicationPad2d,
     Tanh,
-    Upsample,
 )
 
+from desr_tpu_torch.parallel import spatial as S
 from desr_tpu_torch.parallel.mesh import all_reduce_sum
+from desr_tpu_torch.parallel.spatial import set_spatial_group  # noqa: F401
 
 
 def _cast(p, x):
     return None if p is None else p.to(x.dtype)
 
 
+def conv_halo(k, stride, padding):
+    """(rows above, rows below) beyond a rank's band that a conv's window
+    reads, where its output is the input's rows / stride: output row y reads
+    input rows y*stride - padding .. + k - 1 (3x3 s1 p1: (1, 1); 3x3 s2 p1:
+    (1, 0); 4x4 s2 p1: (1, 1); 7x7 s1 p3: (3, 3))."""
+    return padding, k - stride - padding
+
+
+def convt_halo(k, stride, padding):
+    """(rows above, rows below) of the input that a transposed conv's
+    output band reads, where its output is the input's rows x stride
+    (4x4 s2 p1: (1, 1); 3x3 s2 p1 with output_padding 1: (0, 1))."""
+    return (k - 1 - padding) // stride, (stride - 1 + padding) // stride
+
+
+def _rows_pad(x, sp, top, bottom, w_pads, mode):
+    """x with ``top`` / ``bottom`` halo rows from its neighbours and the
+    frame's edges padded by ``mode`` (zeros: "constant") to as many; W
+    padded by ``w_pads`` = (left, right)."""
+    x, ht, hb = S.exchange_rows(x, top, bottom, sp)
+    pads = (*w_pads, top - ht, bottom - hb)
+    if not any(pads):
+        return x
+    return F.pad(x, pads) if mode in ("zeros", "constant") else F.pad(x, pads, mode=mode)
+
+
 class Conv2d(nn.Conv2d):
-    """torch Conv2d (zeros/reflect/replicate padding, stride) with f32 params."""
+    """torch Conv2d (zeros/reflect/replicate padding, stride) with f32 params;
+    on a rank's band of rows under a ``spatial`` tag (see the module)."""
+
+    spatial = None
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x))
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x)
+        sp = S.active(self.spatial)
+        if sp is None:
+            return self._conv_forward(x, w, b)
+        (k, _), (stride, _), (p, pw) = self.kernel_size, self.stride, self.padding
+        if p == 0 and stride == 1:  # its rows come with x (see the module)
+            return self._conv_forward(x, w, b)
+        top, bottom = conv_halo(k, stride, p)
+        if bottom < 0 or self.dilation != (1, 1) or x.shape[2] % stride:
+            raise NotImplementedError(
+                f"a {k}x{k} stride-{stride} conv (padding {p}) on {x.shape[2]} rows a rank")
+        mode = self.padding_mode
+        x = _rows_pad(x, sp, top, bottom, (0, 0) if mode == "zeros" else (pw, pw), mode)
+        return F.conv2d(x, w, b, self.stride, (0, pw) if mode == "zeros" else 0,
+                        self.dilation, self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """torch ConvTranspose2d (``output_padding``) with f32 params."""
+    """torch ConvTranspose2d (``output_padding``) with f32 params; under a
+    ``spatial`` tag it reads ``convt_halo`` rows (zeros past the frame's
+    edges) and crops its output to the rank's rows."""
+
+    spatial = None
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x),
-                                  self.stride, self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x)
+        sp = S.active(self.spatial)
+        if sp is None:
+            return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                      self.groups, self.dilation)
+        (k, _), (stride, _), (p, pw), (op, opw) = (self.kernel_size, self.stride,
+                                                   self.padding, self.output_padding)
+        if k + op - 2 * p != stride or self.dilation != (1, 1):
+            raise NotImplementedError(f"a {k}x{k} stride-{stride} transposed conv whose "
+                                      "output is not its input's rows x stride")
+        h = x.shape[2]
+        top, bottom = convt_halo(k, stride, p)
+        x = _rows_pad(x, sp, top, bottom, (0, 0), "zeros")
+        y = F.conv_transpose2d(x, w, b, self.stride, (0, pw), (0, opw), self.groups,
+                               self.dilation)
+        return y[:, :, top * stride + p:top * stride + p + h * stride]
+
+
+class ReflectionPad2d(nn.ReflectionPad2d):
+    """Reflect padding; under a ``spatial`` tag the rows at a seam between
+    ranks come from the neighbour and only the frame's edges reflect."""
+
+    spatial = None
+
+    def forward(self, x):
+        sp = S.active(self.spatial)
+        if sp is None:
+            return super().forward(x)
+        left, right, top, bottom = self.padding
+        return _rows_pad(x, sp, top, bottom, (left, right), "reflect")
+
+
+class ReplicationPad2d(nn.ReplicationPad2d):
+    """Replicate padding; rows at a seam as ``ReflectionPad2d``'s."""
+
+    spatial = None
+
+    def forward(self, x):
+        sp = S.active(self.spatial)
+        if sp is None:
+            return super().forward(x)
+        left, right, top, bottom = self.padding
+        return _rows_pad(x, sp, top, bottom, (left, right), "replicate")
+
+
+class Upsample(nn.Upsample):
+    """torch Upsample by an integer factor. Under a ``spatial`` tag nearest
+    keeps within each rank's rows; bilinear reads one row each side (the
+    frame's edges replicated, as its clamp does) and crops."""
+
+    spatial = None
+
+    def forward(self, x):
+        sp = S.active(self.spatial)
+        f = self.scale_factor
+        if sp is None or (self.mode == "nearest" and float(f) == int(f)):
+            return super().forward(x)
+        if self.mode != "bilinear" or self.align_corners or float(f) != int(f):
+            raise NotImplementedError(f"Upsample {self.mode} x{f} on a rank's rows")
+        f, h = int(f), x.shape[2]
+        y = super().forward(_rows_pad(x, sp, 1, 1, (0, 0), "replicate"))
+        return y[:, :, f:f + h * f]
 
 
 def moments_hw(x):
@@ -76,14 +192,28 @@ def moments_hw(x):
     return x32.sum(dim=(2, 3)), x32.square().sum(dim=(2, 3))
 
 
+def frame_moments(s, s2, n, spatial):
+    """(s, s2, n) of a rank's band as the whole frame's: the stacked sums in
+    one all_reduce over the spatial group and n x S, where ``spatial`` is
+    active; else as given."""
+    sp = S.active(spatial)
+    if sp is None:
+        return s, s2, n
+    s, s2 = S.reduce_sum(torch.stack([s, s2]), sp).unbind(0)
+    return s, s2, n * sp.size
+
+
 class InstanceNorm2d(nn.Module):
     """affine=False, no running stats, eps 1e-5 (layers.py:1129-1161).
 
     One-pass moments as in the JAX layer: var = max(E[x^2] - E[x]^2, 0) from
     f32 sums, and the normalisation itself in the input's dtype. Against a
     two-pass variance this loses digits only where |mean| >> std; the port's
-    tests hold it to the JAX layer at 1e-5 abs in float32.
+    tests hold it to the JAX layer at 1e-5 abs in float32. Under a
+    ``spatial`` tag the sums are the frame's (``frame_moments``).
     """
+
+    spatial = None
 
     def __init__(self, num_features, eps=1e-5):
         super().__init__()
@@ -91,8 +221,8 @@ class InstanceNorm2d(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        n = x.shape[2] * x.shape[3]
         s, s2 = moments_hw(x)
+        s, s2, n = frame_moments(s, s2, x.shape[2] * x.shape[3], self.spatial)
         mean = s / n
         var = torch.clamp(s2 / n - mean.square(), min=0.0)
         scale = torch.rsqrt(var + self.eps).to(x.dtype)[:, :, None, None]
@@ -104,8 +234,11 @@ class GroupNorm(nn.Module):
     is GroupNorm(8, affine=True) with keys ``weight`` and ``bias``.
 
     One-pass moments per (batch, group) in f32 as in the JAX layer, the
-    normalisation and the affine in the input's dtype.
+    normalisation and the affine in the input's dtype; the frame's under a
+    ``spatial`` tag (``frame_moments``).
     """
+
+    spatial = None
 
     def __init__(self, num_groups, num_channels, affine=True, eps=1e-5):
         super().__init__()
@@ -117,10 +250,11 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         xg = x.reshape(b, self.g, c // self.g, h, w)
-        n = xg[0, 0].numel()
         x32 = xg.float()
-        mean = x32.sum(dim=(2, 3, 4), keepdim=True) / n
-        meansq = x32.square().sum(dim=(2, 3, 4), keepdim=True) / n
+        s, s2, n = frame_moments(x32.sum(dim=(2, 3, 4), keepdim=True),
+                                 x32.square().sum(dim=(2, 3, 4), keepdim=True),
+                                 xg[0, 0].numel(), self.spatial)
+        mean, meansq = s / n, s2 / n
         var = torch.clamp(meansq - mean.square(), min=0.0)
         scale = torch.rsqrt(var + self.eps).to(x.dtype)
         out = ((xg - mean.to(x.dtype)) * scale).reshape(b, c, h, w)
@@ -205,6 +339,7 @@ class BatchNorm2d(nn.Module):
     """
 
     group = None
+    spatial = None
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
         super().__init__()
@@ -218,6 +353,9 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         x32 = x.float()
         train, track = _BN_MODE[-1] if _BN_MODE else (self.training, self.training)
+        if train and S.active(self.spatial) is not None:
+            raise NotImplementedError("BatchNorm's batch moments over a rank's rows: "
+                                      + S.NOT_PORTED)
         n = x32.numel() // self.c
         if train and self.group is None:
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)

@@ -85,6 +85,8 @@ class ServingForward(torch.nn.Module):
     parameters are named ``<net>.<torch key>``.
     """
 
+    spatial = None  # the SR guidance's resizes read it (main_sr_model.py)
+
     def __init__(self, nets, compute_dtype):
         super().__init__()
         for name in NET_NAMES:
@@ -242,10 +244,15 @@ class MainModel(BaseModel):
 
         ``batch``: "B_i" (B, H, W, 3) image and "B_d" (B, H, W, 1) depth, both
         in [-1, 1], numpy arrays or tensors (the JAX package's NHWC layout),
-        uploaded to the model's device for ``serving_module()``.
+        uploaded to the model's device for ``serving_module()``. On a mesh
+        of several ranks, this rank's rows of it (``shard``; a ``Shard`` as
+        it is) and of the prediction (``serving_layout``).
         """
-        return self.serving_module()(_to_device(batch["B_d"], self.device),
-                                     _to_device(batch["B_i"], self.device))
+        batch = self.shard(batch)
+        module = self.serving_module()
+        with self.serving_layout(batch, module):
+            return module(_to_device(batch["B_d"], self.device),
+                          _to_device(batch["B_i"], self.device))
 
     def _guidance(self, images):
         """(features, depth prior) of the frozen image nets: compute-dtype

@@ -47,12 +47,14 @@ class SRServingForward(ServingForward):
 
     def guidance(self, images):
         """LR guidance, upsampled to HR (main_sr_model.py:166-172): the casts
-        to the compute dtype after each resize are the JAX package's."""
-        dt = self.compute_dtype
-        lr_img = resize_bicubic_planar(images.float(), self.lr_hw).to(dt)
+        to the compute dtype after each resize are the JAX package's. On a
+        rank's band of rows (``spatial``) each resize gives the rank's band
+        of its output (``ops/resize.py``)."""
+        dt, sp = self.compute_dtype, self.spatial
+        lr_img = resize_bicubic_planar(images.float(), self.lr_hw, sp).to(dt)
         feats, dbi = super().guidance(lr_img)
-        return (resize_bicubic_planar(feats.float(), self.hr_hw).to(dt),
-                resize_bicubic_planar(dbi, self.hr_hw))
+        return (resize_bicubic_planar(feats.float(), self.hr_hw, sp).to(dt),
+                resize_bicubic_planar(dbi, self.hr_hw, sp))
 
 
 class MainSRModel(MainModel):

@@ -13,6 +13,13 @@ ResnetBlocks take the unfused route (cuDNN's convs, or K2 under
 ``--pallas_conv``), as K1 fuses only instance and group moments
 (layers.py:289-300). Each composite (generator, ResnetBlock, U-Net level)
 reads its ``remat`` mode (``layers.set_remat``).
+
+Under ``--spatial_devices`` (``layers.set_spatial_group``) each rank runs
+the nets on its band of the frame's rows: the ResnetBlocks' K1 / K2 launches
+read one halo row from each neighbour and the norms' moments are the
+frame's; each U-Net level is split or whole by its global H (JAX's
+``spatial_anchor``, networks.py:187-207): the first whole level gathers its
+input and its output goes back to the rank's rows.
 """
 
 from __future__ import annotations
@@ -36,17 +43,19 @@ from desr_tpu_torch.models.layers import (
     SpectralNormConv2d,
     Tanh,
     Upsample,
+    frame_moments,
     get_norm_layer,
     norm_vectors,
     remat_call,
     run_layers,
 )
 from desr_tpu_torch.ops import conv3x3 as K
+from desr_tpu_torch.parallel import spatial as S
 
 _PAD_MODE = {"reflect": "reflect", "replicate": "replicate", "zero": "zeros"}
 
 
-def fused_resnet_chain(x, convs, norms, pad_mode):
+def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None):
     """x + norm2(conv2(relu(norm1(conv1(x))))) as the fused chain of
     ``Sequential._run_fused_chain`` (layers.py:271-337), NCHW in and out.
 
@@ -56,15 +65,30 @@ def fused_resnet_chain(x, convs, norms, pad_mode):
     its own moments, and the last norm is one multiply-add before the skip.
     Both convs are ``conv3x3_fused``: the kernel on the card, its plain
     version on the CPU; differentiable either way.
+
+    Under an active ``spatial`` the rank's band of x, then of conv1's raw
+    output, takes one halo row from each neighbour (K1's ``halo_top`` /
+    ``halo_bottom``; the prologue normalises the halo rows as its own), and
+    each conv's (s, s2) are summed over the ranks in one all_reduce, with n
+    the frame's pixel count.
     """
     x = x.contiguous(memory_format=torch.channels_last)
     xh = x.permute(0, 2, 3, 1)  # NHWC view, contiguous
     (c1, c2), (n1, n2) = convs, norms
+    sp = S.active(spatial)
     n = xh.shape[1] * xh.shape[2]
-    y, s, s2 = K.conv3x3_fused(xh, c1.weight, pad_mode=pad_mode, stats=True)
-    sc, sh = norm_vectors(n1, s, s2, n, c1.bias)
-    z, s, s2 = K.conv3x3_fused(y, c2.weight, sc, sh, pad_mode, relu=True, stats=True)
-    sc, sh = norm_vectors(n2, s, s2, n, c2.bias)
+
+    def conv(v, w, *prologue):
+        ht = hb = 0
+        if sp is not None:
+            v, ht, hb = S.exchange_rows(v, 1, 1, sp, dim=1)
+        out, s, s2 = K.conv3x3_fused(v, w, *prologue, stats=True, halo_top=ht, halo_bottom=hb)
+        return (out, *frame_moments(s, s2, n, sp))
+
+    y, s, s2, n_all = conv(xh, c1.weight, None, None, pad_mode)
+    sc, sh = norm_vectors(n1, s, s2, n_all, c1.bias)
+    z, s, s2, n_all = conv(y, c2.weight, sc, sh, pad_mode, True)
+    sc, sh = norm_vectors(n2, s, s2, n_all, c2.bias)
     out = xh + (z.float() * sc[:, None, None, :] + sh[:, None, None, :]).to(x.dtype)
     return out.permute(0, 3, 1, 2)
 
@@ -78,10 +102,12 @@ class ResnetBlock(nn.Module):
     and the norms run as layers (the JAX ``--pallas_conv`` route); under
     batch or no norm with ``fused`` the block runs its layers, cuDNN's convs.
     Under a remat mode the fused chain is one checkpointed span; the layers'
-    runs go through ``run_layers`` (a BatchNorm stays outside).
+    runs go through ``run_layers`` (a BatchNorm stays outside). Under a
+    ``spatial`` tag K1 and K2 read halo rows (``fused_resnet_chain``).
     """
 
     remat = None
+    spatial = None
 
     def __init__(self, dim, padding_type, norm_layer, use_dropout, use_bias,
                  fused=True):
@@ -126,13 +152,18 @@ class ResnetBlock(nn.Module):
         return x + run_layers(self.conv_block, x, self.remat)
 
     def _chain(self, x):
-        return fused_resnet_chain(x, self._convs, self._norms, self.pad_mode)
+        return fused_resnet_chain(x, self._convs, self._norms, self.pad_mode, self.spatial)
 
     def _k2(self, conv):
-        """The conv as K2 (``conv3x3``) on an NCHW tensor, bias added."""
+        """The conv as K2 (``conv3x3``) on an NCHW tensor, bias added; with
+        halo rows on a rank's band."""
         def run(x):
             xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            y = K.conv3x3(xh, conv.weight, self.pad_mode).permute(0, 3, 1, 2)
+            halo = ()
+            sp = S.active(self.spatial)
+            if sp is not None:
+                xh, *halo = S.exchange_rows(xh, 1, 1, sp, dim=1)
+            y = K.conv3x3(xh, conv.weight, self.pad_mode, *halo).permute(0, 3, 1, 2)
             return y if conv.bias is None else y + conv.bias.to(y.dtype)[:, None, None]
         return run
 
@@ -185,10 +216,14 @@ class UnetSkipConnectionBlock(nn.Module):
     affine does: the head refuses ``--norm batch``, whose JAX layer fails
     there too).
     Under a remat mode the level's spans before and after its submodule are
-    checkpointed apart (``run_layers``; layers.py:422-460).
+    checkpointed apart (``run_layers``; layers.py:422-460). Under a
+    ``spatial`` tag a level whose global H the ranks do not split
+    (``Spatial.sharded``) gathers its input, runs whole (its inner levels
+    too) and returns the rank's rows of its output.
     """
 
     remat = None
+    spatial = None
 
     def __init__(self, outer_nc, inner_nc, input_nc=None, submodule=None,
                  outermost=False, innermost=False, norm_layer=InstanceNorm2d,
@@ -231,6 +266,14 @@ class UnetSkipConnectionBlock(nn.Module):
         self.model = nn.Sequential(*model)
 
     def forward(self, x):
+        sp = S.active(self.spatial)
+        if sp is not None and not sp.sharded(x.shape[2] * sp.size):
+            with S.whole():
+                out = self._level(S.gather_h(x, sp))
+            return S.take_h(out, sp)
+        return self._level(x)
+
+    def _level(self, x):
         out = run_layers(self.model, x, self.remat)
         if self.outermost:
             return out

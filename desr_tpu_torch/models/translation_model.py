@@ -169,10 +169,13 @@ class TranslationModel(BaseModel):
         "B_i" (B, H, W, 3), both in [-1, 1], numpy arrays or tensors:
         ``fake_depth_B`` = G_A(depth, image) under AtoB, ``fake_depth_A`` =
         G_B(depth, image) (G_B(depth) under --inp_B depth) under BtoA
-        (translation_model.py:172-177)."""
+        (translation_model.py:172-177); on a mesh of several ranks this
+        rank's rows, as ``MainModel.serve_forward``'s."""
+        batch = self.shard(batch)
         depth = _to_device(batch["B_d"], self.device).float()[..., 0]
         image = _to_device(batch["B_i"], self.device).to(self.compute_dtype).permute(0, 3, 1, 2)
-        return self._apply_G("G_A" if self.direction == "AtoB" else "G_B", depth, image)
+        with self.serving_layout(batch, self.nets):
+            return self._apply_G("G_A" if self.direction == "AtoB" else "G_B", depth, image)
 
     def gen_forward(self, batch, idt=True):
         """The generator forward of translation_model.py:162-200: planar

@@ -104,10 +104,12 @@ class ResnetBlockT(nn.Module):
     The forward is ``fused_resnet_chain`` with replicate borders: the
     [Conv2d(k=3, pad=1, padding_mode=replicate)] link that
     ``Sequential._fused_link`` parses (layers.py:257-262), GroupNorm folded
-    into scale/shift. Under a remat mode the chain is one checkpointed span.
+    into scale/shift. Under a remat mode the chain is one checkpointed span;
+    under a ``spatial`` tag K1 reads halo rows.
     """
 
     remat = None
+    spatial = None
 
     def __init__(self, dim, norm_factory, use_bias):
         super().__init__()
@@ -122,7 +124,7 @@ class ResnetBlockT(nn.Module):
 
     def _chain(self, x):
         b = self.conv_block
-        return fused_resnet_chain(x, (b[0], b[3]), (b[1], b[4]), "replicate")
+        return fused_resnet_chain(x, (b[0], b[3]), (b[1], b[4]), "replicate", self.spatial)
 
 
 class _Part(nn.Module):

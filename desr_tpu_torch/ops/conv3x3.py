@@ -22,6 +22,17 @@ GFLOP against ~84 MB moved, so the tensor cores (989 TFLOP/s bf16) set the
 floor at about 0.049 ms, above the 0.025 ms that HBM (3.35 TB/s) needs. The
 float32 body is an exact f32 path on the CUDA cores.
 
+Halo rows (``halo_top``, ``halo_bottom``, each 0 or 1): under
+``--spatial_devices`` a rank holds a band of a frame's rows, and x then
+carries one more row above and/or below its band, a neighbour's
+(``desr_tpu_torch/parallel/spatial.py``). x has ``H_out + halo_top +
+halo_bottom`` rows and output row y reads rows ``y + halo_top + dy - 1``:
+an end of H with a halo row is not padded, an end without one (the frame's
+edge) is padded with ``pad_mode`` as before. The prologue applies to the
+halo rows too, and the moments count the output rows alone. The backward
+of a launch with halo rows is not ported (training under
+``--spatial_devices`` is not).
+
 A CPU tensor takes the plain PyTorch version (``conv3x3_fused_plain``), which
 is also the kernel's oracle on the card. A CUDA tensor launches the kernel or
 raises: there is no fallback.
@@ -99,12 +110,13 @@ def pack_weights(w, nt, dtype=torch.bfloat16):
 
 
 def conv3x3_fused_plain(x, w, scale=None, shift=None, pad_mode="reflect",
-                        relu=False, stats=False):
+                        relu=False, stats=False, halo_top=0, halo_bottom=0):
     """Plain PyTorch version of ``conv3x3_fused``: same arguments, same results.
 
     The prologue runs in f32 and is rounded to x's dtype; the conv accumulates
     in f32 over the dtype-rounded input and weights; the stats are sums of that
-    f32 accumulator before it is rounded to the output dtype.
+    f32 accumulator before it is rounded to the output dtype. W is padded
+    with ``pad_mode``, H only at an end without a halo row.
     """
     dt = x.dtype
     if scale is not None:
@@ -114,24 +126,31 @@ def conv3x3_fused_plain(x, w, scale=None, shift=None, pad_mode="reflect",
         x = v.to(dt)
     xn = x.permute(0, 3, 1, 2).float()
     w32 = w.to(dt).float()
-    if pad_mode == "zeros":
+    pads = (1, 1, 1 - halo_top, 1 - halo_bottom)
+    if pad_mode == "zeros" and pads == (1, 1, 1, 1):
         acc = F.conv2d(xn, w32, padding=1)
+    elif pad_mode == "zeros":
+        acc = F.conv2d(F.pad(xn, pads), w32)
     else:
-        acc = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode=pad_mode), w32)
+        acc = F.conv2d(F.pad(xn, pads, mode=pad_mode), w32)
     out = acc.to(dt).permute(0, 2, 3, 1)
     if not stats:
         return out
     return out, acc.sum(dim=(2, 3)), acc.square().sum(dim=(2, 3))
 
 
-def _check(x, w, scale, shift, pad_mode):
+def _check(x, w, scale, shift, pad_mode, halo_top=0, halo_bottom=0):
     if pad_mode not in PAD_MODES:
         raise ValueError(f"pad_mode {pad_mode!r} not in {sorted(PAD_MODES)}")
+    if halo_top not in (0, 1) or halo_bottom not in (0, 1):
+        raise ValueError(f"halo rows are 0 or 1; got {halo_top}, {halo_bottom}")
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (3, 3):
         raise ValueError(f"want NHWC x and (O, I, 3, 3) w; got {tuple(x.shape)}, {tuple(w.shape)}")
     b, h, wd, c = x.shape
     if w.shape[1] != c:
         raise ValueError(f"w has {w.shape[1]} input channels, x has {c}")
+    if h <= halo_top + halo_bottom:
+        raise ValueError(f"x has {h} rows: no output row beside {halo_top + halo_bottom} halo rows")
     if pad_mode == "reflect" and min(h, wd) < 2:
         raise ValueError(f"reflect padding needs H, W >= 2; got {h}x{wd}")
     if (scale is None) != (shift is None):
@@ -142,8 +161,9 @@ def _check(x, w, scale, shift, pad_mode):
                 raise ValueError(f"{name} must be (B, C_in) = {(b, c)}; got {tuple(v.shape)}")
 
 
-def _launch(x, w, scale, shift, pad_mode, relu, stats):
-    """Launch the CUDA kernel on x's device and PyTorch's current stream."""
+def _launch(x, w, scale, shift, pad_mode, relu, stats, halo_top=0, halo_bottom=0):
+    """Launch the CUDA kernel on x's device and PyTorch's current stream;
+    x has ``halo_top + halo_bottom`` rows more than the output."""
     if x.dtype not in DTYPES:
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, not {x.dtype}")
     if not x.is_contiguous():
@@ -154,6 +174,7 @@ def _launch(x, w, scale, shift, pad_mode, relu, stats):
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
     lib = _library()
     b, h, wd, c = x.shape
+    h -= halo_top + halo_bottom  # the output's rows
     o = w.shape[0]
     bf16 = x.dtype == torch.bfloat16
     if bf16:
@@ -177,7 +198,7 @@ def _launch(x, w, scale, shift, pad_mode, relu, stats):
         return None if t is None else t.data_ptr()
 
     args = (ptr(x), ptr(wt), ptr(scale), ptr(shift), ptr(out), ptr(psum), ptr(psq),
-            b, h, wd, c, o, PAD_MODES[pad_mode], int(relu))
+            b, h, wd, c, o, PAD_MODES[pad_mode], int(relu), int(halo_top), int(halo_bottom))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if bf16:
@@ -199,9 +220,9 @@ def _library():
 
     lib = _build.load("conv3x3")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.desr_conv3x3_bf16.argtypes = [vp] * 7 + [ci] * 9 + [vp]
+    lib.desr_conv3x3_bf16.argtypes = [vp] * 7 + [ci] * 11 + [vp]
     lib.desr_conv3x3_bf16.restype = ci
-    lib.desr_conv3x3_f32.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+    lib.desr_conv3x3_f32.argtypes = [vp] * 7 + [ci] * 9 + [vp]
     lib.desr_conv3x3_f32.restype = ci
     return lib
 
@@ -218,6 +239,10 @@ def _vjp(ctx, grads, need_dx, need_dw):
     """(dx, dw, dscale, dshift) of the plain composition prologue -> pad ->
     conv (-> moments) at the inputs ``ctx`` saved, for the cotangents
     ``grads`` of (out, s, s2) (stats) or of out alone."""
+    if ctx.halo != (0, 0):
+        raise NotImplementedError(
+            "the backward of conv3x3 with halo rows: training under --spatial_devices "
+            "is not yet ported")
     x, w, scale, shift, out = ctx.saved_tensors
     dt = x.dtype
     if ctx.stats:
@@ -257,21 +282,26 @@ def _vjp(ctx, grads, need_dx, need_dw):
     return dx, None if dw is None else dw.to(w.dtype), dscale, dshift
 
 
-def _fused_forward(x, w, scale, shift, pad_mode, relu, stats):
-    """K1 on x's device: the plain version on the CPU, the kernel on CUDA."""
+def _fused_forward(x, w, scale, shift, pad_mode, relu, stats, halo_top=0, halo_bottom=0):
+    """K1 on x's device: the plain version on the CPU, the kernel on CUDA.
+    ``launches_halo`` counts the launches with a halo row."""
+    halo = (halo_top, halo_bottom)
     if x.device.type == "cpu":
-        return conv3x3_fused_plain(x, w, scale, shift, pad_mode, relu, stats)
-    res = _launch(x, w, scale, shift, pad_mode, relu, stats)
+        return conv3x3_fused_plain(x, w, scale, shift, pad_mode, relu, stats, *halo)
+    res = _launch(x, w, scale, shift, pad_mode, relu, stats, *halo)
     conv3x3_fused.launches += 1
+    conv3x3_fused.launches_halo += halo != (0, 0)
     return res
 
 
-def _conv_forward(x, w, pad_mode):
+def _conv_forward(x, w, pad_mode, halo_top=0, halo_bottom=0):
     """K2 on x's device: the plain version on the CPU, the kernel on CUDA."""
+    halo = (halo_top, halo_bottom)
     if x.device.type == "cpu":
-        return conv3x3_fused_plain(x, w, None, None, pad_mode)
-    res = _launch(x, w, None, None, pad_mode, False, False)
+        return conv3x3_fused_plain(x, w, None, None, pad_mode, False, False, *halo)
+    res = _launch(x, w, None, None, pad_mode, False, False, *halo)
     conv3x3.launches += 1
+    conv3x3.launches_halo += halo != (0, 0)
     return res
 
 
@@ -281,21 +311,32 @@ def _conv_forward(x, w, pad_mode):
 # implementations are Python: the counters count on every route. K1 always
 # returns three tensors; without stats the two moments are empty.
 _LIB = torch.library.Library("desr", "DEF")
+# The halo arguments default to 0, so a program exported before they existed
+# still loads and calls the same operators.
 _LIB.define("conv3x3_fused(Tensor x, Tensor w, Tensor? scale, Tensor? shift, str pad_mode, "
-            "bool relu, bool stats) -> (Tensor, Tensor, Tensor)")
-_LIB.define("conv3x3(Tensor x, Tensor w, str pad_mode) -> Tensor")
+            "bool relu, bool stats, int halo_top=0, int halo_bottom=0) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.define("conv3x3(Tensor x, Tensor w, str pad_mode, int halo_top=0, int halo_bottom=0) "
+            "-> Tensor")
 
 
-def _fused_impl(x, w, scale, shift, pad_mode, relu, stats):
-    res = _fused_forward(x, w, scale, shift, pad_mode, relu, stats)
+def _halo(halo_top, halo_bottom):
+    """The halo arguments to pass on: none when both are 0, so a call
+    without halo rows is the call it was before they existed (in an exported
+    graph, and to a stand-in for ``_fused_forward`` that predates them)."""
+    return (halo_top, halo_bottom) if halo_top or halo_bottom else ()
+
+
+def _fused_impl(x, w, scale, shift, pad_mode, relu, stats, halo_top=0, halo_bottom=0):
+    res = _fused_forward(x, w, scale, shift, pad_mode, relu, stats, *_halo(halo_top, halo_bottom))
     if not stats:
         return res.contiguous(), x.new_empty(0, dtype=torch.float32), \
             x.new_empty(0, dtype=torch.float32)
     return res[0].contiguous(), res[1], res[2]
 
 
-def _conv_impl(x, w, pad_mode):
-    return _conv_forward(x, w, pad_mode).contiguous()
+def _conv_impl(x, w, pad_mode, halo_top=0, halo_bottom=0):
+    return _conv_forward(x, w, pad_mode, *_halo(halo_top, halo_bottom)).contiguous()
 
 
 for _key in ("CPU", "CUDA"):
@@ -304,16 +345,18 @@ for _key in ("CPU", "CUDA"):
 
 
 @torch.library.register_fake("desr::conv3x3_fused", lib=_LIB)
-def _fused_fake(x, w, scale, shift, pad_mode, relu, stats):
+def _fused_fake(x, w, scale, shift, pad_mode, relu, stats, halo_top=0, halo_bottom=0):
     b, h, wd, _ = x.shape
+    h = h - halo_top - halo_bottom
     moments = (b, w.shape[0]) if stats else (0,)
     return (x.new_empty((b, h, wd, w.shape[0])), x.new_empty(moments, dtype=torch.float32),
             x.new_empty(moments, dtype=torch.float32))
 
 
 @torch.library.register_fake("desr::conv3x3", lib=_LIB)
-def _conv_fake(x, w, pad_mode):
-    return x.new_empty((*x.shape[:3], w.shape[0]))
+def _conv_fake(x, w, pad_mode, halo_top=0, halo_bottom=0):
+    b, h, wd, _ = x.shape
+    return x.new_empty((b, h - halo_top - halo_bottom, wd, w.shape[0]))
 
 
 # The Autograd kernels are registered by hand: torch.library.register_autograd's
@@ -326,10 +369,11 @@ class _FusedGrad(torch.autograd.Function):
     (the CPU or CUDA implementation), the VJP of the plain composition."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, shift, pad_mode, relu, stats):
+    def forward(ctx, x, w, scale, shift, pad_mode, relu, stats, halo_top, halo_bottom):
         with torch._C._AutoDispatchBelowAutograd():
-            res = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats)
+            res = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats, halo_top, halo_bottom)
         ctx.pad_mode, ctx.relu, ctx.stats = pad_mode, relu, stats
+        ctx.halo = (halo_top, halo_bottom)
         ctx.save_for_backward(x, w, scale, shift, res[0] if stats else None)
         return res
 
@@ -337,39 +381,42 @@ class _FusedGrad(torch.autograd.Function):
     def backward(ctx, g_out, g_s, g_s2):
         need = ctx.needs_input_grad
         grads = (g_out, g_s, g_s2) if ctx.stats else (g_out,)
-        return (*_vjp(ctx, grads, need[0] or need[2] or need[3], need[1]), None, None, None)
+        return (*_vjp(ctx, grads, need[0] or need[2] or need[3], need[1]),
+                None, None, None, None, None)
 
 
 class _ConvGrad(torch.autograd.Function):
     """desr::conv3x3's Autograd kernel, as ``_FusedGrad``."""
 
     @staticmethod
-    def forward(ctx, x, w, pad_mode):
+    def forward(ctx, x, w, pad_mode, halo_top, halo_bottom):
         with torch._C._AutoDispatchBelowAutograd():
-            out = _CONV_OP(x, w, pad_mode)
+            out = _CONV_OP(x, w, pad_mode, halo_top, halo_bottom)
         ctx.pad_mode, ctx.relu, ctx.stats = pad_mode, False, False
+        ctx.halo = (halo_top, halo_bottom)
         ctx.save_for_backward(x, w, None, None, None)
         return out
 
     @staticmethod
     def backward(ctx, g):
         dx, dw, _, _ = _vjp(ctx, (g,), *ctx.needs_input_grad[:2])
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
-def _fused_autograd(x, w, scale, shift, pad_mode, relu, stats):
+def _fused_autograd(x, w, scale, shift, pad_mode, relu, stats, halo_top=0, halo_bottom=0):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
             scale is not None and (scale.requires_grad or shift.requires_grad))):
-        return _FusedGrad.apply(x, w, scale, shift, pad_mode, relu, stats)
+        return _FusedGrad.apply(x, w, scale, shift, pad_mode, relu, stats, halo_top,
+                                halo_bottom)
     with torch._C._AutoDispatchBelowAutograd():
-        return _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats)
+        return _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats, halo_top, halo_bottom)
 
 
-def _conv_autograd(x, w, pad_mode):
+def _conv_autograd(x, w, pad_mode, halo_top=0, halo_bottom=0):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _ConvGrad.apply(x, w, pad_mode)
+        return _ConvGrad.apply(x, w, pad_mode, halo_top, halo_bottom)
     with torch._C._AutoDispatchBelowAutograd():
-        return _CONV_OP(x, w, pad_mode)
+        return _CONV_OP(x, w, pad_mode, halo_top, halo_bottom)
 
 
 _LIB.impl("conv3x3_fused", _fused_autograd, "Autograd")
@@ -379,27 +426,31 @@ _CONV_OP = torch.ops.desr.conv3x3.default
 
 
 def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
-                  stats=False):
+                  stats=False, halo_top=0, halo_bottom=0):
     """out = conv3x3(pad([relu](x * scale + shift))), NHWC x, OIHW w, no bias.
 
     ``scale``/``shift``: per-(batch, C_in) f32 vectors (None: no prologue).
     ``pad_mode``: "reflect" | "replicate" (the prologue applies to the border
     values too) | "zeros" (the padding stays 0). Returns ``out`` in x's dtype,
     or ``(out, s, s2)`` with the (B, C_out) f32 sum and sum of squares of the
-    f32 accumulator over H and W when ``stats``. Differentiable in x, w,
-    scale and shift. One ``desr::conv3x3_fused`` call.
+    f32 accumulator over H and W when ``stats``. ``halo_top`` /
+    ``halo_bottom``: x's extra rows above / below (see the module's
+    docstring); the output has that many rows fewer. Differentiable in x, w,
+    scale and shift without halo rows. One ``desr::conv3x3_fused`` call.
     """
-    _check(x, w, scale, shift, pad_mode)
-    out, s, s2 = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats)
+    _check(x, w, scale, shift, pad_mode, halo_top, halo_bottom)
+    out, s, s2 = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats,
+                           *_halo(halo_top, halo_bottom))
     return (out, s, s2) if stats else out
 
 
-def conv3x3(x, w, pad_mode="reflect"):
-    """Stride-1 3x3 conv of NHWC x with OIHW w and a 1-pixel border; no bias.
-    Differentiable in x and w. One ``desr::conv3x3`` call."""
-    _check(x, w, None, None, pad_mode)
-    return _CONV_OP(x, w, pad_mode)
+def conv3x3(x, w, pad_mode="reflect", halo_top=0, halo_bottom=0):
+    """Stride-1 3x3 conv of NHWC x with OIHW w and a 1-pixel border; no bias;
+    halo rows as ``conv3x3_fused``'s. Differentiable in x and w without halo
+    rows. One ``desr::conv3x3`` call."""
+    _check(x, w, None, None, pad_mode, halo_top, halo_bottom)
+    return _CONV_OP(x, w, pad_mode, *_halo(halo_top, halo_bottom))
 
 
-conv3x3_fused.launches = 0
-conv3x3.launches = 0
+conv3x3_fused.launches = conv3x3_fused.launches_halo = 0
+conv3x3.launches = conv3x3.launches_halo = 0

@@ -17,6 +17,16 @@ matrices of cv2's INTER_LANCZOS4 (``lanczos4_matrix``,
 ``resize_cv2_cubic_np``, the legacy datasets'): the port needs no cv2. The SR stage's
 ``--device_aug`` half resizes on the card with the same INTER_AREA weights
 (``resize_cv2_inter_area``).
+
+Under ``--spatial_devices`` the planar resizes take a ``spatial`` group
+(``parallel/spatial.py``) and a rank's band of the input's rows, and give
+the rank's band of the output's: at an integer ratio (the SR stage's x2 and
+x1/2) the band is resized with ``m`` rows of each neighbour's around it
+(replicated at the frame's edges, as the interpolation clamps) and the
+rows those add are cropped off. The source coordinates of the band are
+then those of the whole frame, shifted, so each output row is the same
+weighted sum of the same input rows as on one process. Nearest keeps
+within the band.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from desr_tpu_torch.parallel import spatial as S
 
 
 @functools.lru_cache(maxsize=256)
@@ -73,8 +85,12 @@ def _nearest_index_on(in_size, out_size, device):
     return torch.from_numpy(nearest_index(in_size, out_size)).to(device)
 
 
-def _resize_planar(x, out_hw, mode):
-    """Resize the last two dims of x, in float32, cast back to x's dtype."""
+def _resize_planar(x, out_hw, mode, spatial=None):
+    """Resize the last two dims of x, in float32, cast back to x's dtype;
+    on a rank's band of rows under an active ``spatial`` (``_resize_band``)."""
+    sp = S.active(spatial)
+    if sp is not None:
+        return _resize_band(x, out_hw, mode, sp)
     h, w = x.shape[-2:]
     oh, ow = out_hw
     if (oh, ow) == (h, w):
@@ -89,6 +105,31 @@ def _resize_planar(x, out_hw, mode):
         y4 = F.interpolate(y4, size=(oh, ow), mode=mode, align_corners=False)
         y = y4 if y.dim() == 4 else y4.reshape(*lead, oh, ow)
     return y.to(x.dtype)
+
+
+def _resize_band(x, out_hw, mode, sp):
+    """The rank's band of the resize of a frame whose band of rows x holds
+    (global H = rows x S; ``out_hw`` global), at an integer ratio of H."""
+    h, w = x.shape[-2:]
+    big, oh = h * sp.size, out_hw[0]
+    up, down = (oh // big, 0) if oh >= big else (0, big // oh)
+    if oh % sp.size or (up and oh % big) or (down and big % oh):
+        raise NotImplementedError(f"a resize of {big} rows to {oh} over {sp.size} ranks")
+    band = oh // sp.size
+    if oh == big or mode == "nearest":  # source rows within the band
+        return _resize_planar(x, (band, out_hw[1]), mode)
+    # bicubic reads 2 rows past its source row each side: 2 input rows at
+    # x``up``, ``down`` (>= 2) at 1/``down``, which keeps the band's start on
+    # an output row
+    m = 2 if up else down
+    dim = x.dim() - 2
+    ext, ht, hb = S.exchange_rows(x, m, m, sp, dim=dim)
+    if m - ht or m - hb:
+        ext = F.pad(ext.reshape(-1, 1, *ext.shape[-2:]), (0, 0, m - ht, m - hb),
+                    mode="replicate").reshape(*x.shape[:-2], h + 2 * m, w)
+    y = _resize_planar(ext, ((h + 2 * m) * up if up else (h + 2 * m) // down, out_hw[1]), mode)
+    lo = m * up if up else 1
+    return y.narrow(dim, lo, band)
 
 
 def _resize_nhwc(x, out_hw, mode):
@@ -110,17 +151,18 @@ def resize_nearest(img, out_hw):
     return _resize_nhwc(img, out_hw, "nearest")
 
 
-def resize_bicubic_planar(x, out_hw):
-    """Bicubic on the last two dims of (..., H, W), e.g. (B, H, W) or NCHW."""
-    return _resize_planar(x, out_hw, "bicubic")
+def resize_bicubic_planar(x, out_hw, spatial=None):
+    """Bicubic on the last two dims of (..., H, W), e.g. (B, H, W) or NCHW;
+    a rank's band under ``spatial`` (see the module)."""
+    return _resize_planar(x, out_hw, "bicubic", spatial)
 
 
 def resize_bilinear_planar(x, out_hw):
     return _resize_planar(x, out_hw, "bilinear")
 
 
-def resize_nearest_planar(x, out_hw):
-    return _resize_planar(x, out_hw, "nearest")
+def resize_nearest_planar(x, out_hw, spatial=None):
+    return _resize_planar(x, out_hw, "nearest", spatial)
 
 
 @functools.lru_cache(maxsize=64)

@@ -45,11 +45,12 @@ def default_backend(devices):
     return "nccl" if torch.device(devices[0]).type == "cuda" else "gloo"
 
 
-def launch(fn, devices, backend=None, args=(), workdir=None):
+def launch(fn, devices, backend=None, args=(), workdir=None, spatial=1):
     """Run ``fn(mesh, *args)`` on ``len(devices)`` ranks: spawned processes
     joined in a process group of ``backend`` (``default_backend`` when None)
     over a file store in a temporary directory under ``workdir``; rank r runs
-    on ``devices[r]`` (``torch.cuda.set_device`` for a card). ``fn`` is
+    on ``devices[r]`` (``torch.cuda.set_device`` for a card), its ``mesh``
+    ``make_mesh(devices, spatial)``. ``fn`` is
     pickled by name, so it lives at a module's top level. Returns every
     rank's return value, in rank order, copied to the host (``torch.save``).
     A rank that raises, a failed collective among them, fails the launch
@@ -57,20 +58,20 @@ def launch(fn, devices, backend=None, args=(), workdir=None):
     devices = [torch.device(d) for d in devices]
     backend = backend or default_backend(devices)
     with tempfile.TemporaryDirectory(prefix="desr_ranks_", dir=workdir) as tmp:
-        torch.multiprocessing.spawn(_rank_main, args=(fn, devices, backend, tmp, args),
+        torch.multiprocessing.spawn(_rank_main, args=(fn, devices, backend, tmp, args, spatial),
                                     nprocs=len(devices), join=True)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), map_location="cpu",
                            weights_only=False)
                 for r in range(len(devices))]
 
 
-def _rank_main(rank, fn, devices, backend, tmp, args):
+def _rank_main(rank, fn, devices, backend, tmp, args, spatial):
     if devices[rank].type == "cuda":
         torch.cuda.set_device(devices[rank])
     dist.init_process_group(backend, init_method="file://" + os.path.join(tmp, "store"),
                             rank=rank, world_size=len(devices))
     try:
-        out = fn(make_mesh(devices), *args)
+        out = fn(make_mesh(devices, spatial), *args)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()

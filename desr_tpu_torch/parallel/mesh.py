@@ -23,6 +23,13 @@ by N, and an unnormalised sum is scaled by N (``ops/losses.py``).
 Every rank runs its kernels (K1, K3) on its own shard: the JAX package's
 guard that turns its Pallas routes off under a mesh larger than one device
 (``pallas_call`` has no partitioning rule) has no counterpart here.
+
+``--spatial_devices`` S makes the mesh 2-D, ('data', 'spatial'), in JAX's
+layout (desr_tpu/parallel/mesh.py:41-43): rank = d * S + s, so the S ranks
+of a data group d are consecutive. A data group's ranks split each frame's
+H axis (``shard_batch``'s H rule); GSPMD's halo exchanges become explicit
+collectives over the spatial group (``parallel/spatial.py``). Serving
+alone runs on such a mesh so far.
 """
 
 from __future__ import annotations
@@ -35,12 +42,19 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ranks of a data mesh: ``devices`` (one a rank, in rank order), this
-    process's ``rank`` and the process group (None for one rank)."""
+    """The ranks of a mesh: ``devices`` (one a rank, in rank order), this
+    process's ``rank`` and the process group (None for one rank). With
+    ``spatial`` S > 1 the ranks form a (N / S, S) grid, rank = data_rank * S
+    + spatial_rank; ``spatial_group`` holds this rank's data group's S ranks
+    (which split a frame's H axis) and ``data_group`` the N / S ranks of its
+    spatial position (None where that is one rank)."""
 
     devices: tuple
     rank: int = 0
     group: object = None
+    spatial: int = 1
+    spatial_group: object = None
+    data_group: object = None
 
     @property
     def size(self):
@@ -50,49 +64,89 @@ class Mesh:
     def device(self):
         return self.devices[self.rank]
 
+    @property
+    def data_size(self):
+        """The mesh's data axis: the ranks that split the batch axis."""
+        return self.size // self.spatial
+
+    @property
+    def data_rank(self):
+        return self.rank // self.spatial
+
+    @property
+    def spatial_rank(self):
+        return self.rank % self.spatial
+
     def rows(self, n):
-        """(lo, hi): this rank's rows of a leading axis of ``n``. Rank r takes
-        rows r*n/N .. (r+1)*n/N; when N does not divide n every rank takes
-        all n, as the JAX package replicates such an array
-        (desr_tpu/parallel/mesh.py:73-79)."""
-        if n % self.size:
+        """(lo, hi): this rank's rows of a leading axis of ``n``, split over
+        the data axis. Data rank d takes rows d*n/D .. (d+1)*n/D; when D does
+        not divide n every rank takes all n, as the JAX package replicates
+        such an array (desr_tpu/parallel/mesh.py:73-79)."""
+        if n % self.data_size:
             return 0, n
-        k = n // self.size
-        return self.rank * k, (self.rank + 1) * k
+        k = n // self.data_size
+        return self.data_rank * k, (self.data_rank + 1) * k
+
+    def h_rows(self, h):
+        """(lo, hi): this rank's rows of an image's H axis of ``h`` under
+        JAX's rule (desr_tpu/parallel/mesh.py:72-74): split over the spatial
+        group when S divides h and h >= 32, else all h."""
+        if self.spatial == 1 or h % self.spatial or h < 32:
+            return 0, h
+        k = h // self.spatial
+        return self.spatial_rank * k, (self.spatial_rank + 1) * k
 
 
 def make_mesh(devices, spatial=1):
     """The mesh over ``devices``, one a rank: a single device needs no process
     group; N > 1 devices need the N ranks of an initialised one
-    (``parallel.launch`` starts them), and this process is its rank."""
-    if spatial > 1:
-        raise NotImplementedError(
-            "--spatial_devices > 1 (the image-H axis of the mesh) is not yet ported "
-            "to desr_tpu_torch (shard it with the JAX package)")
+    (``parallel.launch`` starts them), and this process is its rank. With
+    ``spatial`` S > 1, S must divide N (desr_tpu/parallel/mesh.py:39-40);
+    every rank creates the groups of every row and column of the grid, in
+    the same order, as ``dist.new_group`` requires."""
     devices = tuple(torch.device(d) for d in devices)
-    if len(devices) == 1:
+    n = len(devices)
+    if spatial < 1 or n % spatial:
+        raise ValueError(f"{n} devices not divisible by spatial={spatial}")
+    if n == 1:
         return Mesh(devices)
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != len(devices):
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() != n:
         raise RuntimeError(
-            f"a mesh of {len(devices)} devices needs a process group of {len(devices)} "
+            f"a mesh of {n} devices needs a process group of {n} "
             "ranks; start them with desr_tpu_torch.parallel.launch")
-    return Mesh(devices, dist.get_rank(), dist.group.WORLD)
+    rank = dist.get_rank()
+    if spatial == 1:
+        return Mesh(devices, rank, dist.group.WORLD)
+    d, s = divmod(rank, spatial)
+    spatial_groups = [dist.new_group(list(range(i * spatial, (i + 1) * spatial)))
+                      for i in range(n // spatial)]
+    data_groups = ([dist.new_group(list(range(j, n, spatial))) for j in range(spatial)]
+                   if n > spatial else [None] * spatial)
+    return Mesh(devices, rank, dist.group.WORLD, spatial, spatial_groups[d], data_groups[s])
 
 
 class Shard(dict):
     """A batch dict that holds one rank's rows of a global batch:
-    ``rows`` = (lo, hi, n), rows lo..hi of n. ``shard_batch`` hands it back
-    unchanged (a rank's loader yields its rows already)."""
+    ``rows`` = (lo, hi, n), rows lo..hi of n, and under a spatial mesh
+    ``h_rows`` = (lo, hi, h), the image rows lo..hi of h that each of its
+    image values holds (0, h, h: whole frames). ``shard_batch`` hands it
+    back unchanged (a rank's loader yields its rows already)."""
 
-    def __init__(self, items, rows):
+    def __init__(self, items, rows, h_rows=None):
         super().__init__(items)
         self.rows = tuple(rows)
+        self.h_rows = None if h_rows is None else tuple(h_rows)
 
     @property
     def split(self):
         """Whether the ranks share the batch (each holds fewer than all rows)."""
         lo, hi, n = self.rows
         return hi - lo < n
+
+    @property
+    def h_split(self):
+        """Whether the frames' H axis is split over the spatial group."""
+        return self.h_rows is not None and self.h_rows[1] - self.h_rows[0] < self.h_rows[2]
 
 
 def _length(v):
@@ -102,23 +156,52 @@ def _length(v):
     return shape[0] if len(shape) else None
 
 
+def _is_image(v):
+    """An image-like value, whose axis 1 is H: numeric, ndim >= 3
+    (desr_tpu/parallel/mesh.py:66-73; NHWC images and planar depths)."""
+    shape = getattr(v, "shape", ())
+    return len(shape) >= 3 and not isinstance(v, (list, tuple))
+
+
 def shard_batch(batch, mesh):
     """This rank's rows of each value of a global batch (numpy arrays,
-    tensors, lists of paths): its contiguous share of a leading axis that N
-    divides, the whole value otherwise (``Mesh.rows``). Nothing is copied to
-    a device. Returns a ``Shard`` whose ``rows`` are the batch's, taken from
-    its first value with a leading axis."""
+    tensors, lists of paths): its contiguous share of a leading axis that
+    the data axis divides, the whole value otherwise (``Mesh.rows``); then,
+    on a spatial mesh, its rows of each image value's H axis (``split_h``).
+    Nothing is copied to a device. Returns a ``Shard`` whose ``rows`` are
+    the batch's, taken from its first value with a leading axis."""
     if isinstance(batch, Shard):
         return batch
     n = next((length for length in map(_length, batch.values()) if length), 0)
     out = {}
     for k, v in batch.items():
         length = _length(v)
-        if mesh.size > 1 and length:
+        if mesh.data_size > 1 and length:
             lo, hi = mesh.rows(length)
             v = v[lo:hi]
         out[k] = v
-    return Shard(out, (*mesh.rows(n), n) if n else (0, 0, 0))
+    return split_h(out, mesh, (*mesh.rows(n), n) if n else (0, 0, 0))
+
+
+def split_h(batch, mesh, rows):
+    """A ``Shard`` of a data group's ``batch`` (its ``rows`` = (lo, hi, n)
+    of the global batch): on a spatial mesh each image value keeps this
+    rank's rows of its H axis (``Mesh.h_rows``: split when S divides H and
+    H >= 32, else whole); ``h_rows`` records the tallest image value's. As in
+    JAX, a batch that the data axis does not divide is whole on every rank,
+    H too. Without a spatial axis the values stay as they are."""
+    if mesh.spatial == 1 or rows[2] % mesh.data_size:
+        return Shard(batch, rows)
+    out, h_rows = {}, None
+    for k, v in batch.items():
+        if _is_image(v):
+            h = v.shape[1]
+            lo, hi = mesh.h_rows(h)
+            v = v[:, lo:hi]
+            if h_rows is None or h > h_rows[2]:
+                h_rows = (lo, hi, h)
+        out[k] = v
+    return Shard(out, rows, h_rows)
 
 
 def shard_batch_steps(batches, mesh):

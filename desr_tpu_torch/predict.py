@@ -49,8 +49,19 @@ serving forward a card, each request's batch split into N contiguous shards
 mesh replicates it), each shard launched on its card and the predictions
 gathered in order (predict.py:269). ``--export`` records one device, as the
 JAX CLI forces (predict.py:218-219), and ``--from_export`` serves on one.
-More devices than the visible cards raise. ``--spatial_devices`` above 1 is
-not yet ported and exits with an error.
+More devices than the visible cards raise.
+
+``--spatial_devices S`` (S > 1; every live mode) makes the N ranks of
+``--num_devices`` a mesh of N / S data groups by S spatial ranks, as the JAX
+CLI's mesh (predict.py:156,217): N processes (``parallel.launch``; NCCL on
+cards, gloo under ``--device cpu``), each decoding the frames of its data
+group's share of a batch and serving its band of each frame's rows, with
+halo rows from its neighbours (``desr_tpu_torch/parallel/spatial.py``). The
+predictions are gathered to rank 0, which alone writes the PNGs; the other
+ranks print nothing. A frame that S does not divide (padding to /128
+divides it for S = 2 or 4) is served whole on every rank, as in JAX. N must
+divide by S; ``--export``, ``--from_export`` and ``--num_workers`` above 1
+are refused with it.
 """
 
 from __future__ import annotations
@@ -132,7 +143,8 @@ def _to_host(t):
     return host, ready
 
 
-def main(argv=None):
+def _parse(argv):
+    """(args, parser) of the CLI, the flags' combinations checked."""
     parser = argparse.ArgumentParser(prog="python -m desr_tpu_torch.predict")
     parser.add_argument("--name", default=None,
                         help="experiment name under --checkpoints_dir "
@@ -171,13 +183,20 @@ def main(argv=None):
                              "over them (0: every visible card; --device cpu: CPU replicas, "
                              "0: one); --export and --from_export use one")
     parser.add_argument("--spatial_devices", type=int, default=1,
-                        help="the image-H axis of the mesh: above 1 not yet ported")
+                        help="the image-H axis of the mesh: each frame's rows split over "
+                             "this many of the --num_devices ranks, one process a rank "
+                             "(--num_devices must divide by it)")
     parser.add_argument("--net_args", nargs=argparse.REMAINDER, default=[],
                         help="net-width flags (--Task_basef 64 ...; see NetOptions)")
     args = parser.parse_args(argv)
-    if args.spatial_devices > 1:
-        parser.error("--spatial_devices > 1 is not yet ported to desr_tpu_torch "
-                     "(serve it with the JAX predict.py)")
+    if args.spatial_devices < 1:
+        parser.error("--spatial_devices must be at least 1")
+    if args.spatial_devices > 1 and (args.export or args.from_export):
+        parser.error("--export and --from_export run on one device (as the JAX CLI forces): "
+                     "not with --spatial_devices > 1")
+    if args.spatial_devices > 1 and args.num_workers > 1:
+        parser.error("--num_workers > 1 with --spatial_devices > 1 is not yet ported "
+                     "(each rank decodes its frames inline)")
     if args.name is None and not args.from_export:
         parser.error("--name is required unless serving --from_export")
     if args.export and args.from_export:
@@ -188,11 +207,27 @@ def main(argv=None):
         parser.error("--translate is a standalone mode (no --SR/--I2D/--export/--from_export)")
     if args.input_depth is None and not args.I2D:
         parser.error("--input_depth is required (omit only with --I2D)")
+    return args, parser
 
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, parser = _parse(argv)
     from desr_tpu_torch.data import native_io
 
-    # builds the decode library here, before any worker is spawned
+    # builds the decode library here, before any worker or rank is spawned
     print("image decode route: %s (%s)" % native_io.route())
+    if args.spatial_devices > 1:
+        from desr_tpu_torch.parallel import resolve_devices
+
+        try:
+            devices = resolve_devices(args.device, args.num_devices)
+        except (RuntimeError, ValueError) as e:
+            parser.error(str(e))
+        if len(devices) % args.spatial_devices:
+            parser.error(f"--num_devices {len(devices)} does not divide by --spatial_devices "
+                         f"{args.spatial_devices}")
+        return serve_ranks(argv, devices)
     pool = None
     if args.num_workers > 1:
         # before torch touches the card; spawned, so no CUDA state is inherited
@@ -205,6 +240,50 @@ def main(argv=None):
         if pool is not None:
             pool.terminate()
             pool.join()
+
+
+def serve_ranks(argv, devices, backend=None):
+    """The CLI's ``argv`` (``--spatial_devices`` S > 1) served over
+    ``len(devices)`` ranks, rank r on ``devices[r]``, joined by ``backend``
+    (``parallel.default_backend`` when None; two gloo ranks may share one
+    card). Returns rank 0's result: the number of frames written."""
+    from desr_tpu_torch import parallel
+
+    args, _ = _parse(argv)
+    return parallel.launch(_rank_serve, devices, backend, args=(list(argv),),
+                           spatial=args.spatial_devices)[0]
+
+
+def _rank_serve(mesh, argv):
+    """One rank of ``serve_ranks``: ``_serve`` on its device; the ranks
+    after 0 print nothing."""
+    import contextlib
+
+    args, parser = _parse(argv)
+    if mesh.rank == 0:
+        return _serve(args, parser, None, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _serve(args, parser, None, mesh)
+
+
+def gather_predictions(pred, items, shard, mesh):
+    """The global batch's predictions and per-frame ``items`` (a list, one a
+    frame of this rank's rows) on every rank of ``mesh``, from each rank's
+    ``pred`` (its ``shard``'s rows): one all_gather of the predictions,
+    each data group's bands joined along H, the groups along the batch."""
+    import torch
+    import torch.distributed as dist
+
+    pred = pred.contiguous()
+    parts = [torch.empty_like(pred) for _ in range(mesh.size)]
+    dist.all_gather(parts, pred, group=mesh.group)
+    objs = [None] * mesh.size
+    dist.all_gather_object(objs, items, group=mesh.group)
+    s = mesh.spatial
+    groups = range(mesh.data_size) if shard.split else range(1)
+    preds = [torch.cat(parts[d * s:(d + 1) * s], 1) if shard.h_split else parts[d * s]
+             for d in groups]
+    return torch.cat(preds, 0), [item for d in groups for item in objs[d * s]]
 
 
 def serve_on_devices(forwards, devices, batch):
@@ -224,20 +303,27 @@ def serve_on_devices(forwards, devices, batch):
     return torch.cat([p.to(preds[0].device) for p in preds])
 
 
-def _serve(args, parser, pool):
+def _serve(args, parser, pool, mesh=None):
+    """Serve the folder; ``mesh``: this rank's under ``--spatial_devices``
+    (``serve_ranks``), None for one process."""
     import functools
 
     import torch
 
     from desr_tpu_torch.data.base_dataset import load_depth_png
+    from desr_tpu_torch.parallel import mesh as M
     from desr_tpu_torch.parallel import resolve_devices
 
-    try:
-        devices = resolve_devices(args.device, 1 if args.export or args.from_export
-                                  else args.num_devices)
-    except (RuntimeError, ValueError) as e:
-        parser.error(str(e))
+    if mesh is not None:
+        devices = [mesh.device]
+    else:
+        try:
+            devices = resolve_devices(args.device, 1 if args.export or args.from_export
+                                      else args.num_devices)
+        except (RuntimeError, ValueError) as e:
+            parser.error(str(e))
     device = devices[0]
+    lead = mesh is None or mesh.rank == 0
     img_paths = sorted(glob.glob(os.path.join(args.input_img, "*")))
     if args.input_depth is None:  # --I2D from RGB alone: stems from the images
         depth_paths = img_paths
@@ -276,7 +362,7 @@ def _serve(args, parser, pool):
             net_args += ["--crop_size_h", str(-(-h // 256) * 128),
                          "--crop_size_w", str(-(-w // 256) * 128)]
         def replica(dev):
-            kw = dict(device=dev, compute_dtype=getattr(torch, args.compute_dtype))
+            kw = dict(device=dev, compute_dtype=getattr(torch, args.compute_dtype), mesh=mesh)
             if args.translate:
                 m = TranslationModel(parse_net_args(net_args), direction=args.translate, **kw)
             else:
@@ -293,10 +379,16 @@ def _serve(args, parser, pool):
     # --I2D reads no depth: the forward does not use it
     read_depth = not args.I2D
 
+    def rows(i):
+        """(lo, hi, n): the frames of batch i this process decodes (a rank:
+        its data group's, ``Mesh.rows``)."""
+        n = len(depth_paths[i:i + args.batch_size])
+        return (*(mesh.rows(n) if mesh is not None else (0, n)), n)
+
     def pairs(i):
+        lo, hi, _ = rows(i)
         return [(dp if read_depth else None, ip, args.max_distance, mult, shape)
-                for dp, ip in zip(depth_paths[i:i + args.batch_size],
-                                  img_paths[i:i + args.batch_size])]
+                for dp, ip in zip(depth_paths[i + lo:i + hi], img_paths[i + lo:i + hi])]
 
     def assemble(frames, i):
         stems = [os.path.splitext(os.path.basename(dp))[0]
@@ -306,6 +398,8 @@ def _serve(args, parser, pool):
         # frame, whose extra predictions are not written
         frames = frames + frames[-1:] * (args.batch_size - len(frames) if shape else 0)
         batch = {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
+        if mesh is not None:  # this rank's rows of its data group's frames
+            batch = M.split_h(batch, mesh, rows(i))
         return batch, pads, stems
 
     def batches():
@@ -363,11 +457,14 @@ def _serve(args, parser, pool):
     n_done = 0
     for batch, pad_infos, stems in batches():
         preds = run(batch)
+        if mesh is not None:
+            preds, pad_infos = gather_predictions(preds, pad_infos, batch, mesh)
         if pending is not None:
             write(*pending)
-        pending = (*_to_host(preds), pad_infos, stems)
+        pending = (*_to_host(preds), pad_infos, stems) if lead else None
         n_done += len(stems)
-        print(f"{n_done}/{len(depth_paths)} frames", file=sys.stderr)
+        if lead:
+            print(f"{n_done}/{len(depth_paths)} frames", file=sys.stderr)
     if pending is not None:
         write(*pending)
     while writes:

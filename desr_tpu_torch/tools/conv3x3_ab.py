@@ -95,7 +95,7 @@ def main(argv=None):
             if so:
                 lib = ctypes.CDLL(so)
                 vp, ci = ctypes.c_void_p, ctypes.c_int
-                lib.desr_conv3x3_bf16.argtypes = [vp] * 7 + [ci] * 9 + [vp]
+                lib.desr_conv3x3_bf16.argtypes = [vp] * 7 + [ci] * 11 + [vp]
                 lib.desr_conv3x3_bf16.restype = ci
                 libs[name] = lib
     tiling = K.bf16_tiling

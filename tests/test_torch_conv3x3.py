@@ -176,7 +176,7 @@ def _border(i, n, mode):
     return torch.where(inside, i, j)
 
 
-def _walk(x, w, scale, shift, mode, relu):
+def _walk(x, w, scale, shift, mode, relu, halo_rows=(0, 0)):
     """The bf16 body's loop order and indexing, in float32 on the CPU.
 
     Per (b, tile, N tile): for each 64-channel chunk the halo as the kernel's
@@ -184,9 +184,11 @@ def _walk(x, w, scale, shift, mode, relu):
     16-byte groups XOR-swizzled by pixel); for each tap the A rows read at the
     kernel's ldmatrix offsets and the weight tile read at wgmma's 128-byte
     swizzled offsets in the packed weights; the moments of each tile over
-    its in-image pixels, summed over tiles in tile order.
+    its in-image pixels, summed over tiles in tile order. ``halo_rows``: x's
+    halo rows above and below, which the index map reads as rows of x.
     """
-    b, h, wd, c = x.shape
+    b, h_in, wd, c = x.shape
+    h = h_in - sum(halo_rows)
     o = w.shape[0]
     nt, th = K.bf16_tiling(o)
     tw, kc = K.BF16_TW, K.BF16_KC
@@ -206,7 +208,8 @@ def _walk(x, w, scale, shift, mode, relu):
     for bi in range(b):
         for tile in range(tiles_h * tiles_w):
             oh0, ow0 = (tile // tiles_w) * th, (tile % tiles_w) * tw
-            sh, sw = _border(oh0 - 1 + hr, h, mode), _border(ow0 - 1 + hc, wd, mode)
+            sh = _border(oh0 - 1 + halo_rows[0] + hr, h_in, mode)
+            sw = _border(ow0 - 1 + hc, wd, mode)
             ok = (sh >= 0) & (sw >= 0)
             for nb in range(-(-o // nt)):
                 acc = torch.zeros(th * tw, nt)
@@ -255,3 +258,19 @@ def test_kernel_walk_equals_plain(shape, cout, mode):
         want = K.conv3x3_fused_plain(x, w, sc, sh, mode, relu, stats=True)
         for g, v in zip(got, want):
             _close(g, v)
+
+
+@pytest.mark.parametrize("halo", [(1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("mode", ["reflect", "replicate", "zeros"])
+def test_kernel_walk_with_halo_rows_equals_plain(mode, halo):
+    """The bf16 body's index map with halo rows (row y reads x's rows
+    y + halo_top + dy - 1, the border mode only at an end without one),
+    walked in float32: conv3x3_fused_plain's output and moments over the
+    output rows, ragged tiles and a partial chunk (9 + halo rows, 72 in)."""
+    x, w, scale, shift = (torch.from_numpy(a) for a in
+                          _inputs(seed=92, shape=(1, 9 + sum(halo), 13, 72), cout=80))
+    got = _walk(x, w, scale, shift, mode, True, halo)
+    want = K.conv3x3_fused_plain(x, w, scale, shift, mode, True, True, *halo)
+    assert got[0].shape == want[0].shape == (1, 9, 13, 80)
+    for g, v in zip(got, want):
+        _close(g, v)

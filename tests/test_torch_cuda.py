@@ -65,6 +65,36 @@ def test_cuda_kernel_matches_plain(mode, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["reflect", "replicate", "zeros"])
+def test_cuda_kernel_with_halo_rows_matches_plain(mode, dtype):
+    """K1 and K2 with halo rows (1, 0), (1, 1), (0, 1) against their plain
+    versions, on three bands of a 21x37 frame, and the bands' outputs
+    concatenated bit-equal to the whole frame's launch (each output pixel
+    sums the same taps and channels in the same order)."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    x, w, scale, shift = _inputs((2, 21, 37, 72), 80, 52, dev)
+    x = x.to(dt)
+    bands = ((0, 8, 0, 1), (6, 15, 1, 1), (13, 21, 1, 0))  # x rows lo..hi, halo rows
+    for sc, sh, relu in ((None, None, False), (scale, shift, True)):
+        whole = K.conv3x3_fused(x, w, sc, sh, mode, relu, True)
+        outs = []
+        for lo, hi, top, bottom in bands:
+            got = K.conv3x3_fused(x[:, lo:hi].contiguous(), w, sc, sh, mode, relu, True,
+                                  top, bottom)
+            want = K.conv3x3_fused_plain(x[:, lo:hi], w, sc, sh, mode, relu, True, top, bottom)
+            torch.testing.assert_close(got[0].float(), want[0].float(), **OUT_TOL[dt])
+            for g, v in zip(got[1:], want[1:]):
+                torch.testing.assert_close(g, v, **STATS_TOL)
+            outs.append(got[0])
+        assert torch.equal(torch.cat(outs, 1), whole[0])
+    got = K.conv3x3(x[:, 7:15].contiguous(), w, mode, 1, 1)
+    torch.testing.assert_close(got.float(), K.conv3x3_fused_plain(
+        x[:, 7:15], w, pad_mode=mode, halo_top=1, halo_bottom=1).float(), **OUT_TOL[dt])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,cout,mode", [
     ((1, 2, 2, 3), 5, "reflect"), ((1, 1, 7, 20), 3, "replicate"), ((3, 1, 1, 1), 1, "zeros"),
 ])

@@ -39,7 +39,8 @@ def test_importing_the_port_loads_neither_jax_nor_desr_tpu():
             "desr_tpu_torch.data.native_io", "desr_tpu_torch.data.legacy_datasets",
             "desr_tpu_torch.options.test_options",
             "desr_tpu_torch.tools.quality_eval", "desr_tpu_torch.parallel",
-            "desr_tpu_torch.parallel.mesh", "desr_tpu_torch.parallel.launch"} <= set(mods)
+            "desr_tpu_torch.parallel.mesh", "desr_tpu_torch.parallel.launch",
+            "desr_tpu_torch.parallel.spatial"} <= set(mods)
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'desr_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -182,7 +182,7 @@ def test_num_devices_resolves_and_refuses(monkeypatch):
     assert parallel.default_backend(parallel.resolve_devices("cuda", 2)) == "nccl"
     with pytest.raises(ValueError, match="only 2 CUDA"):
         parallel.resolve_devices("cuda", 3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="not divisible by spatial=2"):
         parallel.make_mesh(["cpu"], spatial=2)
     with pytest.raises(RuntimeError, match="process group"):
         parallel.make_mesh(CPU2)
@@ -257,7 +257,7 @@ def test_rank_loaders_make_up_the_one_process_batches(tmp_path, extra):
 def test_predict_num_devices_2_is_bit_equal_to_one_device(tmp_path):
     """``predict --num_devices 2 --device cpu``: a replica a device, 3 frames
     at batch 2 (a batch split 1 + 1, then one frame on the first device):
-    the PNGs bit-equal to one device's; --spatial_devices 2 refuses."""
+    the PNGs bit-equal to one device's; --spatial_devices 2 refuses --export."""
     from desr_tpu_torch import checkpoints as ckpt
     from desr_tpu_torch import predict
     from desr_tpu_torch.models.main_model import MainModel, NetOptions
@@ -286,7 +286,8 @@ def test_predict_num_devices_2_is_bit_equal_to_one_device(tmp_path):
         predict.main(base + ["--output", str(out), "--num_devices", str(n)] + net_args)
         outs[n] = {f: png.read_png(out / f) for f in sorted(os.listdir(out))}
     with pytest.raises(SystemExit) as e:
-        predict.main(base + ["--output", str(tmp_path / "o"), "--spatial_devices", "2"])
+        predict.main(base + ["--output", str(tmp_path / "o"), "--spatial_devices", "2",
+                             "--export", str(tmp_path / "art")])
     assert e.value.code != 0
     assert sorted(outs[2]) == ["f0.png", "f1.png", "f2.png"]
     for f, a in outs[1].items():
