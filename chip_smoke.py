@@ -40,7 +40,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     band of four, (1, 1); 128 -> 128 reflect and 256 -> 256 replicate,
     float32 and bf16, each against the plain version, and the two bands'
     outputs concatenated (and the middle band's) against the whole frame's
-    launch: bit-equal expected, any difference printed.
+    launch: bit-equal expected, any difference printed. Then K1
+    (norm+relu+stats) with halo rows at the training bands (``train
+    --spatial_devices 2``): the main step's blocks on 384x512 crops, B=12
+    (48+1)x128 128->128 reflect, the SR step's `Depth_f` at HR, B=2
+    (128+1)x320 128->128 reflect, and its `G_A_d`, B=1 (128+1)x320 256->256
+    replicate (forward only); each band's forward against the plain version
+    (float32 and bf16), and for the trained two at float32 the VJP through
+    the kernel against autograd of the plain composition and the two bands'
+    gradients, the halo rows' carried home as the exchange's adjoint does,
+    against the whole frame's, within 1e-4 of each gradient's largest entry.
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -87,7 +96,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     equal to the live CLI's or within (c)'s bf16 bound; the artifact's batch
     against the live serve_forward's (max |d|, device ms by CUDA events, live,
     artifact, artifact, live; equal under cuDNN's deterministic algorithms),
-    the artifact profiled; the CLI's host wall over 64 frames (main; 32 under
+    the artifact profiled; the CLI's host wall over 32 frames (main; 16 under
     --SR; hard links) at --num_workers 0 and 4;
     ``desr_tpu_torch.metrics.main`` on (c)'s predictions against their
     inputs with the holes filled, with intrinsics: nine finite values, the
@@ -136,9 +145,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     one untimed iteration each with --netD Gu
     (BatchNorm counts 3 G applies + real + fake), --use_spnorm and --inp_B
     depth.
-(l) --device_aug at the README geometry: 384 synthetic 480x640 frames a
-    domain with intrinsics (24 written, the rest hard links to them), and
-    32 with 968x1296 colour (ScanNet's; 8 written) for SR.
+(l) --device_aug at the README geometry: 336 synthetic 480x640 frames a
+    domain with intrinsics (12 written, the rest hard links to them), and
+    28 with 968x1296 colour (ScanNet's; 4 written) for SR.
     For main (batch 6, 384x512 crops), I2D (batch 12) and SR (batch 1, LR
     512x640): one host batch of the --device_aug dataset through its
     device_finish on the card against the same function on the CPU (main
@@ -147,10 +156,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     its depths within 2e-3; SR within 1e-5), the upload from pinned memory
     and device_finish's time by CUDA events and by the profiler; then the
     train CLI with 4 loader workers and TF32 as the CLI leaves it (PyTorch's
-    defaults), host augmentation and then --device_aug, 32 steps each:
+    defaults), host augmentation and then --device_aug, 28 steps each:
     launches per step as in (e), (g), (j), finite losses; after the
     loader's first 8 batches (2 a worker, all queued when the epoch starts)
-    the wall of 12 steps (3 rounds of the 4 workers) unprofiled gives the
+    the wall of 8 steps (2 rounds of the 4 workers) unprofiled gives the
     step's time and pairs/s with the feed (with the host's time inside the
     steps and the spread of the rounds), and the next 4 steps under a
     CUDA-only profiler the card's busy share (kernels and copies over their
@@ -240,6 +249,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     all-reduces and gathers a forward, ms a batch (two processes sharing
     one card: not a scaling figure) and peak memory a rank against one
     process's.
+(s) spatial training (``train --spatial_devices``): two gloo ranks on the
+    one card, one spatial group, each frame's rows split between them.
+    float32, TF32 off, torch's deterministic mode, width 8, seeded weights:
+    the main step on 384x512 crops at batch 2, the same under --norm batch,
+    the SR step at batch 1 (HR 512x512) and two I2D --use_D steps at batch
+    2, each against the one-process step on the same global batch (terms
+    within max(1e-5, 3x the floor), weight gradients within max(1e-3, 3x
+    the floor) relative L2, the floor being the larger gap of the
+    one-process step with K1's outputs, the InstanceNorms' moments and the
+    BatchNorms' outputs jittered by 1e-6 relative from two seeds; the
+    running statistics within phase (q)'s bounds; the ranks alike bit for
+    bit, every K1 launch with halo rows, K1 and K3 as often as one
+    process). Then bf16 at the default widths through the CLI's rank entry
+    (``train._rank_main``, what ``train --num_devices 2 --spatial_devices
+    2`` runs in each rank): 2 SR steps in bench.py's configuration (batch 1,
+    HR 1024x1280; K1 42 a step, all with halo rows, K3 2 and 2), finite
+    losses, frozen nets unchanged and trained ones moved in the saved
+    checkpoints; then the bf16 SR step timed (3 after one) with its
+    collectives forward and backward and peak memory a rank, against one
+    process (two processes sharing one card: not a scaling figure).
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -257,7 +286,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     (``launches_at_shape`` says which path runs each; ``launches_quality``
     counts phase (p)'s); K1 (128 and 256 channels) and K2 with a halo row
     at a rank's band of the serving blocks' input, B=8 (64+1)x160, their
-    launches phase (r)'s halo launches, cuDNN on the same rows; K3's sums and its backward each at the main step's
+    launches phase (r)'s and (s)'s halo launches, cuDNN on the same rows; K1
+    at the training bands of (b) (the lower band, halo rows (1, 0)), with
+    the backward of such a launch and of the whole frame's by CUDA events
+    and the profiler (``band_backward_ms``, ``whole_backward_ms``); K3's sums and its backward each at the main step's
     two shapes, the SR step's HR shape and phase (p)'s 4x128x128, with the
     wrapper's host time per call (host_ms) and the kernels a call launches;
     the sums rows also time the earlier two-launch design
@@ -304,6 +336,7 @@ SR_TRANS_SHAPE = (1, 256, 320, 256)   # G_A_d's (replicate) and G_B_d's (reflect
 SR_LOSS_SHAPES = ((1, 1024, 1280), (1, 512, 640))  # K3's syn (HR) and real (LR) triplets
 SR_K1_PER_STEP = 42       # I2D_features 12 (LR) + Depth_f 12 (HR, with a backward) + G_A_d 18
 SR_K1_REC_PER_STEP = 78   # --use_rec_as_real_input: + G_B_d 18 + G_A_d 18 more
+SR_K1_BWD_PER_STEP = 12   # of those, Depth_f's take a backward
 # stage 1, stage 2 serving and the main step with its augmentation (384x512 crops)
 I2D_TRAIN_SHAPE = (24, 96, 128, 128)  # Image_f's ResnetBlocks, I2D step: batch 2B, B=12, 384x512
 AUG_SHAPE = (12, 96, 128, 128)        # I2D_features' and Depth_f's, main step on 384x512 crops
@@ -669,6 +702,122 @@ def phase_halo_kernels():
           + ("" if len(same) == len(equal) else
              f"; not: {sorted(k for k, v in equal.items() if not v)}"))
     return worst
+
+
+# K1 with halo rows at the training bands (``train --spatial_devices 2``):
+# the ResnetBlocks' NHWC input of the main step on 384x512 crops (B=12: the
+# two branches of 6), Depth_f's in the SR step at HR 1024x1280 (B=2) and
+# G_A_d's there (B=1, frozen: forward only); each frame split in two bands
+# of h rows, a halo row each. (tag, whole-frame shape, pad mode, trained)
+TRAIN_HALO = (("main", (12, 96, 128, 128), "reflect", True),
+              ("SR Depth_f", (2, 256, 320, 128), "reflect", True),
+              ("SR translator", (1, 256, 320, 256), "replicate", False))
+TRAIN_HALO_PATHS = {  # where each runs, for phase (d)'s rows
+    "main": "train --spatial_devices 2, the main step on 384x512 crops at batch 6, a rank: "
+            "24 a step (I2D_features; Depth_f's with a backward); phase (s) runs that step "
+            "at width 8",
+    "SR Depth_f": "train --spatial_devices 2 --SR at bench.py's geometry, a rank: 12 a step, "
+                  "each with a backward (phase (s)'s CLI run and timed steps)",
+    "SR translator": "the same SR step, a rank: 18 a step (G_A_d, frozen: forward only)"}
+VJP_BOUND = 1e-4  # of each gradient's largest entry (tests/test_torch_cuda.py's)
+
+
+def _k1_vjp(x, w, scale, shift, mode, halo, cots, fn=None):
+    """(out, (dx, dw, dscale, dshift)) of K1 (norm+relu+stats) or ``fn`` on x
+    with ``halo`` rows, for the cotangents ``cots`` of (out, s, s2)."""
+    import torch
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, w, scale, shift)]
+    out, s, s2 = (fn or K.conv3x3_fused)(*ins, mode, True, True, *halo)
+    loss = sum((a.float() * c).sum() for a, c in zip((out, s, s2), cots))
+    return out.detach(), torch.autograd.grad(loss, ins)
+
+
+def phase_halo_training_kernels():
+    """(b) K1 (norm+relu+stats) with halo rows at ``TRAIN_HALO``'s bands: the
+    forward of each band against the plain version (bf16 and float32,
+    ``_compare``'s bounds); where the step trains it, at float32 under
+    deterministic cuDNN, the VJP through the kernel (dx with its halo row,
+    dw, dscale, dshift; cotangents on out, s and s2) against autograd of
+    the plain composition on the same band, and the two bands' gradients
+    with the halo rows' cotangents carried home (the exchange's adjoint)
+    and dw, dscale, dshift summed (the gradient average, the moments'
+    all-reduce) against the whole frame's VJP through the kernel, each
+    within ``VJP_BOUND`` of its largest entry. Returns the worst bf16
+    forward max |d| by entry."""
+    import torch
+
+    worst = {}
+    for tag, shape, mode, trained in TRAIN_HALO:
+        b, hh, wd, c = shape
+        h = hh // 2
+        bands = ((0, h + 1, (0, 1)), (h - 1, hh, (1, 0)))
+        key = "K1 halo train " + tag
+        worst[key] = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            x, w, scale, shift = _inputs(dtype, seed=21, shape=shape)
+            for lo, hi, halo in bands:
+                xb = x[:, lo:hi].contiguous()
+                e = _compare(f"{key} {halo} {mode} {dt}",
+                             _k1_halo(xb, w, scale, shift, mode, halo),
+                             _k1_halo(xb, w, scale, shift, mode, halo, plain=True),
+                             dtype, h * wd)
+                if dtype == torch.bfloat16:
+                    worst[key] = max(worst[key], e)
+            del x, w, scale, shift
+        if not trained:
+            continue
+        from desr_tpu_torch.ops import conv3x3 as K
+
+        x, w, scale, shift = _inputs(torch.float32, seed=22, shape=shape)
+        g = torch.Generator(device="cuda").manual_seed(23)
+        cots = [torch.randn((b, hh, wd, c), generator=g, device="cuda"),
+                torch.randn((b, c), generator=g, device="cuda"),
+                0.01 * torch.randn((b, c), generator=g, device="cuda")]
+        with _Deterministic():
+            _, whole = _k1_vjp(x, w, scale, shift, mode, (), cots)
+            parts, gap = [], 0.0
+            for lo, hi, halo in bands:
+                xb = x[:, lo:hi].contiguous()
+                sl = slice(0, h) if halo == (0, 1) else slice(h, hh)
+                band_cots = [cots[0][:, sl].contiguous(), *cots[1:]]
+                _, got = _k1_vjp(xb, w, scale, shift, mode, halo, band_cots)
+                _, want = _k1_vjp(xb, w, scale, shift, mode, halo, band_cots,
+                                  fn=K.conv3x3_fused_plain)
+                for name, a, p in zip(("dx", "dw", "dscale", "dshift"), got, want):
+                    d = float((a - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+                    gap = max(gap, d)
+                    check(d <= VJP_BOUND, f"[b] {key} {halo} VJP {name}: kernel vs plain "
+                          f"{d:.3g} of its largest entry > {VJP_BOUND}")
+                parts.append(got)
+        (d0, *p0), (d1, *p1) = parts
+        dx = torch.cat([d0[:, :h], d1[:, 1:]], 1)
+        dx[:, h - 1] += d1[:, 0]
+        dx[:, h] += d0[:, h]
+        home = 0.0
+        for name, a, p in zip(("dx", "dw", "dscale", "dshift"),
+                              [dx] + [u + v for u, v in zip(p0, p1)], whole):
+            d = float((a - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+            home = max(home, d)
+            check(d <= VJP_BOUND, f"[b] {key}: two bands' {name} after the exchange's "
+                  f"adjoint vs the whole frame's {d:.3g} of its largest entry > {VJP_BOUND}")
+        print(f"[b] {key} B={b} ({h}+1)x{wd} {c}->{c} {mode} float32 (deterministic cuDNN): "
+              f"VJP kernel vs plain {gap:.3g}, two bands after the exchange's adjoint vs the "
+              f"whole frame {home:.3g} of each gradient's largest entry (bound {VJP_BOUND})")
+        del x, w, scale, shift, cots, whole, parts, dx
+        torch.cuda.synchronize()
+    return worst
+
+
+def _k1_halo(x, w, scale, shift, mode, halo, plain=False):
+    """K1 (norm+relu+stats) with ``halo`` rows: the kernel, or its plain version."""
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    fn = K.conv3x3_fused_plain if plain else K.conv3x3_fused
+    return fn(x, w, scale, shift, mode, True, True, *halo)
 
 
 # ------------------------------------------------------------------ (b')
@@ -2007,9 +2156,10 @@ FED_WORKERS = 4             # the loader's default --num_threads
 # batches back to back, faster than mid-epoch, where it waits on the
 # in-order consumer for its next index
 FED_WARM = 2 * FED_WORKERS
-FED_TIMED, FED_PROFILED = 3 * FED_WORKERS, FED_WORKERS
+FED_TIMED, FED_PROFILED = 2 * FED_WORKERS, FED_WORKERS
 FED_STEPS = FED_WARM + FED_TIMED + FED_PROFILED + FED_WARM
-FED_UNIQUE = 24             # frames written a domain (~0.7 s each); the rest are hard links
+FED_UNIQUE = 12             # frames written a domain (~0.7 s each); the rest are hard links
+FED_SR_UNIQUE = 4           # SR's 968x1296 colour frames written a domain
 JIT_BOUNDS = (10.0, 1e-4, 2e-3)  # ColorJitter, 0-255 scale: max, share above 1, above 1e-3
 
 
@@ -2128,8 +2278,10 @@ def phase_device_aug(tmp):
     _write_train_domain(tmp, "A", seed=120, n=n_frames, unique=FED_UNIQUE)
     _write_train_domain(tmp, "B", seed=130, n=n_frames, unique=FED_UNIQUE)
     sr_root = os.path.join(tmp, "sr")
-    _write_train_domain(sr_root, "A", seed=140, n=FED_STEPS, img_hw=(968, 1296), unique=8)
-    _write_train_domain(sr_root, "B", seed=150, n=FED_STEPS, img_hw=(968, 1296), unique=8)
+    _write_train_domain(sr_root, "A", seed=140, n=FED_STEPS, img_hw=(968, 1296),
+                        unique=FED_SR_UNIQUE)
+    _write_train_domain(sr_root, "B", seed=150, n=FED_STEPS, img_hw=(968, 1296),
+                        unique=FED_SR_UNIQUE)
     fed = ["--num_threads", str(FED_WORKERS), "--print_freq", "1000000",
            "--save_epoch_freq", "1000"]
     stages = {  # stage: (argv, model class, dataset class, batch, launches a step)
@@ -2237,7 +2389,7 @@ def phase_device_aug(tmp):
 
 # ------------------------------------------------------------------ (m)
 
-CLI_FRAMES = {"main": 64, "SR": 32}  # the CLI's wall over this many frames (hard links)
+CLI_FRAMES = {"main": 32, "SR": 16}  # the CLI's wall over this many frames (hard links)
 CLI_WORKERS = (0, 4)     # --num_workers: inline, and a spawned pool of 4
 
 
@@ -3546,7 +3698,7 @@ SP_MODES = {
 }
 SP_CKPT = {"main": "sp_main", "sr": "sp_main", "i2d": "sp_i2d", "translate": "sp_tr"}
 SP_F32_BATCH = 2            # the float32 check's batch (the bf16 one serves the CLI's)
-SP_TIMED = 5                # forwards timed a mode, after one
+SP_TIMED = 3                # forwards timed a mode, after one
 SP_F32_BOUND = 1e-3         # float32, deterministic cuDNN: (c)'s bound of the kernels' route
 
 
@@ -3793,6 +3945,427 @@ def phase_spatial(tmp):
     return paths
 
 
+# ------------------------------------------------------------------ (s)
+
+ST_RANKS = 2                # two gloo ranks time-share the one card: one spatial group
+ST_DEVICE = "cuda"          # phase (s)'s device (a CPU rehearsal sets "cpu")
+ST_WIDTH = ("--ImageDepthf_outf", "8", "--ImageDepthf_basef", "8", "--Depthf_outf", "8",
+            "--Depthf_basef", "8", "--I2D_base", "8", "--Task_basef", "8", "--Imagef_outf",
+            "8", "--Imagef_basef", "8", "--ndf", "8")  # the float32 checks' widths
+# the float32 checks: kind -> (global batch, H, W); SR's H, W are HR (LR 256x256: the
+# U-Nets halve the LR grid 7 times)
+ST_CHECKS = {"main": (2, 384, 512), "norm_batch": (2, 384, 512), "sr": (1, 512, 512),
+             "i2d": (2, 384, 512)}
+ST_FULL_ARGV = ()           # flags appended to the bf16 full-width runs (a rehearsal's widths)
+ST_SR_HR = (1024, 1280)     # the bf16 SR step's HR frame: bench.py's geometry
+ST_TIMED = 3                # bf16 SR steps timed, after one
+ST_JITTER_SEEDS = (12, 13)  # the one-process floor: the larger gap of two jittered steps
+
+
+def _st_argv(kind, tmp):
+    """The float32 check's argv of ``kind`` at width 8."""
+    f32 = ["--compute_dtype", "float32", *ST_WIDTH]
+    b, h, w = ST_CHECKS[kind]
+    if kind == "sr":
+        return _sr_train_argv(tmp, "st") + f32 + ["--crop_size_h", str(h // 2),
+                                                   "--crop_size_w", str(w // 2)]
+    if kind == "i2d":
+        return _i2d_train_argv(tmp, "st", f32 + ["--batch_size", str(b), "--pool_size", "2"])
+    return _train_argv(tmp, "st", f32 + ["--batch_size", str(b)]
+                       + (["--norm", "batch"] if kind == "norm_batch" else []), aug=True)
+
+
+def _st_batch(kind):
+    b, h, w = ST_CHECKS[kind]
+    return _synthetic_batch(b, h, w, 60 + list(ST_CHECKS).index(kind),
+                            lr_hw=(h // 2, w // 2) if kind == "sr" else None)
+
+
+def _st_counts():
+    """K1's launches (with halo rows among them) and backwards with halo
+    rows, K3's, and the collectives: halo exchanges, gathers along H and
+    the spatial moments' all-reduces in the forward, every all_reduce_sum
+    (BatchNorm, counts, moments) and the adjoints in the backward."""
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.parallel import mesh as M
+    from desr_tpu_torch.parallel import spatial as S
+
+    return {**_counts(), "K1 halo": K.conv3x3_fused.launches_halo,
+            "K1 backward halo": K.conv3x3_fused.backwards_halo, **S.COUNTS, **M.COUNTS}
+
+
+def _st_reset():
+    from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.parallel import mesh as M
+    from desr_tpu_torch.parallel import spatial as S
+
+    _reset_counts()
+    K.conv3x3_fused.launches_halo = K.conv3x3_fused.backwards_halo = 0
+    S.reset_counts()
+    for k in M.COUNTS:
+        M.COUNTS[k] = 0
+
+
+class _StJitter:
+    """The one-process step's own floor: K1's outputs, the InstanceNorms'
+    moments and the BatchNorms' outputs times (1 + 1e-6 N(0, 1)), the scale
+    of the float32 rounding that the bands' other summation order leaves
+    (phase (q)'s yardstick, which jitters K1 alone), drawn from ``seed``."""
+
+    def __init__(self, seed):
+        self.seed = seed
+
+    def __enter__(self):
+        import contextlib
+
+        import torch
+
+        from desr_tpu_torch.models import layers as TL
+        from desr_tpu_torch.ops import conv3x3 as K
+
+        gen = torch.Generator(device=ST_DEVICE).manual_seed(self.seed)
+
+        def noise(t):
+            return t * (1 + 1e-6 * torch.randn(t.shape, generator=gen, device=t.device))
+
+        run, moments, bn = K._fused_forward, TL.moments_hw, TL.BatchNorm2d.forward
+
+        def conv(*args):
+            res = run(*args)
+            return (noise(res[0]), *res[1:]) if isinstance(res, tuple) else noise(res)
+
+        self.stack = contextlib.ExitStack()
+        for patch in (mock.patch.object(K, "_fused_forward", conv),
+                      mock.patch.object(TL, "moments_hw",
+                                        lambda x: tuple(noise(t) for t in moments(x))),
+                      mock.patch.object(TL.BatchNorm2d, "forward",
+                                        lambda m, x: noise(bn(m, x)))):
+            self.stack.enter_context(patch)
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+
+def _st_step(kind, tmp, mesh, jitter=None):
+    """One float32 step of ``kind`` on ``mesh`` (two for I2D --use_D, whose
+    pool swaps in the second), its weights drawn from seed 8: the global
+    metrics, the first step's gradients on the optimized nets, their
+    weights and every running statistic after it, the replay pool, and the
+    launches and collectives of the first step. ``jitter``: a seed of
+    ``_StJitter``'s noise, or None."""
+    import contextlib
+
+    import torch
+
+    from desr_tpu_torch.models.i2d_model import I2DModel
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.options import train_options
+
+    cls = {"sr": MainSRModel, "i2d": I2DModel}.get(kind, MainModel)
+    opt = train_options.parse(_st_argv(kind, tmp), print_options=False)
+    model = cls(opt, device=mesh.device, compute_dtype=torch.float32, is_train=True,
+                generator=torch.Generator().manual_seed(8), mesh=mesh)
+    batch = _st_batch(kind)
+    nets = list(model.optimized_nets)
+    b = ST_CHECKS[kind][0]
+    res = {}
+    with _StJitter(jitter) if jitter is not None else contextlib.nullcontext():
+        for it in range(1, 3 if kind == "i2d" else 2):
+            model.set_input(batch)
+            torch.cuda.synchronize() if ST_DEVICE == "cuda" else None
+            _st_reset()
+            model.optimize_parameters(it * b)
+            torch.cuda.synchronize() if ST_DEVICE == "cuda" else None
+            if it == 1:
+                res["counts"] = _st_counts()
+                res["grads"] = {f"{n}.{k}": _dp_host(p.grad) for n in nets
+                                for k, p in model.nets[n].named_parameters()
+                                if p.grad is not None}
+    res.update(metrics={k: float(v) for k, v in model.metrics.items()},
+               split=model.step_group is not None, h_split=bool(model._batch.h_split),
+               weights={f"{n}.{k}": _dp_host(p) for n in nets
+                        for k, p in model.nets[n].named_parameters()},
+               stats={f"{n}.{k}": _dp_host(v) for n in model.model_names
+                      for k, v in model.nets[n].state_dict().items() if "running" in k})
+    if kind == "i2d":
+        pool = model.fake_depth_pool
+        res.update(pool=_dp_host(torch.stack(pool.images)), pool_rng=pool.rng.getstate())
+    return res
+
+
+def _st_full_argv(tmp):
+    """bench.py's SR configuration through the CLI: batch 1, LR 512x640 ->
+    HR 1024x1280, --norm_loss --use_smooth_loss, bf16, 2 steps, over
+    ``ST_RANKS`` spatial ranks."""
+    return (_sr_train_argv(tmp, "stcli") + ["--num_devices", str(ST_RANKS),
+                                            "--spatial_devices", str(ST_RANKS)]
+            + list(ST_FULL_ARGV))
+
+
+def _st_sr_bf16(tmp, mesh):
+    """The bf16 SR step at full width on ``mesh``, HR ``ST_SR_HR``: one
+    step's launches and collectives, ms a step over ``ST_TIMED`` steps after
+    one (host clock, the card synchronised; the ranks start together) and
+    this process's peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.options import train_options
+
+    hr = ST_SR_HR
+    opt = train_options.parse(_sr_train_argv(tmp, "stcli") + list(ST_FULL_ARGV)
+                              + ["--crop_size_h", str(hr[0] // 2),
+                                 "--crop_size_w", str(hr[1] // 2)], print_options=False)
+    model = MainSRModel(opt, device=mesh.device, compute_dtype=torch.bfloat16, is_train=True,
+                        generator=torch.Generator().manual_seed(9), mesh=mesh)
+    batch = _synthetic_batch(1, *hr, 64, lr_hw=(hr[0] // 2, hr[1] // 2))
+    sync = torch.cuda.synchronize if ST_DEVICE == "cuda" else (lambda: None)
+    if ST_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model.set_input(batch)
+    sync()
+    _st_reset()
+    model.optimize_parameters(1)
+    sync()
+    counts = _st_counts()
+    if mesh.size > 1:
+        dist.barrier()
+    t0 = time.perf_counter()
+    for it in range(ST_TIMED):
+        model.set_input(batch)
+        model.optimize_parameters(2 + it)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / ST_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if ST_DEVICE == "cuda" else None
+    losses = {k: float(v) for k, v in model.metrics.items()}
+    del model
+    if ST_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {"counts": counts, "ms": ms, "peak_gib": peak, "losses": losses}
+
+
+def _st_rank(mesh, tmp):
+    """One of phase (s)'s ranks: the float32 checks (TF32 off, torch's
+    deterministic mode), then the CLI's rank entry (``train._rank_main``,
+    what ``train --num_devices 2 --spatial_devices 2`` runs in each rank)
+    for 2 bf16 SR steps, then the bf16 SR step timed."""
+    import torch
+
+    from desr_tpu_torch import train
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    with _Deterministic():
+        for kind in ST_CHECKS:
+            out[kind] = _st_step(kind, tmp, mesh)
+    torch.backends.cudnn.allow_tf32 = True  # the CLI's own setting
+    _st_reset()
+    t0 = time.perf_counter()
+    out["cli_losses"] = {k: float(v) for k, v in
+                         train._rank_main(mesh, _st_full_argv(tmp)).items()}
+    if ST_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    out["cli_counts"] = _st_counts()
+    out["cli_s"] = time.perf_counter() - t0
+    out["sr_bf16"] = _st_sr_bf16(tmp, mesh)
+    return out
+
+
+def _st_check(kind, ranks, one, floors):
+    """Phase (s)'s checks of one float32 step over the two ranks against one
+    process's (``one``) and its floor, the larger gap of the jittered
+    one-process steps ``floors`` (a single draw of the noise can leave a
+    tensor almost where it was): the ranks split
+    the frames' rows and agree bit for bit on what they reduced; every K1
+    launch of a rank reads a halo row, and each rank launches K1 and K3 as
+    often as one process; each term within max(1e-5, 3x its floor)
+    relative, each weight gradient within max(1e-3, 3x its floor) relative
+    L2 and each bias within 1e-3 of its net's largest gradient norm (each
+    term's floor is printed beside any gap past phase (q)'s 1e-5); I2D's
+    pool draws equal and its weights within 2 Adam steps' sign flips (2 x 2
+    lr); the running statistics within phase (q)'s (2e-3, 5e-4). Returns
+    the gaps."""
+    import numpy as np
+
+    r0, r1 = ranks
+    check(r0["split"] and r0["h_split"] and r1["h_split"] and not one["split"],
+          f"[s] {kind}: split {r0['split']}, h_split {r0['h_split']}, one {one['split']}")
+    for key in ("metrics", "grads", "weights", "stats"):
+        for k in r0[key]:
+            check(np.array_equal(r0[key][k], r1[key][k]), f"[s] {kind}: the ranks differ on {k}")
+    for r, res in enumerate(ranks):
+        c, o = res["counts"], one["counts"]
+        check(c["K1"] == o["K1"] == c["K1 halo"] and c["K3"] == o["K3"]
+              and c["K3 backward"] == o["K3 backward"] and c["K2"] == 0,
+              f"[s] {kind}: rank {r} launches {c}, one process {o}")
+    check(r0["counts"] == r1["counts"], f"[s] {kind}: the ranks issued other launches or "
+          f"collectives: {r0['counts']} / {r1['counts']}")
+    terms, term_floors, bad = {}, {}, []
+    for k, v in one["metrics"].items():
+        terms[k] = abs(r0["metrics"][k] - v) / max(abs(v), 1e-12)
+        term_floors[k] = fl = max(abs(f["metrics"][k] - v) for f in floors) / max(abs(v), 1e-12)
+        if abs(r0["metrics"][k] - v) > max(1e-5, 3 * fl) * abs(v) + 1e-7:
+            bad.append(f"{k} ({terms[k]:.3g})")
+    check(not bad, f"[s] {kind}: terms off " + ", ".join(bad))
+    net_scale = {}
+    for k, v in one["grads"].items():
+        if not k.endswith("bias"):
+            n = k.split(".")[0]
+            net_scale[n] = max(net_scale.get(n, 0.0), float(np.linalg.norm(v)))
+    gaps, bad = {}, []
+    for k, v in one["grads"].items():
+        if k.endswith("bias"):
+            gaps[k] = _dp_rel(r0["grads"][k], v, net_scale[k.split(".")[0]])
+            bound = 1e-3
+        else:
+            gaps[k] = _dp_rel(r0["grads"][k], v)
+            bound = max(1e-3, 3 * max(_dp_rel(f["grads"][k], v) for f in floors))
+        if gaps[k] > bound:
+            bad.append(f"{k} ({gaps[k]:.3g} > {bound:.3g})")
+    check(not bad, f"[s] {kind}: gradients off " + ", ".join(bad[:5]))
+    if kind == "i2d":
+        check(r0["pool_rng"] == r1["pool_rng"] == one["pool_rng"],
+              "[s] i2d: the ranks' replay pools drew otherwise than one process")
+        pool_gap = float(np.abs(r0["pool"] - one["pool"]).max())
+        check(pool_gap <= 1e-4, f"[s] i2d: the pool's images off by {pool_gap:.3g}")
+        bad = [k for k, v in one["weights"].items()
+               if not np.allclose(r0["weights"][k], v, rtol=0, atol=2 * 2 * 2e-4 + 1e-7)]
+        check(not bad, f"[s] i2d: weights after the steps off in {bad[:5]}")
+    bad = [k for k, v in one["stats"].items()
+           if not np.allclose(r0["stats"][k], v, rtol=2e-3, atol=5e-4)]
+    check(not bad, f"[s] {kind}: running statistics off in {bad[:5]}")
+    weights = sorted(v for k, v in gaps.items() if not k.endswith("bias"))
+    return {"terms_max_rel": max(terms.values()),
+            "terms_floor_max_rel": max(term_floors.values()),
+            # each term past phase (q)'s 1e-5: [its gap, its floor], both relative
+            "terms_over_1e-5": {k: [g, term_floors[k]] for k, g in terms.items() if g > 1e-5},
+            "grad_median_rel": weights[len(weights) // 2],
+            "grad_worst_rel": weights[-1],
+            "floor_grad_worst_rel": max(_dp_rel(f["grads"][k], one["grads"][k])
+                                        for k in gaps if not k.endswith("bias") for f in floors),
+            "stats_max_abs": max([float(np.abs(r0["stats"][k] - v).max())
+                                  for k, v in one["stats"].items()] or [0.0])}
+
+
+def phase_spatial_training(tmp):
+    """(s): ``train --num_devices 2 --spatial_devices 2`` over two gloo ranks
+    on the one card (NCCL takes one rank a card), each frame's rows split
+    between them. Float32 at width 8 (TF32 off, torch's deterministic
+    mode): the main step on 384x512 crops (batch 2), the same under --norm
+    batch, the SR step at batch 1 (HR 512x640) and two I2D --use_D steps
+    (batch 2), each against the one-process step on the same global batch
+    (``_st_check`` states the bounds). Then bf16 at the full widths: 2 SR
+    steps in bench.py's configuration through the CLI's rank entry
+    (finite losses, frozen nets unchanged, trained nets moved, every K1
+    launch with halo rows), and the SR step at HR 1024x1280 timed with its
+    peak memory a rank, against one process (two processes sharing one
+    card: not a scaling figure)."""
+    import numpy as np
+    import torch
+
+    from desr_tpu_torch import checkpoints as ckpt
+    from desr_tpu_torch import parallel
+    from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.options import train_options
+
+    t0 = time.perf_counter()
+    _write_train_domain(tmp, "A", seed=70, n=2)
+    _write_train_domain(tmp, "B", seed=71, n=2)
+    opt = train_options.parse(_st_full_argv(tmp), print_options=False)
+    model = MainSRModel(opt, device=ST_DEVICE, compute_dtype=torch.bfloat16, is_train=True,
+                        generator=torch.Generator().manual_seed(9))
+    for n in model.model_names:
+        ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(tmp, "stcli", "latest", n))
+    before = _state(model, model.model_names)
+    trained = model.trainable_nets
+    del model
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_st_rank, [f"{ST_DEVICE}:0"] * ST_RANKS, backend="gloo",
+                            args=(tmp,), workdir=tmp, spatial=ST_RANKS)
+    ranks_s = time.perf_counter() - t0
+    one_mesh = parallel.make_mesh([ST_DEVICE])
+    report, paths = {"setup_s": setup_s, "ranks_s": ranks_s}, {}
+    with _Deterministic():
+        for kind in ST_CHECKS:
+            one = _st_step(kind, tmp, one_mesh)
+            floors = [_st_step(kind, tmp, one_mesh, jitter=seed) for seed in ST_JITTER_SEEDS]
+            report[kind] = g = _st_check(kind, [r[kind] for r in ranks], one, floors)
+            c = ranks[0][kind]["counts"]
+            report[kind]["counts_rank"] = c
+            over = ", ".join(f"{k} {gap:.3g} (floor {fl:.3g})"
+                             for k, (gap, fl) in g["terms_over_1e-5"].items())
+            print(f"[s] {kind} float32 {ST_CHECKS[kind]}: 2 ranks vs one process: terms max "
+                  f"rel {g['terms_max_rel']:.3g} (the one-process floor's max "
+                  f"{g['terms_floor_max_rel']:.3g}; past 1e-5: {over or 'none'}), "
+                  f"weight grads rel L2 median "
+                  f"{g['grad_median_rel']:.3g} worst {g['grad_worst_rel']:.3g} (the one-process "
+                  f"floor's worst {g['floor_grad_worst_rel']:.3g}), running stats max |d| "
+                  f"{g['stats_max_abs']:.3g}; a rank: K1 {c['K1']} ({c['K1 halo']} with halo "
+                  f"rows, {c['K1 backward halo']} backwards with halo rows), K3 {c['K3']}")
+            for r, rank in enumerate(ranks):
+                paths[f"train_spatial_{kind}_rank{r}"] = {
+                    k: rank[kind]["counts"][k]
+                    for k in ("K1", "K1 halo", "K1 backward halo", "K3", "K3 backward")}
+    # the CLI's 2 bf16 SR steps: launches, losses, the nets it saved
+    want = {"K1": 2 * SR_K1_PER_STEP, "K1 halo": 2 * SR_K1_PER_STEP, "K2": 0,
+            "K3": 2 * K3_PER_STEP, "K3 backward": 2 * K3_BWD_PER_STEP,
+            "K1 backward halo": 2 * SR_K1_BWD_PER_STEP}
+    for r, rank in enumerate(ranks):
+        c = rank["cli_counts"]
+        got = {k: c[k] for k in want}
+        check(got == want, f"[s] train --spatial_devices 2 --SR rank {r}: launches {got}; "
+              f"want {want}")
+        check(all(np.isfinite(list(rank["cli_losses"].values()))) and rank["cli_losses"],
+              f"[s] CLI rank {r}: losses {rank['cli_losses']}")
+        paths[f"train_spatial_cli_rank{r}"] = got
+    check(ranks[0]["cli_counts"] == ranks[1]["cli_counts"],
+          f"[s] CLI: the ranks issued other launches or collectives: "
+          f"{ranks[0]['cli_counts']} / {ranks[1]['cli_counts']}")
+    # the nets rank 0 saved at the epoch's end (save_net: a state_dict file)
+    after = {n: torch.load(ckpt.net_ckpt_path(tmp, "stcli", "latest", n), map_location="cpu")
+             for n in before}
+    for n, state in before.items():
+        same = all(torch.equal(v.cpu(), after[n][k].cpu()) for k, v in state.items())
+        check(same == (n not in trained), f"[s] CLI: {n} " + ("moved" if same else "unchanged")
+              + (" (trained)" if n in trained else " (frozen)"))
+    # the bf16 SR step at full width: ms, peak memory a rank, collectives
+    one = _st_sr_bf16(tmp, one_mesh)
+    sr = [rank["sr_bf16"] for rank in ranks]
+    for r, s in enumerate(sr):
+        check(all(np.isfinite(list(s["losses"].values()))), f"[s] bf16 SR rank {r}: {s['losses']}")
+    c = sr[0]["counts"]
+    report["sr_bf16"] = {"ms_ranks": [s["ms"] for s in sr], "ms_one_process": one["ms"],
+                         "peak_gib_ranks": [s["peak_gib"] for s in sr],
+                         "peak_gib_one_process": one["peak_gib"], "counts_rank": c,
+                         "counts_one_process": one["counts"],
+                         "cli_s_ranks": [rank["cli_s"] for rank in ranks]}
+    check(c["K1"] == c["K1 halo"] == one["counts"]["K1"] == SR_K1_PER_STEP
+          and c["K1 backward halo"] == SR_K1_BWD_PER_STEP,
+          f"[s] bf16 SR step: a rank's launches {c}, one process {one['counts']}")
+    print(f"[s] bf16 SR step, batch 1, HR {ST_SR_HR[0]}x{ST_SR_HR[1]}, default widths: per "
+          f"rank K1 {c['K1']} ({c['K1 halo']} with halo rows, {c['K1 backward halo']} "
+          f"backwards with halo rows), K3 {c['K3']}, K3 backward {c['K3 backward']}; a step's "
+          f"collectives: forward {c['exchange']} halo exchanges, {c['gather']} gathers along "
+          f"H, {c['all_reduce']} moment all-reduces; backward {c['exchange_bwd']} exchange "
+          f"adjoints, {c['gather_bwd']} gather adjoints, {c['all_reduce_sum_bwd']} all-reduce "
+          f"adjoints ({c['all_reduce_sum']} all_reduce_sum in all, forward); "
+          f"{max(s['ms'] for s in sr):.1f} ms a step over 2 gloo ranks sharing one card (not a "
+          f"scaling figure) vs one process {one['ms']:.1f} ms; peak memory a rank "
+          + (f"{max(s['peak_gib'] for s in sr):.3f} GiB vs one process {one['peak_gib']:.3f} GiB"
+             if one["peak_gib"] is not None else "not measured (CPU)"))
+    print(f"[s] CLI train --num_devices 2 --spatial_devices 2 --SR: 2 steps, a rank K1 "
+          f"{ranks[0]['cli_counts']['K1']} (all with halo rows), K3 "
+          f"{ranks[0]['cli_counts']['K3']}, finite losses, frozen nets unchanged, "
+          f"{', '.join(trained)} moved; {max(r['cli_s'] for r in ranks):.1f} s")
+    print("[s] " + json.dumps(report))
+    return paths
+
+
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     """One row per kernel and shape (K1 has four, K3's sums and backward two
     each); ``launches``
@@ -3962,6 +4535,55 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "flops": flops, "launches_at_shape": at_shape,
         })
         del x, wt, scale, shift, xp, wb
+    # K1 with halo rows at the training bands (phase (b)'s TRAIN_HALO; the
+    # lower band, halo rows (1, 0)); where the step trains it, the backward
+    # of that launch (CUDA events, the composition's, as K1's backward has
+    # always been) beside the whole frame's
+    for tag, whole, mode, trained in TRAIN_HALO:
+        b, hh, w, c = whole
+        h = hh // 2
+        key = "K1 halo train " + tag
+        x, wt, scale, shift = _inputs(torch.bfloat16, seed=1, shape=(b, h + 1, w, c))
+        fn = lambda: K.conv3x3_fused(x, wt, scale, shift, mode, True, True, 1, 0)  # noqa: E731
+        plain = lambda: K.conv3x3_fused_plain(x, wt, scale, shift, mode, True, True, 1, 0)  # noqa: E731
+        flops = 2.0 * 9 * c * c * b * h * w
+        io = (b * (h + 1) * w * c + b * h * w * c + 9 * c * c) * x.element_size()
+        xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 0, 1), mode=mode)
+        xp = xp.contiguous(memory_format=torch.channels_last)
+        wb = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, (io + 2 * b * c * 4 * 2) / PEAK_HBM * 1e3
+        row = {
+            "name": "conv3x3_fused", "route": "cuda", "source": "desr_tpu_torch/csrc/conv3x3.cu",
+            "replaces": k1, **counts("K1 halo"), "max_abs_err": worst[key],
+            # the backwards of K1 launches with halo rows on every path (the
+            # composition's VJP through cuDNN, no kernel of its own)
+            "backward_launches_halo": sum(c.get("K1 backward halo", 0) for c in paths.values()),
+            "event_ms": cuda_ms(fn), **_device_stats(fn, "conv3x3"),
+            "host_ms": issue_ms(fn), "plain_ms": cuda_ms(plain, iters=5),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": cuda_ms(lambda: F.conv2d(xp, wb)),
+            "shape": f"B={b} ({h}+1)x{w} {c}->{c} bfloat16 {mode}, halo rows (1, 0) "
+                     "norm+relu+stats",
+            "flops": flops,
+            "launches_at_shape": TRAIN_HALO_PATHS[tag],
+        }
+        if trained:
+            row.update({f"band_{k}": v for k, v in _k1_backward_ms(
+                x, wt, scale, shift, xp, wb, mode, halo=(1, 0)).items()})
+            xw, wtw, scw, shw = _inputs(torch.bfloat16, seed=1, shape=whole)
+            xpw = F.pad(xw.permute(0, 3, 1, 2), (1, 1, 1, 1), mode=mode)
+            xpw = xpw.contiguous(memory_format=torch.channels_last)
+            row.update({f"whole_{k}": v for k, v in _k1_backward_ms(
+                xw, wtw, scw, shw, xpw, wb, mode).items()})
+            print(f"[d] K1 composition's backward at {row['shape']}: "
+                  f"{row['band_backward_ms']:.4g} ms a call by CUDA events (cuDNN's conv "
+                  f"backward alone {row['band_library_backward_ms']:.4g}); the whole frame's "
+                  f"B={b} {hh}x{w}: {row['whole_backward_ms']:.4g} ms "
+                  f"({row['whole_library_backward_ms']:.4g})")
+            del xw, wtw, scw, shw, xpw
+        rows.append(row)
+        del x, wt, scale, shift, xp, wb
     # K3 at the main train step's shape and at the SR step's HR one, f32
     # pred/target (the model's tail is f32): the sums, then the backward as
     # the step runs it (target is data: no dt). Device time in three rounds,
@@ -4042,7 +4664,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     return rows
 
 
-def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode):
+def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode, halo=()):
     """Times of the backward of one ``conv3x3_fused`` launch (norm+relu+stats)
     on these inputs, whose graph is kept: the stats' cotangents folded into
     the output's, ``aten.convolution_backward`` on the recomputed padded
@@ -4056,7 +4678,7 @@ def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode):
     from desr_tpu_torch.ops import conv3x3 as K
 
     ins = [t.detach().requires_grad_(True) for t in (x, wt, scale, shift)]
-    outs = K.conv3x3_fused(*ins, mode, True, True)
+    outs = K.conv3x3_fused(*ins, mode, True, True, *halo)
     gen = torch.Generator(device="cuda").manual_seed(5)
     gouts = [torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype) for t in outs]
     xpl, wbl = xp.detach().requires_grad_(True), wb.detach().requires_grad_(True)
@@ -4127,6 +4749,7 @@ def main():
     card, two_launch_so = phase_card_and_build()
     worst = phase_kernels()
     worst.update(phase_halo_kernels())
+    worst.update(phase_halo_training_kernels())
     k3_err, k3_bwd_err = phase_masked_loss()
     paths = {}  # each path's launches by kernel, from its phase's run of the entry point
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as root:
@@ -4134,7 +4757,7 @@ def main():
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
                       phase_i2d_training, phase_translation_training, phase_device_aug,
                       phase_train_surface, phase_bench_io, phase_quality,
-                      phase_data_parallel, phase_spatial):
+                      phase_data_parallel, phase_spatial, phase_spatial_training):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

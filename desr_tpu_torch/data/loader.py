@@ -17,7 +17,10 @@ Over a data mesh of N ranks (``--num_devices``) each rank's loader draws the
 same global order from ``--seed`` and decodes only its rows of each global
 batch (``RankBatchSampler``); its batches come as ``parallel.Shard``s that
 carry the global batch's rows (``RankLoader``). ``--num_threads`` workers
-run per rank.
+run per rank. Under ``--spatial_devices`` the S ranks of a data group
+decode the same items (the data axis alone splits the batch), with the
+same augmentation (``item_rng(index)``), and each keeps its band of the
+frames' rows (``parallel.split_h``), which its ``Shard`` records.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 from torch.utils.data import BatchSampler, DataLoader, RandomSampler, SequentialSampler, Subset
 
-from desr_tpu_torch.parallel.mesh import Shard
+from desr_tpu_torch.parallel.mesh import split_h
 
 
 def collate(samples):
@@ -92,7 +95,8 @@ class RankBatchSampler:
 class RankLoader:
     """Iterates a rank's ``loader`` (over a ``RankBatchSampler``) and hands
     each batch on as a ``Shard`` of the global batch of ``batch_size`` (the
-    last one shorter) of which it holds the rows."""
+    last one shorter) of which it holds the rows, and on a spatial mesh
+    its band of each image value's rows (``split_h``)."""
 
     def __init__(self, loader, batch_size, mesh):
         self.loader, self.batch_size, self.mesh = loader, batch_size, mesh
@@ -105,7 +109,7 @@ class RankLoader:
         n = len(self.dataset)
         for k, batch in enumerate(self.loader):
             size = min(self.batch_size, n - k * self.batch_size)
-            yield Shard(batch, (*self.mesh.rows(size), size))
+            yield split_h(batch, self.mesh, (*self.mesh.rows(size), size))
 
 
 def dataset_for_model(opt):

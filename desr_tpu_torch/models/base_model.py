@@ -27,9 +27,13 @@ moments and the losses their denominators, and the metrics are averaged
 (``global_metrics``). ``reduce_grads`` averages the trained nets'
 gradients between each backward and its Adam step. Checkpoints are written
 by rank 0 and read by every rank. On a mesh with a spatial axis
-(``--spatial_devices``, serving only) ``serve_forward`` takes this rank's
-band of each frame's rows and returns its rows of the prediction
-(``serving_layout``).
+(``--spatial_devices``) ``serve_forward`` takes this rank's band of each
+frame's rows and returns its rows of the prediction (``serving_layout``),
+and a train step runs on the rank's band (``step_layout``): where the
+staged batch's frames are split along H, ``step_group`` is every rank of
+the mesh (data x spatial); where they stay whole, the ranks that split B.
+The visuals and dumped predictions are gathered along H
+(``whole_frames``).
 """
 
 from __future__ import annotations
@@ -78,7 +82,10 @@ class BaseModel(nn.Module):
         self.opt = opt
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else M.make_mesh([self.device])
+        self.spatial = S.from_mesh(self.mesh)  # this rank's Spatial, or None
+        self._nets_tagged = False
         self.step_group = None
+        self._bn_groups = (None, None)
         self.compute_dtype = compute_dtype
         self.loss_names = []
         self.metrics = {}
@@ -244,15 +251,46 @@ class BaseModel(nn.Module):
         self.use_batch(*self.stage(batch))
 
     def use_batch(self, batch, paths):
-        """Make a staged batch the current one. While it is split over the
-        ranks, ``step_group`` is the mesh's process group and every
-        BatchNorm takes its moments over it; else None (a single rank, or
-        every rank holding the whole batch, JAX's replicated case)."""
+        """Make a staged batch the current one. ``step_group`` is the process
+        group of the ranks that hold distinct parts of it: the mesh's where
+        its frames are split along H, else the ranks that split it along B
+        (``Mesh.batch_group``: on a spatial mesh the S ranks of a data group
+        hold the same whole frames and count once), else None (a single
+        rank, or every rank holding the whole batch, JAX's replicated case).
+        Every BatchNorm takes its moments over ``step_group`` on a band and
+        over the B-splitting ranks on a tensor that the spatial ranks hold
+        whole. On a spatial mesh the nets are tagged with this rank's
+        ``Spatial``."""
         self._batch, self._paths = batch, paths
-        group = self.mesh.group if batch.split else None
-        if group is not self.step_group:
-            set_batch_norm_group(self.nets, group)
-            self.step_group = group
+        if self.spatial is not None and not self._nets_tagged:
+            S.set_spatial_group(self.nets, self.spatial)
+            self._nets_tagged = True
+        whole = self.mesh.batch_group if batch.split else None
+        group = self.mesh.group if batch.h_split else whole
+        if (group, whole) != self._bn_groups:
+            set_batch_norm_group(self.nets, group, whole)
+            self._bn_groups = (group, whole)
+        self.step_group = group
+
+    def step_layout(self, batch):
+        """The context a train step or an eval forward of a staged ``Shard``
+        runs in: ``spatial.whole()`` where the mesh has a spatial axis and
+        the batch's frames are whole (``Shard.h_split`` false: H not
+        divisible by S or under 32 rows, or a batch the data axis does not
+        divide), as on one process; else a null context (the tagged nets
+        and the model's ops then work on the rank's band)."""
+        if self.spatial is None or batch.h_split:
+            return contextlib.nullcontext()
+        return S.whole()
+
+    def whole_frames(self, tensors):
+        """``tensors`` (a dict of (B, H, ...) maps and NHWC images) with each
+        frame whole along H on every rank of the spatial group, where the
+        staged batch splits H (one gather each, in the dict's order); else
+        as they are."""
+        if self.spatial is None or not self._batch.h_split:
+            return tensors
+        return {k: S.gather_h(v, self.spatial, 1) for k, v in tensors.items()}
 
     def serving_layout(self, batch, module):
         """The context ``module`` (nets of this model) serves a ``Shard`` in.
@@ -294,11 +332,14 @@ class BaseModel(nn.Module):
         """uint16 PNG dump of ``pred`` (B, H, W), x5100, rows [r:-r] with
         r = ``_dump_rows`` (main and I2D: 16, main_model.py:453-462,
         i2d_model.py:268-278; SR: 32 of the HR prediction), one file per
-        B path's stem under ``--save_image_folder``. Each rank writes its rows
-        of a split batch; rank 0 alone a batch every rank holds whole."""
+        B path's stem under ``--save_image_folder``. Under a split H the
+        frames are gathered first. Each data group's first spatial rank
+        writes its rows of a split batch; rank 0 alone a batch every rank
+        holds whole."""
         from desr_tpu_torch.utils.util import save_uint16_png
 
-        if self.mesh.rank and not self._batch.split:
+        pred = self.whole_frames({"pred": pred})["pred"]
+        if self.mesh.spatial_rank or (self.mesh.rank and not self._batch.split):
             return
 
         os.makedirs(self.opt.save_image_folder, exist_ok=True)

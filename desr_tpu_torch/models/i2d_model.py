@@ -13,6 +13,11 @@ both frozen as ``I2D_features`` and ``Image2Depth``. Trained with a masked L1
   and the throttled update schedule of :245-258. Its adversarial term
   GAN(D(features_real), True), through a frozen D, joins G's loss only when
   ``Image_f`` trains (:141-176): for ``Task`` its gradient is zero.
+
+Under ``--spatial_devices`` the step runs on this rank's band of each
+frame's rows (``BaseModel.step_layout``); ``D_depth``'s PatchGAN gathers
+before its stride-1 tail, and the replay pool, which holds whole frames,
+is queried with the features gathered along B and H on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from desr_tpu_torch.models.layers import batch_norm_mode
 from desr_tpu_torch.models.main_model import NetOptions, _to_device
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
+from desr_tpu_torch.parallel import spatial as S
 from desr_tpu_torch.parallel.mesh import Shard, all_gather_rows
 from desr_tpu_torch.utils.image_pool import ImagePool
 
@@ -146,8 +152,9 @@ class I2DModel(BaseModel):
         m = {"task_syn": L.l1_loss(syn_d * mask_syn, pred_syn * mask_syn),
              "task_real": L.l1_loss(real_d * mask_real, pred_real * mask_real)}
         if opt.norm_loss:  # a metric only (I2D_model.py:217 vs :226)
-            m["syn_norms"] = L.l1_loss(NRM.surface_normals_planar(syn_d),
-                                       NRM.surface_normals_planar(pred_syn))
+            sp = S.active(self.spatial)
+            m["syn_norms"] = L.l1_loss(NRM.surface_normals_planar(syn_d, spatial=sp),
+                                       NRM.surface_normals_planar(pred_syn, spatial=sp))
         loss_g = (m["task_syn"] * opt.w_syn_l1 + m["task_real"] * opt.w_real_l1) * opt.scale_G
         m["G"] = loss_g
         return loss_g, m
@@ -163,9 +170,10 @@ class I2DModel(BaseModel):
         """(device tensors, paths) of this rank's rows of a host batch
         (``--direction BtoA`` swaps the domains)."""
         batch = self.shard(batch)
-        rows = batch.rows
+        rows, h_rows = batch.rows, batch.h_rows
         batch = self.apply_direction(batch)
-        return (Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}, rows),
+        return (Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}, rows,
+                      h_rows),
                 {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")})
 
     def compute_grads(self, batch=None):
@@ -175,12 +183,13 @@ class I2DModel(BaseModel):
         detached, for the D step."""
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
-        feats_syn, feats_real, pred_syn, pred_real = self.forward_all(batch)
-        loss_g, m = self.losses(pred_syn, pred_real, batch)
-        if self.use_D and "Image_f" in self.trainable_nets:
-            # the reference's unweighted loss_G_pred through the frozen D
-            loss_g = loss_g + L.gan_loss(self._d_logits(feats_real), True, self.opt.gan_mode)
-        loss_g.backward()
+        with self.step_layout(batch):
+            feats_syn, feats_real, pred_syn, pred_real = self.forward_all(batch)
+            loss_g, m = self.losses(pred_syn, pred_real, batch)
+            if self.use_D and "Image_f" in self.trainable_nets:
+                # the reference's unweighted loss_G_pred through the frozen D
+                loss_g = loss_g + L.gan_loss(self._d_logits(feats_real), True, self.opt.gan_mode)
+            loss_g.backward()
         self.reduce_grads(self.trainable_nets)
         self._feats = (feats_syn.detach(), feats_real.detach())
         return {k: v.detach() for k, v in m.items()}
@@ -213,7 +222,8 @@ class I2DModel(BaseModel):
         self.metrics = self.compute_grads()
         self.optimizer.step()
         if self.use_D:
-            self._d_and_g_pred(iters, fr)
+            with self.step_layout(self._batch):
+                self._d_and_g_pred(iters, fr)
         self.metrics = self.global_metrics(self.metrics)
 
     def _d_and_g_pred(self, iters, fr):
@@ -224,11 +234,17 @@ class I2DModel(BaseModel):
                 feats_syn, feats_real = self.forward_all(self._batch, train=False)[:2]
         if iters % (fr * self.opt.batch_size) == 0 or iters < 800:
             # the JAX step queries one host pool with the global batch
-            # (i2d_model.py:251); every rank holds an identical pool
-            fake = self.fake_depth_pool.query(all_gather_rows(feats_real, self.step_group))
-            if self.step_group is not None:
+            # (i2d_model.py:251); every rank holds an identical pool, queried
+            # with whole frames, and keeps its rows of B and of H
+            sp = S.active(self.spatial)
+            whole = feats_real if sp is None else S.gather_h(feats_real, sp)
+            batch_group = self.mesh.batch_group if self._batch.split else None
+            fake = self.fake_depth_pool.query(all_gather_rows(whole, batch_group))
+            if batch_group is not None:
                 lo, hi, _ = self._batch.rows
                 fake = fake[lo:hi]
+            if sp is not None:
+                fake = S.take_h(fake, sp).contiguous()
             self.metrics["D_depth"] = self.d_step(feats_syn, fake)
         with torch.no_grad():
             mode = self.opt.gan_mode
@@ -241,11 +257,12 @@ class I2DModel(BaseModel):
         NHWC images, planar depths and predictions); with ``--save_all`` the
         test predictions are written as uint16 PNGs (rows [16:-16])."""
         batch = self._batch
-        _, _, pred_syn, pred_real = self.forward_all(batch, train=False)
-        self.metrics = self.global_metrics(self.losses(pred_syn, pred_real, batch)[1])
+        with self.step_layout(batch):
+            _, _, pred_syn, pred_real = self.forward_all(batch, train=False)
+            self.metrics = self.global_metrics(self.losses(pred_syn, pred_real, batch)[1])
         vis = {"syn_image": batch["A_i"], "syn_depth": batch["A_d"][..., 0],
                "pred_syn_depth": pred_syn, "real_image": batch["B_i"],
                "real_depth": batch["B_d"][..., 0], "pred_real_depth": pred_real}
-        self.visuals = {k: vis[k] for k in self.visual_names}
+        self.visuals = self.whole_frames({k: vis[k] for k in self.visual_names})
         if getattr(self.opt, "save_all", False) and stage == "test":
             self._dump_predictions(pred_real)

@@ -30,7 +30,12 @@ transposed conv crops its output to the rank's rows, and InstanceNorm and
 GroupNorm sum their moments over the ranks. A conv with no padding of its
 own and stride 1 reads rows that the pad before it already added (every
 such conv in the nets follows a ReflectionPad2d or a ReplicationPad2d, or
-is 1x1).
+is 1x1). A padded conv runs on a band only where its output is the input's
+rows / stride (``band_rule``); the PatchGAN's 4x4 stride-1 tail, which
+gives H - 1 rows, runs whole (``networks.NLayerDiscriminator``). In
+training BatchNorm takes its moments over the step's group, data x
+spatial. Every backward comes from autograd through the exchanges'
+adjoints (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -79,6 +84,13 @@ def convt_halo(k, stride, padding):
     return (k - 1 - padding) // stride, (stride - 1 + padding) // stride
 
 
+def band_rule(k, stride, padding):
+    """Whether a conv's output is its input's rows / stride for every H
+    that stride divides (floor((H + 2p - k) / s) + 1 = H / s): then a
+    rank's band with ``conv_halo`` rows gives the band's output rows."""
+    return k - stride <= 2 * padding < k
+
+
 def _rows_pad(x, sp, top, bottom, w_pads, mode):
     """x with ``top`` / ``bottom`` halo rows from its neighbours and the
     frame's edges padded by ``mode`` (zeros: "constant") to as many; W
@@ -105,7 +117,7 @@ class Conv2d(nn.Conv2d):
         if p == 0 and stride == 1:  # its rows come with x (see the module)
             return self._conv_forward(x, w, b)
         top, bottom = conv_halo(k, stride, p)
-        if bottom < 0 or self.dilation != (1, 1) or x.shape[2] % stride:
+        if not band_rule(k, stride, p) or self.dilation != (1, 1) or x.shape[2] % stride:
             raise NotImplementedError(
                 f"a {k}x{k} stride-{stride} conv (padding {p}) on {x.shape[2]} rows a rank")
         mode = self.padding_mode
@@ -329,16 +341,21 @@ class BatchNorm2d(nn.Module):
     (int64).
 
     With a process group in ``group`` (``set_batch_norm_group``: the ranks
-    that split the batch) the train-mode moments are the global batch's, as
-    GSPMD computes them in the JAX package: the per-channel sum, sum of
-    squares and count are summed over the ranks in one differentiable
-    all_reduce, and the mean and biased variance taken from them in one
-    pass (E[x^2] - E[x]^2, clamped at 0, as InstanceNorm's here); the
-    running variance's unbiased factor uses the global count.
+    that split the batch, along B or, under ``--spatial_devices``, along H)
+    the train-mode moments are the global batch's, as GSPMD computes them
+    in the JAX package: the per-channel sum, sum of squares and count are
+    summed over the ranks in one differentiable all_reduce, and the mean
+    and biased variance taken from them in one pass (E[x^2] - E[x]^2,
+    clamped at 0, as InstanceNorm's here); the running variance's unbiased
+    factor uses the global count. Under a ``spatial`` tag inside
+    ``spatial.whole()`` (a level no rank splits) the S ranks of a data
+    group hold the same whole tensor, so the moments are summed over
+    ``whole_group`` instead, the ranks that split the batch along B.
     ``torch.nn.SyncBatchNorm`` does not serve: it refuses CPU tensors.
     """
 
     group = None
+    whole_group = None
     spatial = None
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
@@ -353,23 +370,23 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         x32 = x.float()
         train, track = _BN_MODE[-1] if _BN_MODE else (self.training, self.training)
-        if train and S.active(self.spatial) is not None:
-            raise NotImplementedError("BatchNorm's batch moments over a rank's rows: "
-                                      + S.NOT_PORTED)
         n = x32.numel() // self.c
-        if train and self.group is None:
+        whole = self.spatial is not None and S.active(self.spatial) is None
+        group = self.whole_group if whole else self.group
+        if train and group is None:
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
         elif train:
             sums = all_reduce_sum(torch.stack([
                 x32.sum(dim=(0, 2, 3)), x32.square().sum(dim=(0, 2, 3)),
-                x32.new_full((self.c,), float(n))]), self.group)
+                x32.new_full((self.c,), float(n))]), group)
             n = sums[2]
             mean = sums[0] / n
             var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
         if track:
             with torch.no_grad():
-                # a global count (a tensor) spans at least two ranks' pixels
-                unbiased = var * (n / (n - 1)) if torch.is_tensor(n) or n > 1 else var
+                # a global count is a tensor (read without a sync)
+                unbiased = (var * (n / (n - 1).clamp(min=1)) if torch.is_tensor(n)
+                            else var * (n / (n - 1)) if n > 1 else var)
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
                 self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
@@ -380,12 +397,14 @@ class BatchNorm2d(nn.Module):
         return (out * self.weight[:, None, None] + self.bias[:, None, None]).to(x.dtype)
 
 
-def set_batch_norm_group(module, group):
-    """The process group over which every ``BatchNorm2d`` in ``module``
-    takes its train-mode moments (None: the local batch's)."""
+def set_batch_norm_group(module, group, whole_group=None):
+    """The process groups over which every ``BatchNorm2d`` in ``module``
+    takes its train-mode moments (None: the local batch's): ``group``, and
+    ``whole_group`` on a tensor that the spatial ranks hold whole (a
+    ``spatial``-tagged BatchNorm inside ``spatial.whole()``)."""
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
-            m.group = group
+            m.group, m.whole_group = group, whole_group
 
 
 class SpectralNormConv2d(nn.Module):

@@ -9,6 +9,11 @@ trained ``Depth_f`` + ``Task`` fuse them to fill holes and denoise. Only
 
 Serving (``is_train=False``) builds the four nets of the real branch only:
 ``G_A_d`` and the synthetic branch are dead code there.
+
+Under ``--spatial_devices`` the step runs on this rank's band of each
+frame's rows (``BaseModel.step_layout``): the nets read halo rows, the masks
+and normals read one row of each neighbour, the holes are cut from the
+whole frames' draws, and ``calculate`` gathers its visuals along H.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from desr_tpu_torch.ops import depth as DPT
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
 from desr_tpu_torch.ops.masked_loss import fused_hole_means
+from desr_tpu_torch.parallel import spatial as S
 from desr_tpu_torch.parallel.mesh import Shard
 
 BORDER = -0.97  # main_model.py:44
@@ -256,8 +262,11 @@ class MainModel(BaseModel):
 
     def _guidance(self, images):
         """(features, depth prior) of the frozen image nets: compute-dtype
-        NCHW features and a float32 (B, H, W) depth, on the images' grid."""
-        return self.serving_module().guidance(images)
+        NCHW features and a float32 (B, H, W) depth, on the images' grid
+        (a rank's band of it under the model's ``spatial``)."""
+        module = self.serving_module()
+        module.spatial = self.spatial
+        return module.guidance(images)
 
     def _real_input_depth(self, batch, real_depth, real_image, train):
         """The real depth the holes are punched into (main: the input's own)."""
@@ -284,9 +293,10 @@ class MainModel(BaseModel):
         syn_image = batch["A_i"].to(dt).permute(0, 3, 1, 2)
         real_image = batch["B_i"].to(dt).permute(0, 3, 1, 2)
         syn_depth, real_depth = batch["A_d"][..., 0], batch["B_d"][..., 0]
+        sp = S.active(self.spatial)
         real_hole_mask = DPT.hole_mask(real_depth, BORDER)
-        real_mask = DPT.valid_mask(real_depth, BORDER)
-        syn_mask = DPT.valid_mask(syn_depth, BORDER)
+        real_mask = DPT.valid_mask(real_depth, BORDER, sp)
+        syn_mask = DPT.valid_mask(syn_depth, BORDER, sp)
         batched = not getattr(self.opt, "no_batched_branches", False)
         bsz = real_image.shape[0]
         with torch.no_grad():
@@ -305,7 +315,8 @@ class MainModel(BaseModel):
         if self.use_masked:
             n, (p_real, p_syn) = (60, self._hole_p) if train else (11, (0.0, 0.0))
             holes = dict(n_max=n, max_frac=self._hole_max_frac, generator=self.hole_generator,
-                         rows=getattr(batch, "rows", None))
+                         rows=getattr(batch, "rows", None),
+                         h_rows=batch.h_rows if sp is not None else None)
             gt_mask_real = DPT.random_rect_holes(real_mask, p=p_real, **holes)
             depth_masked = DPT.punch_holes(real_input_depth, gt_mask_real)
             gt_mask_syn = DPT.random_rect_holes(syn_mask, p=p_syn, **holes)
@@ -343,7 +354,7 @@ class MainModel(BaseModel):
     def losses(self, f, batch):
         """(loss_G, metrics) of main_model.py:253-357; the (task, holes,
         holes_l2) triplets run on K3 (``fused_hole_means``)."""
-        opt = self.opt
+        opt, sp, group = self.opt, S.active(self.spatial), self.step_group
         m = {}
         syn_depth, real_depth = f["syn_depth"], f["real_depth"]
         pred_syn, pred_real = f["pred_syn_depth"], f["pred_real_depth"]
@@ -359,20 +370,19 @@ class MainModel(BaseModel):
         if opt.norm_loss:
             mask1 = syn_mask[:, None]
             # legacy image-space normals, x100 (main_model.py:278-285)
-            norm_syn_o = NRM.surface_normals_planar(syn_depth) * 100
-            norm_syn_pred_o = NRM.surface_normals_planar(pred_syn) * 100
-            norm_real_pred_o = NRM.surface_normals_planar(pred_real) * 100
-            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o, self.step_group) * 1e-7
-            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_o, self.step_group) * 1e-7
+            norm_syn_o = NRM.surface_normals_planar(syn_depth, spatial=sp) * 100
+            norm_syn_pred_o = NRM.surface_normals_planar(pred_syn, spatial=sp) * 100
+            norm_real_pred_o = NRM.surface_normals_planar(pred_real, spatial=sp) * 100
+            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o, group, sp) * 1e-7
+            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_o, group, sp) * 1e-7
             m["syn_norms_old"] = L.mse_loss(norm_syn_o * mask1, norm_syn_pred_o * mask1)
             # intrinsics-based normals (main_model.py:286-296)
-            norm_syn = NRM.surface_normals_from_K_planar(syn_depth, batch["K_A"], batch["crop_A"])
-            norm_syn_pred = NRM.surface_normals_from_K_planar(pred_syn, batch["K_A"],
-                                                              batch["crop_A"])
-            norm_real_pred = NRM.surface_normals_from_K_planar(pred_real, batch["K_B"],
-                                                               batch["crop_B"])
-            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred, self.step_group) * 1e-7
-            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred, self.step_group) * 1e-7
+            normals = lambda d, k: NRM.surface_normals_from_K_planar(  # noqa: E731
+                d, batch["K_" + k], batch["crop_" + k], spatial=sp)
+            norm_syn, norm_syn_pred = normals(syn_depth, "A"), normals(pred_syn, "A")
+            norm_real_pred = normals(pred_real, "B")
+            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred, group, sp) * 1e-7
+            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred, group, sp) * 1e-7
             m["syn_norms"] = L.l1_loss(norm_syn * mask1, norm_syn_pred * mask1)
             mask2 = (syn_mask * mask_syn_add_holes)[:, None]
             m["syn_norms_holes"] = L.l1_loss(norm_syn * mask2, norm_syn_pred * mask2)
@@ -401,7 +411,7 @@ class MainModel(BaseModel):
             loss_g = loss_g + m["syn_norms"] * opt.w_syn_norm
         if opt.use_smooth_loss:
             img_planar = f["real_image"].float().permute(0, 3, 1, 2)
-            m["smooth"] = L.smooth_weight_loss_planar(pred_real, img_planar, 3)
+            m["smooth"] = L.smooth_weight_loss_planar(pred_real, img_planar, 3, sp)
             loss_g = loss_g + m["smooth"] * opt.w_smooth
         loss_g = loss_g * opt.scale_G
         m["G"] = loss_g
@@ -422,9 +432,10 @@ class MainModel(BaseModel):
         (``--direction BtoA`` swaps the image and depth tensors only,
         base_model.py:161-176)."""
         batch = self.shard(batch)
-        rows = batch.rows
+        rows, h_rows = batch.rows, batch.h_rows
         batch = self.apply_direction(batch)
-        return (Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}, rows),
+        return (Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS}, rows,
+                      h_rows),
                 {"A_paths": batch.get("A_paths"), "B_paths": batch.get("B_paths")})
 
     def compute_grads(self, batch=None):
@@ -433,8 +444,9 @@ class MainModel(BaseModel):
         Returns this rank's metrics."""
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
-        loss_g, m = self.losses(self.forward_all(batch, train=True), batch)
-        loss_g.backward()
+        with self.step_layout(batch):
+            loss_g, m = self.losses(self.forward_all(batch, train=True), batch)
+            loss_g.backward()
         self.reduce_grads(self.trainable_nets)
         return {k: v.detach() for k, v in m.items()}
 
@@ -447,11 +459,13 @@ class MainModel(BaseModel):
     def calculate(self, stage="test"):
         """The eval forward and its metrics (no holes drawn), and the visuals
         ``visual_names`` finds in the forward (main_model.py:445-449): NHWC
-        images, planar depth maps and masks. With ``--save_all`` the test
-        predictions are written as uint16 PNGs."""
-        f = self.forward_all(self._batch, train=False)
-        _, m = self.losses(f, self._batch)
+        images, planar depth maps and masks, whole frames on every rank of a
+        spatial group. With ``--save_all`` the test predictions are written as
+        uint16 PNGs."""
+        with self.step_layout(self._batch):
+            f = self.forward_all(self._batch, train=False)
+            _, m = self.losses(f, self._batch)
         self.metrics = self.global_metrics(m)
-        self.visuals = {k: f[k] for k in self.visual_names if k in f}
+        self.visuals = self.whole_frames({k: f[k] for k in self.visual_names if k in f})
         if getattr(self.opt, "save_all", False) and stage == "test":
             self._dump_predictions(f[self._dump_key])

@@ -22,6 +22,10 @@ As-shipped quirks kept (main_sr_model.py:11-29):
   ``G_B_d`` that runs frozen at its random init and is never saved or
   loaded (QUIRKS #31): the real input becomes G_A_d(G_B_d(depth ++ image),
   image), while the masks stay on the original depth.
+
+Under ``--spatial_devices`` the HR->LR resizes of the step work on the
+rank's band (``ops/resize.py:_resize_band``; bicubic reads two rows of each
+neighbour) and their backward goes through the exchange's adjoint.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import normals as NRM
 from desr_tpu_torch.ops.masked_loss import fused_hole_means
 from desr_tpu_torch.ops.resize import resize_bicubic_planar, resize_nearest_planar
+from desr_tpu_torch.parallel import spatial as S
 
 
 class SRServingForward(ServingForward):
@@ -103,22 +108,28 @@ class MainSRModel(MainModel):
         real prediction is also bicubic-downsampled to LR (:223)."""
         f = super()._forward_all(batch, train)
         f["pred_real_depth_hr"] = f["pred_real_depth"]
-        f["pred_real_depth"] = resize_bicubic_planar(f["pred_real_depth_hr"], self.lr_hw)
+        f["pred_real_depth"] = resize_bicubic_planar(f["pred_real_depth_hr"], self.lr_hw,
+                                                     self.spatial)
         return f
 
     def losses(self, f, batch):
         """(loss_G, metrics) of the SR zoo (main_sr_model.py:239-351); the
         (task, holes, holes_l2) triplets run on K3 (``fused_hole_means``)."""
         opt, lr_hw = self.opt, self.lr_hw
+        sp, group = S.active(self.spatial), self.step_group
         m = {}
         syn_depth, syn_mask = f["syn_depth"], f["syn_mask"]
         pred_syn, pred_real, pred_real_hr = (f["pred_syn_depth"], f["pred_real_depth"],
                                              f["pred_real_depth_hr"])
+
+        def nearest(t):
+            return resize_nearest_planar(t, lr_hw, sp)
+
         # the real branch at LR (:257-261)
-        real_mask = resize_nearest_planar(f["real_mask"], lr_hw)
-        real_hole_mask = resize_nearest_planar(f["real_hole_mask"], lr_hw)
-        real_depth = resize_bicubic_planar(f["real_depth"], lr_hw)
-        real_image = resize_bicubic_planar(f["real_image"].float().permute(0, 3, 1, 2), lr_hw)
+        real_mask = nearest(f["real_mask"])
+        real_hole_mask = nearest(f["real_hole_mask"])
+        real_depth = resize_bicubic_planar(f["real_depth"], lr_hw, sp)
+        real_image = resize_bicubic_planar(f["real_image"].float().permute(0, 3, 1, 2), lr_hw, sp)
         mask_syn_add_holes = ((f["syn2real_depth_masked"] < BORDER)
                               | (f["gt_mask_syn"] < 0.1)).float()
 
@@ -129,21 +140,21 @@ class MainSRModel(MainModel):
         if opt.norm_loss:
             mask1 = syn_mask[:, None]
             # legacy image-space normals, x100 (:272-278)
-            norm_syn_o = NRM.surface_normals_planar(syn_depth) * 100
-            norm_syn_pred_o = NRM.surface_normals_planar(pred_syn) * 100
-            norm_real_pred_hr_o = NRM.surface_normals_planar(pred_real_hr) * 100
-            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o, self.step_group) * 1e-7
-            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_hr_o, self.step_group) * 1e-7
+            norm_syn_o = NRM.surface_normals_planar(syn_depth, spatial=sp) * 100
+            norm_syn_pred_o = NRM.surface_normals_planar(pred_syn, spatial=sp) * 100
+            norm_real_pred_hr_o = NRM.surface_normals_planar(pred_real_hr, spatial=sp) * 100
+            m["tv_syn_norm_old"] = L.tv_loss_planar(norm_syn_pred_o, group, sp) * 1e-7
+            m["tv_real_norm_old"] = L.tv_loss_planar(norm_real_pred_hr_o, group, sp) * 1e-7
             m["syn_norms_old"] = L.l1_loss(norm_syn_o, norm_syn_pred_o)  # unmasked (:278)
             # intrinsics-based normals (:280-292)
-            K_A, K_B, crop_A, crop_B = batch["K_A"], batch["K_B"], batch["crop_A"], batch["crop_B"]
-            norm_syn = NRM.surface_normals_from_K_planar(syn_depth, K_A, crop_A)
-            norm_syn_pred = NRM.surface_normals_from_K_planar(pred_syn, K_A, crop_A)
-            norm_real_pred = NRM.surface_normals_from_K_planar(pred_real, K_B, crop_B)
+            normals = lambda d, k: NRM.surface_normals_from_K_planar(  # noqa: E731
+                d, batch["K_" + k], batch["crop_" + k], spatial=sp)
+            norm_syn, norm_syn_pred = normals(syn_depth, "A"), normals(pred_syn, "A")
+            norm_real_pred = normals(pred_real, "B")
             # as shipped: the HR real normals with K_A / crop_A (:286)
-            norm_real_pred_hr = NRM.surface_normals_from_K_planar(pred_real_hr, K_A, crop_A)
-            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred, self.step_group) * 1e-7
-            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred, self.step_group) * 1e-7
+            norm_real_pred_hr = normals(pred_real_hr, "A")
+            m["tv_syn_norm"] = L.tv_loss_planar(norm_syn_pred, group, sp) * 1e-7
+            m["tv_real_norm"] = L.tv_loss_planar(norm_real_pred, group, sp) * 1e-7
             # as shipped: synthetic normals against the HR real ones (:290)
             m["syn_norms"] = L.mse_loss(norm_syn * mask1, norm_real_pred_hr * mask1)
             mask2 = (syn_mask * mask_syn_add_holes)[:, None]
@@ -153,7 +164,7 @@ class MainSRModel(MainModel):
             pred_syn, syn_depth, syn_mask, mask_syn_add_holes)
         m["task_real_by_depth"] = L.l1_loss(real_depth * real_mask, pred_real * real_mask)
         # as shipped: anchored to the nearest-resized synthetic depth (:307-309)
-        syn_depth_lr = resize_nearest_planar(syn_depth, lr_hw)
+        syn_depth_lr = nearest(syn_depth)
         m["task_real_by_image"] = L.l1_loss(syn_depth_lr * real_hole_mask,
                                             pred_real * real_hole_mask)
 
@@ -167,15 +178,14 @@ class MainSRModel(MainModel):
                   + m["tv_real_norm"] * 2 + m["syn_norms_old"] * opt.w_syn_norm * 5
                   + m["tv_real_norm_old"] * 2 + m["tv_syn_norm_old"] * 1)
         if self.use_masked:
-            mask_real_add_holes = resize_nearest_planar(
-                (f["gt_mask_real"] <= 0.1).float(), lr_hw)
+            mask_real_add_holes = nearest((f["gt_mask_real"] <= 0.1).float())
             m["holes_real"], _, m["holes_real_l2"] = fused_hole_means(
                 pred_real, real_depth, mask_real_add_holes, torch.ones_like(mask_real_add_holes))
             loss_g = loss_g + (m["holes_real"] + m["holes_real_l2"]) * opt.w_real_holes
         if opt.norm_loss:
             loss_g = loss_g + m["syn_norms"] * opt.w_syn_norm
         if opt.use_smooth_loss:
-            m["smooth"] = L.smooth_weight_loss_planar(pred_real, real_image, 3)
+            m["smooth"] = L.smooth_weight_loss_planar(pred_real, real_image, 3, sp)
             loss_g = loss_g + m["smooth"] * opt.w_smooth
         loss_g = loss_g * opt.scale_G
         m["G"] = loss_g

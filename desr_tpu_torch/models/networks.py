@@ -19,7 +19,10 @@ the nets on its band of the frame's rows: the ResnetBlocks' K1 / K2 launches
 read one halo row from each neighbour and the norms' moments are the
 frame's; each U-Net level is split or whole by its global H (JAX's
 ``spatial_anchor``, networks.py:187-207): the first whole level gathers its
-input and its output goes back to the rank's rows.
+input and its output goes back to the rank's rows. The PatchGAN runs its
+stride-2 convs on bands and gathers before its stride-1 tail, whose logits
+(H/8 - 1 rows) every rank then holds whole. The backward of each comes
+through the adjoints of the exchanges, of K1's halo rows and of the gathers.
 """
 
 from __future__ import annotations
@@ -308,7 +311,17 @@ class NLayerDiscriminator(nn.Module):
     """PatchGAN with ``n_layers`` stride-2 convs (networks.py:249-268), keys
     under ``model.``; returns one logit per patch, (B, 1, h, w). The
     translation lineage builds it with its own norm and bias rule and, under
-    --use_spnorm, ``conv_cls`` = SpectralNormConv2d (translation_networks.py:325)."""
+    --use_spnorm, ``conv_cls`` = SpectralNormConv2d (translation_networks.py:325).
+
+    Under a ``spatial`` tag the stride-2 convs run on the rank's band while
+    the group splits their input (``Spatial.sharded``, an even band); the
+    first conv that does not (at the latest the 4x4 stride-1 conv, whose
+    output has one row fewer than its input) gathers its input along H, and
+    it and every layer after it run whole (``spatial.whole()``): every rank
+    returns the whole logits, of which a mean (``gan_loss``) is then one
+    that every rank of a data group computes alike."""
+
+    spatial = None
 
     def __init__(self, input_nc, ndf, n_layers, norm_layer, use_bias, conv_cls=Conv2d):
         super().__init__()
@@ -327,7 +340,17 @@ class NLayerDiscriminator(nn.Module):
         self.model = nn.Sequential(*seq)
 
     def forward(self, x):
-        return self.model(x)
+        sp = S.active(self.spatial)
+        if sp is None:
+            return self.model(x)
+        for i, layer in enumerate(self.model):
+            h = x.shape[2]
+            if isinstance(layer, Conv2d) and (layer.stride[0] == 1 or h % 2
+                                              or not sp.sharded(h * sp.size)):
+                with S.whole():
+                    return self.model[i:](S.gather_h(x, sp))
+            x = layer(x)
+        return x
 
 
 class PixelDiscriminator(nn.Module):

@@ -30,8 +30,8 @@ halo_bottom`` rows and output row y reads rows ``y + halo_top + dy - 1``:
 an end of H with a halo row is not padded, an end without one (the frame's
 edge) is padded with ``pad_mode`` as before. The prologue applies to the
 halo rows too, and the moments count the output rows alone. The backward
-of a launch with halo rows is not ported (training under
-``--spatial_devices`` is not).
+of such a launch pads likewise and gives the halo rows their cotangents
+(``_vjp``); ``backwards_halo`` counts those backwards.
 
 A CPU tensor takes the plain PyTorch version (``conv3x3_fused_plain``), which
 is also the kernel's oracle on the card. A CUDA tensor launches the kernel or
@@ -238,12 +238,15 @@ def _prologue(x, scale, shift, relu):
 def _vjp(ctx, grads, need_dx, need_dw):
     """(dx, dw, dscale, dshift) of the plain composition prologue -> pad ->
     conv (-> moments) at the inputs ``ctx`` saved, for the cotangents
-    ``grads`` of (out, s, s2) (stats) or of out alone."""
-    if ctx.halo != (0, 0):
-        raise NotImplementedError(
-            "the backward of conv3x3 with halo rows: training under --spatial_devices "
-            "is not yet ported")
+    ``grads`` of (out, s, s2) (stats) or of out alone.
+
+    With halo rows H is padded only at an end without one, and the pad's
+    adjoint taken there only: ``dx`` keeps the halo rows' cotangents, which
+    the exchange's adjoint carries home (``parallel/spatial.py``). The
+    prologue's adjoint runs over the halo rows too (this launch applied it
+    to them); the stats' cotangents fold in over the output rows alone."""
     x, w, scale, shift, out = ctx.saved_tensors
+    ht, hb = ctx.halo
     dt = x.dtype
     if ctx.stats:
         # s = sum(out32), s2 = sum(out32^2) fold into the output's
@@ -255,20 +258,26 @@ def _vjp(ctx, grads, need_dx, need_dw):
         g = grads[0].to(dt)
     xin, v = _prologue(x, scale, shift, ctx.relu)
     xin = xin.permute(0, 3, 1, 2)
-    zeros = ctx.pad_mode == "zeros"
-    xp = xin if zeros else F.pad(xin, (1, 1, 1, 1), mode=ctx.pad_mode)
+    # zeros without halo rows: the conv's own (symmetric) padding; else an
+    # explicit pad, whose adjoint autograd takes
+    implicit = ctx.pad_mode == "zeros" and ctx.halo == (0, 0)
+    pads = (1, 1, 1 - ht, 1 - hb)
+
+    def pad(t):
+        return F.pad(t, pads) if ctx.pad_mode == "zeros" else F.pad(t, pads, mode=ctx.pad_mode)
+
+    xp = xin if implicit else pad(xin)
     dxp, dw, _ = torch.ops.aten.convolution_backward(
-        g.permute(0, 3, 1, 2), xp, w.to(dt), None, [1, 1], [1, 1] if zeros else [0, 0],
+        g.permute(0, 3, 1, 2), xp, w.to(dt), None, [1, 1], [1, 1] if implicit else [0, 0],
         [1, 1], False, [0, 0], 1, [need_dx, need_dw, False])
     dx = dscale = dshift = None
     if dxp is not None:
-        if zeros:
+        if implicit:
             dxin = dxp
         else:  # adjoint of the border pad
             leaf = xin.detach().requires_grad_(True)
             with torch.enable_grad():
-                (dxin,) = torch.autograd.grad(
-                    F.pad(leaf, (1, 1, 1, 1), mode=ctx.pad_mode), leaf, dxp)
+                (dxin,) = torch.autograd.grad(pad(leaf), leaf, dxp)
         dxin = dxin.permute(0, 2, 3, 1)
         if scale is None:
             dx = dxin
@@ -379,6 +388,7 @@ class _FusedGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, g_s, g_s2):
+        conv3x3_fused.backwards_halo += ctx.halo != (0, 0)
         need = ctx.needs_input_grad
         grads = (g_out, g_s, g_s2) if ctx.stats else (g_out,)
         return (*_vjp(ctx, grads, need[0] or need[2] or need[3], need[1]),
@@ -399,6 +409,7 @@ class _ConvGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        conv3x3.backwards_halo += ctx.halo != (0, 0)
         dx, dw, _, _ = _vjp(ctx, (g,), *ctx.needs_input_grad[:2])
         return dx, dw, None, None, None
 
@@ -436,7 +447,7 @@ def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
     f32 accumulator over H and W when ``stats``. ``halo_top`` /
     ``halo_bottom``: x's extra rows above / below (see the module's
     docstring); the output has that many rows fewer. Differentiable in x, w,
-    scale and shift without halo rows. One ``desr::conv3x3_fused`` call.
+    scale and shift, with halo rows too. One ``desr::conv3x3_fused`` call.
     """
     _check(x, w, scale, shift, pad_mode, halo_top, halo_bottom)
     out, s, s2 = _FUSED_OP(x, w, scale, shift, pad_mode, relu, stats,
@@ -446,11 +457,11 @@ def conv3x3_fused(x, w, scale=None, shift=None, pad_mode="reflect", relu=False,
 
 def conv3x3(x, w, pad_mode="reflect", halo_top=0, halo_bottom=0):
     """Stride-1 3x3 conv of NHWC x with OIHW w and a 1-pixel border; no bias;
-    halo rows as ``conv3x3_fused``'s. Differentiable in x and w without halo
-    rows. One ``desr::conv3x3`` call."""
+    halo rows as ``conv3x3_fused``'s. Differentiable in x and w. One
+    ``desr::conv3x3`` call."""
     _check(x, w, None, None, pad_mode, halo_top, halo_bottom)
     return _CONV_OP(x, w, pad_mode, *_halo(halo_top, halo_bottom))
 
 
-conv3x3_fused.launches = conv3x3_fused.launches_halo = 0
-conv3x3.launches = conv3x3.launches_halo = 0
+conv3x3_fused.launches = conv3x3_fused.launches_halo = conv3x3_fused.backwards_halo = 0
+conv3x3.launches = conv3x3.launches_halo = conv3x3.backwards_halo = 0

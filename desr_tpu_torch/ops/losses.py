@@ -9,9 +9,18 @@ Over data-parallel ranks (``desr_tpu_torch/parallel``) each rank's loss is N
 times its share of the global one, so that the ranks' mean gradient is the
 global gradient. A mean over the equal shards already is, and needs nothing.
 The losses whose value is not such a mean take ``group``, the process group
-of the ranks that split the batch (None: one process, the batch's own
-value): ``masked_l1_loss`` and ``masked_cos_sim_loss_planar`` divide by the
-global mask count, ``tv_loss_planar``'s sum is scaled by N.
+of the N ranks that hold distinct parts of the batch (the model's
+``step_group``; None: one process, the batch's own value):
+``masked_l1_loss`` and ``masked_cos_sim_loss_planar`` divide by the global
+mask count, ``tv_loss_planar``'s sum is scaled by N.
+
+Under ``--spatial_devices`` the maps are a rank's band of each frame's
+rows (the rule above reads over all N = data x spatial ranks): the TV
+losses take ``spatial`` and count the row difference at a seam once, on
+the upper rank, from one row of the rank below; the smoothness loss,
+whose align-corners pyramid reads rows that no band holds, gathers its
+maps along H and runs whole on every rank. K3's masked means
+(``ops/masked_loss.py``) are means over the rank's equal band.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from desr_tpu_torch.ops.normals import safe_norm
+from desr_tpu_torch.parallel import spatial as S
 from desr_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 
 
@@ -49,11 +59,21 @@ def masked_l1_loss(x, y, mask, eps=1e-6, group=None):
     return _over_count(((y - x).abs() * mask).sum(), mask.sum(), eps, group)
 
 
-def tv_norm_planar(x):
+def _below(x, spatial):
+    """x with the first row of the rank below appended along H (none at
+    the frame's bottom), under an active ``spatial``; else x."""
+    sp = S.active(spatial)
+    return x if sp is None else S.exchange_rows(x, 0, 1, sp, dim=x.dim() - 2)[0]
+
+
+def tv_norm_planar(x, spatial=None):
     """TV_norm of (B, C, H, W) maps over their first two channels, divided by
-    their size (losses.py:226)."""
+    their size (losses.py:226). On a rank's equal band (``spatial``) the
+    global size is N times the band's, so the band's sum over its own size
+    is N times its share of the frame's value."""
     x = x[:, :2]
-    tv_h = (x[..., 1:, :] - x[..., :-1, :]).square().sum()
+    xh = _below(x, spatial)
+    tv_h = (xh[..., 1:, :] - xh[..., :-1, :]).square().sum()
     tv_w = (x[..., :, 1:] - x[..., :, :-1]).square().sum()
     return (tv_h + tv_w) / x.numel()
 
@@ -92,11 +112,13 @@ def gan_loss(prediction, target_is_real, mode="lsgan"):
     raise NotImplementedError(f"gan mode {mode} not implemented")
 
 
-def tv_loss_planar(img, group=None):
+def tv_loss_planar(img, group=None, spatial=None):
     """Unnormalised total variation over the last two dims (losses.py:219);
-    over ``group`` N times this rank's sum."""
+    over ``group`` N times this rank's sum, the seam below a band counted
+    on its rank (``spatial``)."""
     w_var = (img[..., :, :-1] - img[..., :, 1:]).square().sum()
-    h_var = (img[..., :-1, :] - img[..., 1:, :]).square().sum()
+    ih = _below(img, spatial)
+    h_var = (ih[..., :-1, :] - ih[..., 1:, :]).square().sum()
     return h_var + w_var if group is None else (h_var + w_var) * group_size(group)
 
 
@@ -145,10 +167,16 @@ def scale_pyramid_planar(img, num_scales):
     return scaled[::-1]
 
 
-def smooth_weight_loss_planar(depth_bhw, image_b3hw, num_scales=3):
+def smooth_weight_loss_planar(depth_bhw, image_b3hw, num_scales=3, spatial=None):
     """Image-gradient-weighted depth smoothness (losses.py:282): at each scale
     of the pyramid (smallest first, the i-th divided by 2^i), mean |grad d|
-    weighted by exp(-mean_c |grad image|), along rows and columns."""
+    weighted by exp(-mean_c |grad image|), along rows and columns. Under an
+    active ``spatial`` both maps are gathered along H (one and three
+    channels) and the loss is the whole frames', alike on the group's
+    ranks."""
+    sp = S.active(spatial)
+    if sp is not None:
+        depth_bhw, image_b3hw = S.gather_h(depth_bhw, sp, 1), S.gather_h(image_b3hw, sp, 2)
     images = scale_pyramid_planar(image_b3hw, num_scales)
     depths = scale_pyramid_planar(depth_bhw, num_scales)
     total = 0.0

@@ -8,6 +8,12 @@
   JAX package;
 - ``surface_normals_fov_planar``: the translation stage's fixed-60-degree-FOV
   camera-grid normals (normals.py:97).
+
+Under ``--spatial_devices`` the first two take ``spatial`` (a rank's
+``Spatial``, or None): the depth is the rank's band of the frame's rows, a
+difference along H at a seam between ranks is central, from one row of each
+neighbour (``exchange_rows``), one-sided only at the frame's edges, and the
+band's pixel rows are the frame's (``depth_to_points_planar``).
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from desr_tpu_torch.parallel import spatial as S
 
 
 def safe_norm(x, dim=-1, keepdim=True):
@@ -26,17 +34,28 @@ def safe_norm(x, dim=-1, keepdim=True):
                        torch.zeros_like(sq))
 
 
-def np_gradient(f, dim):
+def np_gradient(f, dim, spatial=None):
     """np.gradient with unit spacing along ``dim``: central differences inside,
-    one-sided at the two edges (normals.py:42)."""
+    one-sided at the two edges (normals.py:42). With an active ``spatial``
+    ``dim`` is H and f a rank's band of it: a row beside a seam takes the
+    neighbour's row (one exchange), and only the frame's edges are
+    one-sided."""
+    sp = S.active(spatial)
+    top = bottom = 0
+    if sp is not None:
+        f, top, bottom = S.exchange_rows(f, 1, 1, sp, dim=dim)
     f = f.movedim(dim, 0)
-    out = torch.cat([(f[1] - f[0])[None], (f[2:] - f[:-2]) / 2.0, (f[-1] - f[-2])[None]], 0)
-    return out.movedim(0, dim)
+    parts = [(f[2:] - f[:-2]) / 2.0]
+    if not top:
+        parts.insert(0, (f[1] - f[0])[None])
+    if not bottom:
+        parts.append((f[-1] - f[-2])[None])
+    return torch.cat(parts, 0).movedim(0, dim)
 
 
-def surface_normals_planar(depth_bhw, eps=1e-6):
+def surface_normals_planar(depth_bhw, eps=1e-6, spatial=None):
     """normalize([-dD/drow, -dD/dcol, 1]): (B, H, W) -> (B, 3, H, W) (normals.py:56)."""
-    n = torch.stack([-np_gradient(depth_bhw, 1), -np_gradient(depth_bhw, 2),
+    n = torch.stack([-np_gradient(depth_bhw, 1, spatial), -np_gradient(depth_bhw, 2),
                      torch.ones_like(depth_bhw)], dim=1)
     return n / (safe_norm(n, dim=1) + eps)
 
@@ -58,13 +77,17 @@ def _inv3x3(K):
     return adj / det[..., None, None]
 
 
-def depth_to_points_planar(depth01_bhw, K, crop, shift=0.5):
+def depth_to_points_planar(depth01_bhw, K, crop, shift=0.5, spatial=None):
     """Camera-space points (B, 3, H, W) of [0, 1] depth under intrinsics K
-    (B, 3, 3) and crop boxes (B, 4) = [h0, h1, w0, w1] (normals.py:146)."""
+    (B, 3, 3) and crop boxes (B, 4) = [h0, h1, w0, w1] (normals.py:146).
+    With an active ``spatial`` the depth is the rank's band of equal bands
+    in rank order, whose first row is the frame's ``rank x h``."""
     b, h, w = depth01_bhw.shape
     dt, dev = depth01_bhw.dtype, depth01_bhw.device
     K, crop = K.to(dt), crop.to(dt)
-    v = crop[:, 0:1] + torch.arange(h, dtype=dt, device=dev)[None, :] + shift  # (B, H)
+    sp = S.active(spatial)
+    lo = 0 if sp is None else sp.rank * h
+    v = crop[:, 0:1] + torch.arange(lo, lo + h, dtype=dt, device=dev)[None, :] + shift  # (B, H)
     u = crop[:, 2:3] + torch.arange(w, dtype=dt, device=dev)[None, :] + shift  # (B, W)
     vv = v[:, :, None].expand(b, h, w)
     uu = u[:, None, :].expand(b, h, w)
@@ -74,23 +97,28 @@ def depth_to_points_planar(depth01_bhw, K, crop, shift=0.5):
     return pts * depth01_bhw[:, None]
 
 
-def points_to_normals_planar(coords, eps=1e-12):
+def points_to_normals_planar(coords, eps=1e-12, spatial=None):
     """First-order normals of a planar point cloud (normals.py:169), divided by
-    max(|n|, eps) as torch.nn.functional.normalize does."""
-    x, y, z = coords[:, 0], coords[:, 1], coords[:, 2]
-    dxdu, dydu, dzdu = np_gradient(x, 2), np_gradient(y, 2), np_gradient(z, 2)
-    dxdv, dydv, dzdv = np_gradient(x, 1), np_gradient(y, 1), np_gradient(z, 1)
+    max(|n|, eps) as torch.nn.functional.normalize does. The three
+    coordinates' differences along each axis are taken together (one
+    exchange along H under ``spatial``)."""
+    du, dv = np_gradient(coords, 3), np_gradient(coords, 2, spatial)
+    dxdu, dydu, dzdu = du.unbind(1)
+    dxdv, dydv, dzdv = dv.unbind(1)
     n = torch.stack([dydv * dzdu - dydu * dzdv,
                      dzdv * dxdu - dzdu * dxdv,
                      dxdv * dydu - dxdu * dydv], dim=1)
     return n / torch.clamp(safe_norm(n, dim=1), min=eps)
 
 
-def surface_normals_from_K_planar(depth_bhw, K, crop, shift=0.5, dtype=torch.float32):
+def surface_normals_from_K_planar(depth_bhw, K, crop, shift=0.5, dtype=torch.float32,
+                                  spatial=None):
     """Intrinsics-based normals (normals.py:192): [-1, 1] depth (B, H, W) ->
-    (B, 3, H, W) float32, computed in ``dtype``."""
+    (B, 3, H, W) float32, computed in ``dtype``; on a rank's band under
+    ``spatial``."""
     d = (depth_bhw.to(dtype) + 1.0) / 2.0
-    return points_to_normals_planar(depth_to_points_planar(d, K, crop, shift)).float()
+    pts = depth_to_points_planar(d, K, crop, shift, spatial)
+    return points_to_normals_planar(pts, spatial=spatial).float()
 
 
 def _fov_grid(h, w, fov_deg, dtype, device):

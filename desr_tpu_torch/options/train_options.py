@@ -6,12 +6,15 @@ main_model.py:67-75, i2d_model.py:39-47, translation_model.py:49-74):
 
 Every flag of the JAX parser is known here, under its JAX name. Those the
 port honours keep the JAX defaults (several are read by no part of the main
-stage in either package, as in the reference). ``--spatial_devices`` above 1
-stops the run ("not yet ported"), and so do ``XLA_ONLY``, the JAX package's
-switches of XLA's lowering, compiler and buffers, which have no counterpart
-in the port. An unknown flag gets argparse's own error. The port adds
-``--device`` (default ``cuda``). ``--num_devices`` N trains on N ranks
-(``desr_tpu_torch/parallel``), ``--batch_size`` being the global batch.
+stage in either package, as in the reference). ``XLA_ONLY``, the JAX
+package's switches of XLA's lowering, compiler and buffers, which have no
+counterpart in the port, stop the run. An unknown flag gets argparse's own
+error. The port adds ``--device`` (default ``cuda``). ``--num_devices`` N
+trains on N ranks (``desr_tpu_torch/parallel``), ``--batch_size`` being the
+global batch; ``--spatial_devices`` S (dividing N) makes them N / S data
+groups of S ranks that split each frame's rows, for ``--model_type main``
+(``--SR`` too) and ``I2D``. ``SPATIAL_NOT_PORTED`` lists what stops the run
+("not yet ported") beside S > 1.
 
 ``--remat_tails`` keeps the JAX default None, which the JAX models turn into
 their per-stage default (on for SR, I2D and translation); the port reads None
@@ -30,6 +33,13 @@ XLA_ONLY = ("pallas_fuse", "no_pallas_fuse", "pallas_fuse_frozen", "fused_pad",
             "fold_norm", "bf16_tail", "bf16_normals", "no_onepass_stats",
             "compiler_option", "no_donate", "compile_cache_dir")
 LR_POLICIES = ("linear", "step", "cosine", "plateau")
+# what --spatial_devices S > 1 does not run yet: (test on the options, the flag)
+SPATIAL_NOT_PORTED = (
+    (lambda o: o.model_type == "translation", "--model_type translation"),
+    (lambda o: o.remat or o.remat_blocks or o.remat_tails, "--remat/--remat_blocks/--remat_tails"),
+    (lambda o: o.steps_per_call > 1, "--steps_per_call > 1"),
+    (lambda o: o.device_aug, "--device_aug"),
+)
 COMPUTE_DTYPES = ("bfloat16", "bf16", "float32", "f32")
 
 # (name, type, default) of the valued flags the port accepts
@@ -111,7 +121,9 @@ _HELP = {
     "num_devices": "data-parallel ranks: N > 1 spawns N processes, one a card (NCCL), or "
                    "under --device cpu N CPU ranks (gloo); 0: every visible card "
                    "(one under --device cpu); more than the visible cards raises",
-    "spatial_devices": "the image-H axis of the mesh: above 1 not yet ported",
+    "spatial_devices": "the image-H axis of the mesh: S > 1 (dividing the ranks) makes "
+                       "N / S data groups of S ranks that split each frame's rows "
+                       "(main, --SR, I2D)",
 }
 
 
@@ -161,9 +173,7 @@ def parse_with(parser, argv, is_train, print_options):
         if getattr(opt, f"_refused_{name}") is not None:
             parser.error(f"--{name} steers XLA in desr_tpu and has no counterpart in desr_tpu_torch")
         delattr(opt, f"_refused_{name}")
-    if opt.spatial_devices > 1:
-        parser.error("--spatial_devices > 1 is not yet ported to desr_tpu_torch "
-                     "(train with the JAX main.py)")
+    check_spatial(parser, opt)
     if opt.model_type not in ("main", "I2D", "translation"):
         parser.error(f"--model_type {opt.model_type} is not known to desr_tpu_torch "
                      "(it trains --model_type main, I2D and translation)")
@@ -179,6 +189,27 @@ def parse_with(parser, argv, is_train, print_options):
         _print_options(parser, opt)
     opt.gpu_ids = [int(s) for s in str(opt.gpu_ids).split(",") if int(s) >= 0]  # :331-332
     return opt
+
+
+def check_spatial(parser, opt, n=None):
+    """``parser.error`` where ``--spatial_devices`` S does not fit: S < 1;
+    with S > 1 a flag of ``SPATIAL_NOT_PORTED``, or S not dividing the
+    ranks ``n`` (``--num_devices``; one under ``--device cpu`` when it is
+    0; unknown until the cards are counted otherwise, as when ``n`` is
+    None)."""
+    s = opt.spatial_devices
+    if s < 1:
+        parser.error("--spatial_devices must be at least 1")
+    if s == 1:
+        return
+    for test, flag in SPATIAL_NOT_PORTED:
+        if test(opt):
+            parser.error(f"{flag} with --spatial_devices > 1 is not yet ported to "
+                         "desr_tpu_torch (train with the JAX main.py)")
+    if n is None:
+        n = opt.num_devices if opt.num_devices > 0 else 1 if opt.device == "cpu" else None
+    if n is not None and n % s:
+        parser.error(f"--num_devices {n} does not divide by --spatial_devices {s}")
 
 
 def _print_options(parser, opt):

@@ -28,8 +28,13 @@ guard that turns its Pallas routes off under a mesh larger than one device
 layout (desr_tpu/parallel/mesh.py:41-43): rank = d * S + s, so the S ranks
 of a data group d are consecutive. A data group's ranks split each frame's
 H axis (``shard_batch``'s H rule); GSPMD's halo exchanges become explicit
-collectives over the spatial group (``parallel/spatial.py``). Serving
-alone runs on such a mesh so far.
+collectives over the spatial group (``parallel/spatial.py``). The rule
+above then reads over all N = D x S ranks: a mean over a rank's equal band
+is N times its share, and so is a mean over a whole tensor that every rank
+of a data group computes alike (a U-Net level the group does not split).
+A sum or a count over such a whole tensor is taken over ``batch_group``, the
+ranks that hold distinct frames, so that its S copies count once. Serving
+and training (main, ``--SR``, I2D) run on such a mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +43,10 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+# all_reduce_sum calls since the last reset (forward, and their adjoints in
+# the backward): BatchNorm's moments, the losses' counts, the norms' moments
+COUNTS = {"all_reduce_sum": 0, "all_reduce_sum_bwd": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +85,13 @@ class Mesh:
     @property
     def spatial_rank(self):
         return self.rank % self.spatial
+
+    @property
+    def batch_group(self):
+        """The process group of the ranks that split the batch axis: every
+        rank without a spatial axis, else this rank's data group (None
+        where that is this rank alone)."""
+        return self.group if self.spatial == 1 else self.data_group
 
     def rows(self, n):
         """(lo, hi): this rank's rows of a leading axis of ``n``, split over
@@ -241,13 +257,16 @@ def reduce_grads(params, mesh):
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
+        ctx.set_materialize_grads(True)
         ctx.group = group
+        COUNTS["all_reduce_sum"] += 1
         out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
+        COUNTS["all_reduce_sum_bwd"] += 1
         grad = grad.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(grad, group=ctx.group)
         return grad, None

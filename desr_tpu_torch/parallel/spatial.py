@@ -20,9 +20,22 @@ process (a U-Net level too small to split, or a frame the mesh leaves
 whole).
 
 The collectives are ``dist.all_gather`` of each rank's edge rows, the call
-that gloo also takes for CUDA tensors (two ranks on one card). Only the
-forward is ported: the backward of an exchange or a gather raises, so
-training under ``--spatial_devices`` can never take a wrong gradient.
+that gloo also takes for CUDA tensors (two ranks on one card), and
+``dist.all_reduce``. Each has its adjoint, for training:
+
+- an exchange's backward sends the cotangents of the halo rows a rank
+  received back to the neighbour that owns those rows, which adds them to
+  its edge rows (one ``all_gather`` of each rank's two halo cotangents;
+  none cross the frame's edges);
+- a gather's backward sums every rank's cotangent of the whole tensor over
+  the group (one ``all_reduce``) and keeps the rank's band of it;
+- ``reduce_sum``'s backward all-reduces the cotangent
+  (``parallel/mesh.py:all_reduce_sum``).
+
+Every rank issues the same backward collectives in the same order: the
+backward of each is unconditional, and a cotangent that autograd leaves
+undefined arrives as zeros (``set_materialize_grads``), so no rank skips a
+collective that its neighbours wait in.
 """
 
 from __future__ import annotations
@@ -36,11 +49,12 @@ import torch.distributed as dist
 from desr_tpu_torch.parallel.mesh import all_reduce_sum
 
 MIN_ROWS = 16  # rows a rank at least holds of a split tensor (spatial_anchor's)
-NOT_PORTED = "training under --spatial_devices is not yet ported"
 
 # collectives issued since the last ``reset_counts``: halo exchanges, gathers
-# along H and moment all-reduces
-COUNTS = {"exchange": 0, "gather": 0, "all_reduce": 0}
+# along H and moment all-reduces in the forward, and the exchanges' and
+# gathers' adjoints in the backward (``reduce_sum``'s backward is
+# ``parallel/mesh.py``'s, counted there)
+COUNTS = {"exchange": 0, "gather": 0, "all_reduce": 0, "exchange_bwd": 0, "gather_bwd": 0}
 
 
 def reset_counts():
@@ -119,6 +133,8 @@ def _all_gather(x, sp):
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, top, bottom, sp, dim):
+        ctx.set_materialize_grads(True)
+        ctx.top, ctx.bottom, ctx.sp, ctx.dim = top, bottom, sp, dim
         h = x.shape[dim]
         edge = torch.cat([x.narrow(dim, 0, bottom), x.narrow(dim, h - top, top)], dim)
         parts = _all_gather(edge, sp)
@@ -131,7 +147,27 @@ class _Exchange(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("the backward of a halo exchange: " + NOT_PORTED)
+        top, bottom, sp, dim = ctx.top, ctx.bottom, ctx.sp, ctx.dim
+        ht, hb = (0 if sp.first else top), (0 if sp.last else bottom)
+        h = grad.shape[dim] - ht - hb
+        COUNTS["exchange_bwd"] += 1
+
+        def halo(lo, n, rows):  # a halo's cotangent; zeros where the frame ends
+            if n:
+                return grad.narrow(dim, lo, n)
+            shape = list(grad.shape)
+            shape[dim] = rows
+            return grad.new_zeros(shape)
+
+        # what this rank owes: the rows above to the rank above (its last
+        # ``top`` rows), the rows below to the rank below (its first ``bottom``)
+        parts = _all_gather(torch.cat([halo(0, ht, top), halo(ht + h, hb, bottom)], dim), sp)
+        dx = grad.narrow(dim, ht, h).clone(memory_format=torch.contiguous_format)
+        if not sp.last:
+            dx.narrow(dim, h - top, top).add_(parts[sp.rank + 1].narrow(dim, 0, top))
+        if not sp.first:
+            dx.narrow(dim, 0, bottom).add_(parts[sp.rank - 1].narrow(dim, top, bottom))
+        return dx, None, None, None, None
 
 
 def exchange_rows(x, top, bottom, sp, dim=2):
@@ -152,11 +188,19 @@ def exchange_rows(x, top, bottom, sp, dim=2):
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sp, dim):
+        ctx.set_materialize_grads(True)
+        ctx.sp, ctx.dim = sp, dim
         return torch.cat(_all_gather(x, sp), dim)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("the backward of a gather along H: " + NOT_PORTED)
+        # every rank read the whole tensor: the sum of their cotangents, cut
+        # to this rank's band (all_reduce then take_h; whether gloo takes
+        # reduce_scatter for CUDA tensors is not established)
+        COUNTS["gather_bwd"] += 1
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.sp.group)
+        return take_h(grad, ctx.sp, ctx.dim).contiguous(), None, None
 
 
 def gather_h(x, sp, dim=2):

@@ -55,8 +55,8 @@ three-shear map, not cv2's warp. ``--profile_dir <dir>`` records the
 epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
 trace format), with a ``train_step`` span around each step and a
 ``device_finish`` span around each batch's upload and warp (main.py:43-47,
-180-184). Still refused: ``--spatial_devices`` above 1 and the XLA-only
-switches.
+180-184). Still refused: the XLA-only switches, and what
+``train_options.SPATIAL_NOT_PORTED`` lists beside ``--spatial_devices`` > 1.
 
 ``--num_devices N`` (N > 1; 0: every visible card) trains data-parallel
 (``desr_tpu_torch/parallel``): N spawned ranks, NCCL on the cards (rank r on
@@ -64,6 +64,17 @@ switches.
 batch of ``--batch_size``, computing the step one process would compute on
 the whole batch. Rank 0 alone prints, writes the loss log, the gallery, the
 checkpoints and the profiler trace, and runs wandb; every rank loads.
+
+``--spatial_devices S`` (S > 1, dividing N; main, ``--SR`` and I2D) makes
+the N ranks N / S data groups of S ranks, JAX's 2-D mesh
+(desr_tpu/parallel/mesh.py:27-43): the S ranks of a group decode the same
+items and each trains on its band of every frame's rows, with halo rows
+from its neighbours (``desr_tpu_torch/parallel/spatial.py``); the averaged
+gradient is the one-process step's. The gallery and ``--save_image_folder``
+take the frames gathered along H; rank 0 writes them.
+
+    python -m desr_tpu_torch.train --model_type main --SR ... --batch_size 1 \
+        --num_devices 2 --spatial_devices 2
 """
 
 from __future__ import annotations
@@ -134,8 +145,10 @@ def main(argv=None):
         devices = parallel.resolve_devices(opt.device, opt.num_devices)
     except (RuntimeError, ValueError) as e:
         train_options.build_parser().error(str(e))
+    train_options.check_spatial(train_options.build_parser(), opt, len(devices))
     if len(devices) > 1:
-        return parallel.launch(_rank_main, devices, args=(argv,))[0]
+        return parallel.launch(_rank_main, devices, args=(argv,),
+                               spatial=opt.spatial_devices)[0]
     return train(opt, devices[0])
 
 

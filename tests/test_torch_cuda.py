@@ -213,6 +213,35 @@ def test_cuda_conv3x3_fused_grads_match_plain_autograd(mode):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["reflect", "replicate", "zeros"])
+@pytest.mark.parametrize("halo", [(0, 1), (1, 0), (1, 1)])
+def test_cuda_conv3x3_fused_halo_grads_match_plain_autograd(mode, halo):
+    """K1 launched with halo rows under the autograd Function: dx (halo rows
+    included), dw, dscale, dshift with cotangents on out, s and s2, against
+    autograd of the plain version with the same halo rows on the card
+    (float32, TF32 off), within 1e-4 of each gradient's largest entry; each
+    backward counted in ``backwards_halo``."""
+    dev = _cuda()
+    x, w, scale, shift = _inputs((2, 23, 37, 72), 80, 54, dev)
+    rows = 23 - sum(halo)
+    rng = np.random.default_rng(55)
+    g_out = torch.from_numpy(rng.standard_normal((2, rows, 37, 80)).astype(np.float32)).to(dev)
+    g_s = torch.from_numpy(rng.standard_normal((2, 80)).astype(np.float32)).to(dev)
+    g_s2 = 0.01 * torch.from_numpy(rng.standard_normal((2, 80)).astype(np.float32)).to(dev)
+    grads = []
+    before = K.conv3x3_fused.backwards_halo
+    for fn in (K.conv3x3_fused, K.conv3x3_fused_plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, w, scale, shift)]
+        out, s, s2 = fn(*ins, mode, True, True, *halo)
+        loss = (out * g_out).sum() + (s * g_s).sum() + (s2 * g_s2).sum()
+        grads.append(torch.autograd.grad(loss, ins))
+    assert K.conv3x3_fused.backwards_halo == before + 1
+    assert grads[0][0].shape == x.shape
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
 # ------------------------------------------------------------------ K3
 
 

@@ -100,12 +100,19 @@ def test_plain_halo_rows_equal_the_whole_frame_rows(mode, variant):
 
 
 def test_halo_backward_refuses():
+    """The backward of a launch with halo rows, refused while training under
+    --spatial_devices was not ported, now runs: dx has x's rows, the halo
+    rows' cotangents included (the exchange's adjoint carries them home;
+    tests/test_torch_spatial_train.py holds the values). What K1 still
+    refuses is a halo of more than one row."""
     x = torch.randn(1, 6, 5, 4, requires_grad=True)
     w = torch.randn(4, 4, 3, 3)
     out = K.conv3x3_fused(x, w, halo_top=1, halo_bottom=1)
     assert out.shape == (1, 4, 5, 4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        out.sum().backward()
+    out.sum().backward()
+    assert x.grad.shape == x.shape and bool(x.grad[:, 0].abs().sum() > 0)
+    with pytest.raises(ValueError, match="halo rows are 0 or 1"):
+        K.conv3x3_fused(x, w, halo_top=2)
 
 
 # ----------------------------------------------------------------- two ranks

@@ -601,9 +601,13 @@ def test_every_port_flag_default_equals_jax():
     assert {"--device_aug", "--profile_dir"} <= set(port) - refused
 
 
+# the first two cases keep the ids they had while every --spatial_devices > 1
+# refused: translation still does, and one device does not divide by S = 2
 @pytest.mark.parametrize("flag,msg", [
-    (["--num_devices", "2", "--spatial_devices", "2"], "not yet ported"),
-    (["--spatial_devices", "2"], "not yet ported"),
+    pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--model_type", "translation"],
+                 "not yet ported", id="flag0-not yet ported"),
+    pytest.param(["--spatial_devices", "2"], "--num_devices 1 does not divide by "
+                 "--spatial_devices 2", id="flag1-not yet ported"),
     (["--no_donate"], "no counterpart"), (["--fold_norm"], "no counterpart"),
     (["--lr_policy", "bogus"], "not implemented"), (["--bogus_flag"], "unrecognized"),
 ])

@@ -368,9 +368,13 @@ def test_newly_accepted_flags_parse(flags, attr, value):
     assert getattr(_parse(*flags), attr) == value
 
 
+# the first two cases keep the ids they had while every --spatial_devices > 1
+# refused: translation still does, and one device does not divide by S = 2
 @pytest.mark.parametrize("flags,msg", [
-    (["--num_devices", "2", "--spatial_devices", "2"], "not yet ported"),
-    (["--spatial_devices", "2"], "not yet ported"),
+    pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--model_type", "translation"],
+                 "not yet ported", id="flags0-not yet ported"),
+    pytest.param(["--spatial_devices", "2"], "--num_devices 1 does not divide by "
+                 "--spatial_devices 2", id="flags1-not yet ported"),
     (["--compiler_option", "xla_tpu_scoped_vmem_limit_kib=65536"], "steers XLA"),
     (["--no_donate"], "steers XLA"), (["--compile_cache_dir", "/x"], "steers XLA"),
 ])
