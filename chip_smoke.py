@@ -44,12 +44,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     (norm+relu+stats) with halo rows at the training bands (``train
     --spatial_devices 2``): the main step's blocks on 384x512 crops, B=12
     (48+1)x128 128->128 reflect, the SR step's `Depth_f` at HR, B=2
-    (128+1)x320 128->128 reflect, and its `G_A_d`, B=1 (128+1)x320 256->256
-    replicate (forward only); each band's forward against the plain version
-    (float32 and bf16), and for the trained two at float32 the VJP through
-    the kernel against autograd of the plain composition and the two bands'
-    gradients, the halo rows' carried home as the exchange's adjoint does,
-    against the whole frame's, within 1e-4 of each gradient's largest entry.
+    (128+1)x320 128->128 reflect, its `G_A_d`, B=1 (128+1)x320 256->256
+    replicate (forward only), and stage 2's translator blocks at the
+    README's crops, B=6 (32+1)x64 256->256 replicate (norm+relu+stats and
+    stats only); each band's forward against the plain version (float32 and
+    bf16), and for the trained three at float32 the VJP through the kernel
+    against autograd of the plain composition and the two bands' gradients,
+    the halo rows' carried home as the exchange's adjoint does, against the
+    whole frame's, within 1e-4 of each gradient's largest entry.
 (c) serving: 16 synthetic 480x640 RGB-D frames and seeded random .pth files at
     the default full widths; ``desr_tpu_torch.predict.main`` serves them in
     bf16 as two requests of 8 frames, then once more with the ResnetBlock
@@ -91,12 +93,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     torch.export's and its save's seconds; each saved program holds 24
     desr::conv3x3_fused nodes (desr::conv3x3 under --pallas_conv) and as
     many library conv nodes as the nets have other convs, and loads (seconds
-    printed); ``--from_export`` serves (c)'s 16 and (f)'s 8 frames (the
-    --pallas_conv route (c)'s first 8) with K1 (K2) at 24 a batch and PNGs
+    printed); ``--from_export`` serves (c)'s first request of 8 frames and
+    (f)'s of 4 (the --pallas_conv route (c)'s first 8 too) with K1 (K2) at
+    24 a batch and PNGs
     equal to the live CLI's or within (c)'s bf16 bound; the artifact's batch
     against the live serve_forward's (max |d|, device ms by CUDA events, live,
     artifact, artifact, live; equal under cuDNN's deterministic algorithms),
-    the artifact profiled; the CLI's host wall over 32 frames (main; 16 under
+    the artifact profiled; the CLI's host wall over 16 frames (main; 8 under
     --SR; hard links) at --num_workers 0 and 4;
     ``desr_tpu_torch.metrics.main`` on (c)'s predictions against their
     inputs with the holes filled, with intrinsics: nine finite values, the
@@ -145,9 +148,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     one untimed iteration each with --netD Gu
     (BatchNorm counts 3 G applies + real + fake), --use_spnorm and --inp_B
     depth.
-(l) --device_aug at the README geometry: 336 synthetic 480x640 frames a
-    domain with intrinsics (12 written, the rest hard links to them), and
-    28 with 968x1296 colour (ScanNet's; 4 written) for SR.
+(l) --device_aug at the README geometry: 288 synthetic 480x640 frames a
+    domain with intrinsics (4 written, the rest hard links to them), and
+    24 with 968x1296 colour (ScanNet's; 1 written) for SR.
     For main (batch 6, 384x512 crops), I2D (batch 12) and SR (batch 1, LR
     512x640): one host batch of the --device_aug dataset through its
     device_finish on the card against the same function on the CPU (main
@@ -156,12 +159,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     its depths within 2e-3; SR within 1e-5), the upload from pinned memory
     and device_finish's time by CUDA events and by the profiler; then the
     train CLI with 4 loader workers and TF32 as the CLI leaves it (PyTorch's
-    defaults), host augmentation and then --device_aug, 28 steps each:
+    defaults), host augmentation and then --device_aug, 24 steps each:
     launches per step as in (e), (g), (j), finite losses; after the
     loader's first 8 batches (2 a worker, all queued when the epoch starts)
-    the wall of 8 steps (2 rounds of the 4 workers) unprofiled gives the
+    the wall of 4 steps (a round of the 4 workers) unprofiled gives the
     step's time and pairs/s with the feed (with the host's time inside the
-    steps and the spread of the rounds), and the next 4 steps under a
+    steps), and the next 4 steps under a
     CUDA-only profiler the card's busy share (kernels and copies over their
     wall) and the profiled step's time; the epoch's last 8 steps, which the
     workers feed back to back, are not read; then 2 I2D steps
@@ -204,9 +207,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 (p) the quality chain (``desr_tpu_torch/tools/quality_eval.py``, in-process,
     one chain at a time, on synthetic scenes that can be learnt): train
     through ``train.main``, serve through ``predict.main``, score with the
-    offline metrics. (p1) main at --width 8, float32, 180 steps (the JAX
-    tool's QUALITY_r03 configuration); (p2) main at the default widths,
-    bf16, 240 steps; (p3) SR at its 480x640 / 960x1280 geometry, default
+    offline metrics. (p1) main at --width 8, float32, 90 steps (the JAX
+    tool's QUALITY_r03 configuration at 15 of its 30 epochs); (p2) main at
+    the default widths, bf16, 120 steps (20 epochs); (p3) SR at its 480x640 / 960x1280 geometry, default
     widths, bf16, a 4-step main pretrain and 2 SR steps, served through
     --export / --from_export; (p4) I2D at 480x640 and stage 2 at 320x320,
     2 steps each. Checks: every split's nine metrics finite, one PNG a
@@ -253,22 +256,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     one card, one spatial group, each frame's rows split between them.
     float32, TF32 off, torch's deterministic mode, width 8, seeded weights:
     the main step on 384x512 crops at batch 2, the same under --norm batch,
-    the SR step at batch 1 (HR 512x512) and two I2D --use_D steps at batch
-    2, each against the one-process step on the same global batch (terms
+    the SR step at batch 1 (HR 512x512), two I2D --use_D steps at batch 2
+    and a stage-2 iteration (one G step, then the D step on its feed) at
+    batch 2 on 128x128 frames with the translators' hardcoded widths, each
+    against the one-process step on the same global batch (terms
     within max(1e-5, 3x the floor), weight gradients within max(1e-3, 3x
     the floor) relative L2, the floor being the larger gap of the
     one-process step with K1's outputs, the InstanceNorms' moments and the
-    BatchNorms' outputs jittered by 1e-6 relative from two seeds; the
+    BatchNorms' outputs (stage 2: the GroupNorms' too) jittered by 1e-6
+    relative from two seeds; the
     running statistics within phase (q)'s bounds; the ranks alike bit for
     bit, every K1 launch with halo rows, K1 and K3 as often as one
     process). Then bf16 at the default widths through the CLI's rank entry
     (``train._rank_main``, what ``train --num_devices 2 --spatial_devices
     2`` runs in each rank): 2 SR steps in bench.py's configuration (batch 1,
-    HR 1024x1280; K1 42 a step, all with halo rows, K3 2 and 2), finite
-    losses, frozen nets unchanged and trained ones moved in the saved
-    checkpoints; then the bf16 SR step timed (3 after one) with its
-    collectives forward and backward and peak memory a rank, against one
-    process (two processes sharing one card: not a scaling figure).
+    HR 1024x1280; K1 42 a step, all with halo rows, K3 2 and 2) and 2
+    stage-2 iterations at the README's flags (batch 6, 256x256 crops from
+    12 frames a domain; K1 216 an iteration, each with halo rows and a
+    backward), finite losses, frozen nets unchanged and trained ones moved
+    in the saved checkpoints; then the bf16 SR step timed (2 after one)
+    with its collectives forward and backward and peak memory a rank,
+    against one process (two processes sharing one card: not a scaling
+    figure); the same step under --remat_blocks on the ranks, held to it
+    without remat (deterministic cuDNN: terms within max(1e-5, 3x the
+    floor), weight gradients within max(1e-3, 3x the floor), the floor
+    that step against itself), timed with its peak memory a rank and its
+    recompute's collectives; and the bf16 stage-2 iteration timed (1
+    after one) with its collectives and peak memory a rank, against one
+    process.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -287,7 +302,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     counts phase (p)'s); K1 (128 and 256 channels) and K2 with a halo row
     at a rank's band of the serving blocks' input, B=8 (64+1)x160, their
     launches phase (r)'s and (s)'s halo launches, cuDNN on the same rows; K1
-    at the training bands of (b) (the lower band, halo rows (1, 0)), with
+    at the training bands of (b) (the lower band, halo rows (1, 0); stage
+    2's B=6 (32+1)x64 256->256 replicate among them), with
     the backward of such a launch and of the whole frame's by CUDA events
     and the profiler (``band_backward_ms``, ``whole_backward_ms``); K3's sums and its backward each at the main step's
     two shapes, the SR step's HR shape and phase (p)'s 4x128x128, with the
@@ -327,6 +343,7 @@ K1_PER_STEP = 42                  # I2D_features 12 + Depth_f 12 (batch 2B) + G_
 K1_TRANS_PER_STEP = 18            # of those, G_A_d's: at TRANS_SHAPE, replicate borders
 K3_PER_STEP = 2                   # the syn and real (task, holes, holes_l2) triplets
 K3_BWD_PER_STEP = 2               # their backward: one masked_loss_grads launch each
+STEP_TIMED = 3                    # train steps timed by CUDA events, after 2 (e, g, j, k)
 PEAK_F32 = 67e12                  # f32 FLOP/s outside the tensor cores, H100 SXM data sheet
 # the x2 SR stage at the README geometry: LR 512x640 -> HR 1024x1280
 SR_SERVE_SHAPE = (4, 256, 320, 128)   # Depth_f's ResnetBlocks at HR, a serving batch of 4
@@ -711,26 +728,39 @@ def phase_halo_kernels():
 # of h rows, a halo row each. (tag, whole-frame shape, pad mode, trained)
 TRAIN_HALO = (("main", (12, 96, 128, 128), "reflect", True),
               ("SR Depth_f", (2, 256, 320, 128), "reflect", True),
-              ("SR translator", (1, 256, 320, 256), "replicate", False))
+              ("SR translator", (1, 256, 320, 256), "replicate", False),
+              ("stage2", (6, 64, 64, 256), "replicate", True))
+# the bands whose blocks also launch K1 without a prologue (a ResnetBlockT's
+# first conv: stats only), checked in that variant too, forward and VJP
+STATS_ONLY_HALO = ("stage2",)
 TRAIN_HALO_PATHS = {  # where each runs, for phase (d)'s rows
     "main": "train --spatial_devices 2, the main step on 384x512 crops at batch 6, a rank: "
             "24 a step (I2D_features; Depth_f's with a backward); phase (s) runs that step "
             "at width 8",
     "SR Depth_f": "train --spatial_devices 2 --SR at bench.py's geometry, a rank: 12 a step, "
                   "each with a backward (phase (s)'s CLI run and timed steps)",
-    "SR translator": "the same SR step, a rank: 18 a step (G_A_d, frozen: forward only)"}
+    "SR translator": "the same SR step, a rank: 18 a step (G_A_d, frozen: forward only)",
+    "stage2": "train --model_type translation --spatial_devices 2 at the README's flags "
+              "(batch 6, 256x256 crops: the bottleneck's 64 rows, 32 a rank), a rank: "
+              f"{STAGE2_K1_PER_ITER} an iteration (G_A, G_B: 18 an apply, 4 applies a G step, 3 "
+              "G steps), each with a backward; half of them stats only (phase (s)'s CLI run and "
+              "timed iterations)"}
 VJP_BOUND = 1e-4  # of each gradient's largest entry (tests/test_torch_cuda.py's)
 
 
 def _k1_vjp(x, w, scale, shift, mode, halo, cots, fn=None):
-    """(out, (dx, dw, dscale, dshift)) of K1 (norm+relu+stats) or ``fn`` on x
-    with ``halo`` rows, for the cotangents ``cots`` of (out, s, s2)."""
+    """(out, (dx, dw[, dscale, dshift])) of K1 (norm+relu+stats; stats only
+    where ``scale`` is None) or ``fn`` on x with ``halo`` rows, for the
+    cotangents ``cots`` of (out, s, s2)."""
     import torch
 
     from desr_tpu_torch.ops import conv3x3 as K
 
-    ins = [t.detach().clone().requires_grad_(True) for t in (x, w, scale, shift)]
-    out, s, s2 = (fn or K.conv3x3_fused)(*ins, mode, True, True, *halo)
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, w, scale, shift)
+           if t is not None]
+    prologue = ins[2:] or [None, None]
+    out, s, s2 = (fn or K.conv3x3_fused)(*ins[:2], *prologue, mode, scale is not None, True,
+                                         *halo)
     loss = sum((a.float() * c).sum() for a, c in zip((out, s, s2), cots))
     return out.detach(), torch.autograd.grad(loss, ins)
 
@@ -745,34 +775,50 @@ def phase_halo_training_kernels():
     with the halo rows' cotangents carried home (the exchange's adjoint)
     and dw, dscale, dshift summed (the gradient average, the moments'
     all-reduce) against the whole frame's VJP through the kernel, each
-    within ``VJP_BOUND`` of its largest entry. Returns the worst bf16
-    forward max |d| by entry."""
+    within ``VJP_BOUND`` of its largest entry. The ``STATS_ONLY_HALO``
+    bands take the same checks in K1's stats-only variant too (no
+    prologue: a ResnetBlockT's first conv). Returns the worst bf16 forward
+    max |d| by entry."""
     import torch
 
     worst = {}
     for tag, shape, mode, trained in TRAIN_HALO:
-        b, hh, wd, c = shape
-        h = hh // 2
-        bands = ((0, h + 1, (0, 1)), (h - 1, hh, (1, 0)))
-        key = "K1 halo train " + tag
-        worst[key] = 0.0
-        for dtype in (torch.float32, torch.bfloat16):
-            dt = str(dtype)[6:]
-            x, w, scale, shift = _inputs(dtype, seed=21, shape=shape)
-            for lo, hi, halo in bands:
-                xb = x[:, lo:hi].contiguous()
-                e = _compare(f"{key} {halo} {mode} {dt}",
-                             _k1_halo(xb, w, scale, shift, mode, halo),
-                             _k1_halo(xb, w, scale, shift, mode, halo, plain=True),
-                             dtype, h * wd)
-                if dtype == torch.bfloat16:
-                    worst[key] = max(worst[key], e)
-            del x, w, scale, shift
-        if not trained:
-            continue
-        from desr_tpu_torch.ops import conv3x3 as K
+        for prologue in (True, False) if tag in STATS_ONLY_HALO else (True,):
+            _halo_training_band(tag, shape, mode, trained, prologue, worst)
+    return worst
 
+
+def _halo_training_band(tag, shape, mode, trained, prologue, worst):
+    """Phase (b)'s checks of one ``TRAIN_HALO`` band, K1 norm+relu+stats
+    (``prologue``) or stats only; the bf16 forward's worst into ``worst``."""
+    import torch
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    b, hh, wd, c = shape
+    h = hh // 2
+    bands = ((0, h + 1, (0, 1)), (h - 1, hh, (1, 0)))
+    key = "K1 halo train " + tag
+    variant = "" if prologue else " stats only"
+    worst.setdefault(key, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        x, w, scale, shift = _inputs(dtype, seed=21, shape=shape)
+        if not prologue:
+            scale = shift = None
+        for lo, hi, halo in bands:
+            xb = x[:, lo:hi].contiguous()
+            e = _compare(f"{key}{variant} {halo} {mode} {dt}",
+                         _k1_halo(xb, w, scale, shift, mode, halo),
+                         _k1_halo(xb, w, scale, shift, mode, halo, plain=True),
+                         dtype, h * wd)
+            if dtype == torch.bfloat16:
+                worst[key] = max(worst[key], e)
+        del x, w, scale, shift
+    if trained:
         x, w, scale, shift = _inputs(torch.float32, seed=22, shape=shape)
+        if not prologue:
+            scale = shift = None
         g = torch.Generator(device="cuda").manual_seed(23)
         cots = [torch.randn((b, hh, wd, c), generator=g, device="cuda"),
                 torch.randn((b, c), generator=g, device="cuda"),
@@ -790,7 +836,7 @@ def phase_halo_training_kernels():
                 for name, a, p in zip(("dx", "dw", "dscale", "dshift"), got, want):
                     d = float((a - p).abs().max()) / max(float(p.abs().max()), 1e-30)
                     gap = max(gap, d)
-                    check(d <= VJP_BOUND, f"[b] {key} {halo} VJP {name}: kernel vs plain "
+                    check(d <= VJP_BOUND, f"[b] {key}{variant} {halo} VJP {name}: kernel vs plain "
                           f"{d:.3g} of its largest entry > {VJP_BOUND}")
                 parts.append(got)
         (d0, *p0), (d1, *p1) = parts
@@ -802,22 +848,23 @@ def phase_halo_training_kernels():
                               [dx] + [u + v for u, v in zip(p0, p1)], whole):
             d = float((a - p).abs().max()) / max(float(p.abs().max()), 1e-30)
             home = max(home, d)
-            check(d <= VJP_BOUND, f"[b] {key}: two bands' {name} after the exchange's "
+            check(d <= VJP_BOUND, f"[b] {key}{variant}: two bands' {name} after the exchange's "
                   f"adjoint vs the whole frame's {d:.3g} of its largest entry > {VJP_BOUND}")
-        print(f"[b] {key} B={b} ({h}+1)x{wd} {c}->{c} {mode} float32 (deterministic cuDNN): "
+        print(f"[b] {key}{variant} B={b} ({h}+1)x{wd} {c}->{c} {mode} float32 (deterministic "
+              "cuDNN): "
               f"VJP kernel vs plain {gap:.3g}, two bands after the exchange's adjoint vs the "
               f"whole frame {home:.3g} of each gradient's largest entry (bound {VJP_BOUND})")
         del x, w, scale, shift, cots, whole, parts, dx
         torch.cuda.synchronize()
-    return worst
 
 
 def _k1_halo(x, w, scale, shift, mode, halo, plain=False):
-    """K1 (norm+relu+stats) with ``halo`` rows: the kernel, or its plain version."""
+    """K1 (norm+relu+stats; stats only where ``scale`` is None) with ``halo``
+    rows: the kernel, or its plain version."""
     from desr_tpu_torch.ops import conv3x3 as K
 
     fn = K.conv3x3_fused_plain if plain else K.conv3x3_fused
-    return fn(x, w, scale, shift, mode, True, True, *halo)
+    return fn(x, w, scale, shift, mode, scale is not None, True, *halo)
 
 
 # ------------------------------------------------------------------ (b')
@@ -1304,7 +1351,7 @@ def phase_training(tmp):
 
     # time: bf16 step, batch 6 at 512x640, after warm-up
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    ms = cuda_ms(model.optimize_parameters, iters=STEP_TIMED, warmup=2)
     report["train_step_ms"] = ms
     report["train_pairs_per_s"] = 6000.0 / ms
     report["train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1312,7 +1359,8 @@ def phase_training(tmp):
                      iters=3, warmup=1)
     report["train_forward_and_losses_ms"] = ms_fwd
     print(f"[e] train step bf16, batch 6 at 512x640: {ms:.2f} ms per step, "
-          f"{report['train_pairs_per_s']:.2f} pairs/s (CUDA events, 10 steps after 3); "
+          f"{report['train_pairs_per_s']:.2f} pairs/s (CUDA events, {STEP_TIMED} steps "
+          f"after 2); "
           f"forward + losses alone {ms_fwd:.2f} ms; peak memory "
           f"{report['train_peak_mem_gib']:.2f} GiB")
     report.update(_profile(model.optimize_parameters, iters=3, tag="e", unit="step"))
@@ -1346,12 +1394,13 @@ def phase_training(tmp):
           f"augmented step: launches {c}")
     check(bool(np.isfinite(float(model.metrics["G"]))), "augmented step: G not finite")
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    ms = cuda_ms(model.optimize_parameters, iters=STEP_TIMED, warmup=2)
     report["aug_train_step_ms"] = ms
     report["aug_train_pairs_per_s"] = 6000.0 / ms
     report["aug_train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[e] train step bf16, batch 6 on 384x512 crops: {ms:.2f} ms per step, "
-          f"{report['aug_train_pairs_per_s']:.2f} pairs/s (CUDA events, 10 steps after 3); "
+          f"{report['aug_train_pairs_per_s']:.2f} pairs/s (CUDA events, {STEP_TIMED} steps "
+          f"after 2); "
           f"launches a step {c}; peak memory {report['aug_train_peak_mem_gib']:.2f} GiB")
     report.update({f"aug_{k}": v for k, v in _profile(
         model.optimize_parameters, iters=3, tag="e", unit="step").items()})
@@ -1690,7 +1739,7 @@ def phase_sr_training(tmp):
     # time: bf16 step, batch 1 at LR 512x640 -> HR 1024x1280, after warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    ms = cuda_ms(model.optimize_parameters, iters=STEP_TIMED, warmup=2)
     report["sr_train_step_ms"] = ms
     report["sr_train_pairs_per_s"] = 1000.0 / ms
     report["sr_train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1698,7 +1747,8 @@ def phase_sr_training(tmp):
                      iters=3, warmup=1)
     report["sr_train_forward_and_losses_ms"] = ms_fwd
     print(f"[g] SR train step bf16, batch 1, LR 512x640 -> HR 1024x1280: {ms:.2f} ms per step, "
-          f"{report['sr_train_pairs_per_s']:.3f} pairs/s (CUDA events, 10 steps after 3); "
+          f"{report['sr_train_pairs_per_s']:.3f} pairs/s (CUDA events, {STEP_TIMED} steps "
+          f"after 2); "
           f"forward + losses alone {ms_fwd:.2f} ms; peak memory "
           f"{report['sr_train_peak_mem_gib']:.2f} GiB")
     report.update(_profile(model.optimize_parameters, iters=3, tag="g", unit="step"))
@@ -1968,15 +2018,15 @@ def phase_i2d_training(tmp):
     # time: bf16 step with the D step, batch 12 at 384x512, after warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: model.optimize_parameters(12, 1), iters=10, warmup=3)
+    ms = cuda_ms(lambda: model.optimize_parameters(12, 1), iters=STEP_TIMED, warmup=2)
     report["i2d_train_step_ms"] = ms
     report["i2d_train_pairs_per_s"] = 12000.0 / ms
     report["i2d_train_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     ms_g = cuda_ms(lambda: (model.compute_grads(), model.optimizer.step()), iters=5, warmup=1)
     report["i2d_train_g_step_ms"] = ms_g
     print(f"[j] I2D train step bf16 with the D step, batch 12 at 384x512: {ms:.2f} ms per "
-          f"step, {report['i2d_train_pairs_per_s']:.2f} pairs/s (CUDA events, 10 steps after "
-          f"3); the G step alone {ms_g:.2f} ms; peak memory "
+          f"step, {report['i2d_train_pairs_per_s']:.2f} pairs/s (CUDA events, {STEP_TIMED} "
+          f"steps after 2); the G step alone {ms_g:.2f} ms; peak memory "
           f"{report['i2d_train_peak_mem_gib']:.2f} GiB")
     report.update(_profile(lambda: model.optimize_parameters(12, 1), iters=3, tag="j",
                            unit="step"))
@@ -2087,7 +2137,7 @@ def phase_translation_training(tmp):
     # time: bf16 iteration at batch 6, and its G and D steps
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(model.optimize_parameters, iters=10, warmup=3)
+    ms = cuda_ms(model.optimize_parameters, iters=STEP_TIMED, warmup=2)
     report["stage2_iter_ms"] = ms
     report["stage2_pairs_per_s"] = 6000.0 / ms
     report["stage2_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2101,7 +2151,8 @@ def phase_translation_training(tmp):
     report["stage2_d_step_ms"] = cuda_ms(lambda: (model.d_grads(feed), model.optimizer_D.step()),
                                          iters=5, warmup=1)
     print(f"[k] stage-2 iteration bf16, batch 6 at 256x256: {ms:.2f} ms per iteration, "
-          f"{report['stage2_pairs_per_s']:.2f} pairs/s (CUDA events, 10 iterations after 3); "
+          f"{report['stage2_pairs_per_s']:.2f} pairs/s (CUDA events, {STEP_TIMED} iterations "
+          f"after 2); "
           f"a G step {report['stage2_g_step_ms']:.2f} ms, a D step "
           f"{report['stage2_d_step_ms']:.2f} ms; peak memory "
           f"{report['stage2_peak_mem_gib']:.2f} GiB")
@@ -2156,10 +2207,10 @@ FED_WORKERS = 4             # the loader's default --num_threads
 # batches back to back, faster than mid-epoch, where it waits on the
 # in-order consumer for its next index
 FED_WARM = 2 * FED_WORKERS
-FED_TIMED, FED_PROFILED = 2 * FED_WORKERS, FED_WORKERS
+FED_TIMED, FED_PROFILED = FED_WORKERS, FED_WORKERS
 FED_STEPS = FED_WARM + FED_TIMED + FED_PROFILED + FED_WARM
-FED_UNIQUE = 12             # frames written a domain (~0.7 s each); the rest are hard links
-FED_SR_UNIQUE = 4           # SR's 968x1296 colour frames written a domain
+FED_UNIQUE = 4              # frames written a domain (~0.7 s each); the rest are hard links
+FED_SR_UNIQUE = 1           # SR's 968x1296 colour frames written a domain
 JIT_BOUNDS = (10.0, 1e-4, 2e-3)  # ColorJitter, 0-255 scale: max, share above 1, above 1e-3
 
 
@@ -2389,7 +2440,7 @@ def phase_device_aug(tmp):
 
 # ------------------------------------------------------------------ (m)
 
-CLI_FRAMES = {"main": 32, "SR": 16}  # the CLI's wall over this many frames (hard links)
+CLI_FRAMES = {"main": 16, "SR": 8}  # the CLI's wall over this many frames (hard links)
 CLI_WORKERS = (0, 4)     # --num_workers: inline, and a spawned pool of 4
 
 
@@ -2587,8 +2638,7 @@ def phase_deployment(tmp, serve_dir, sr_dir):
             "desr.conv3x3_fused.default"
         load_s = _check_graph(tag, art, kernel)
         report[f"{tag}_export_s"], report[f"{tag}_load_s"] = export_s, load_s
-        requests = 1 if "--pallas_conv" in flags else 2
-        for r in range(requests):
+        for r in range(1):  # one request a route: (c)'s and (f)'s first
             out = os.path.join(tmp, f"exp_{tag.strip('-')}{r}")
             wall, c = _deploy_cli(["--input_depth", os.path.join(root, f"req{r}", "depth"),
                                    "--input_img", os.path.join(root, f"req{r}", "img"),
@@ -3211,11 +3261,12 @@ def phase_bench_io(tmp):
 # (tag, the quality tool's argv after --root, width: None runs the options'
 # default widths, whether trained rmse and rmse_h must beat the degraded input)
 QUALITY_CHAINS = (
-    ("p1 main width 8 f32", ["--stage", "main", "--width", "8", "--epochs", "30",
+    ("p1 main width 8 f32", ["--stage", "main", "--width", "8", "--epochs", "15",
                              "--n_train", "24", "--n_test", "8", "--batch_size", "4",
                              "--hw", "128", "128", "--compute_dtype", "float32",
                              "--seed", "0"], 8, True),
-    ("p2 main full width bf16", ["--stage", "main", "--compute_dtype", "bfloat16"], None, True),
+    ("p2 main full width bf16", ["--stage", "main", "--compute_dtype", "bfloat16",
+                                 "--epochs", "20"], None, True),
     ("p3 sr full width bf16", ["--stage", "sr", "--compute_dtype", "bfloat16", "--n_train", "4",
                                "--n_test", "2", "--sr_pre_epochs", "4", "--epochs", "2"],
      None, False),
@@ -3333,8 +3384,8 @@ DP_MAIN = (6, 384, 512)    # the main step's global batch on the README's crops:
 DP_I2D = (4, 384, 512)     # I2D --use_D, 2 a rank; a pool of 2 swaps in the first step
 DP_TRANS = (4, 256, 256)   # stage 2 with --netD Gu, 2 a rank
 DP_SR_LR = (128, 128)      # the SR step at batch 1 (the replicate path), HR 256x256
-DP_TIMED = 3               # main steps timed on the ranks after the checked one
-DP_REDUCE = 5              # gradient averages timed after them
+DP_TIMED = 2               # main steps timed on the ranks after the checked one
+DP_REDUCE = 3              # gradient averages timed after them
 DP_LAUNCHES = {            # a rank's launches: phase (e)'s, (j)'s, (k)'s with one G step, (g)'s
     "main": {"K1": K1_PER_STEP, "K3": K3_PER_STEP, "K3 backward": K3_PER_STEP},
     "i2d": {"K1": I2D_K1_PER_STEP, "K3": 0, "K3 backward": 0},
@@ -3698,7 +3749,7 @@ SP_MODES = {
 }
 SP_CKPT = {"main": "sp_main", "sr": "sp_main", "i2d": "sp_i2d", "translate": "sp_tr"}
 SP_F32_BATCH = 2            # the float32 check's batch (the bf16 one serves the CLI's)
-SP_TIMED = 3                # forwards timed a mode, after one
+SP_TIMED = 2                # forwards timed a mode, after one
 SP_F32_BOUND = 1e-3         # float32, deterministic cuDNN: (c)'s bound of the kernels' route
 
 
@@ -3954,18 +4005,28 @@ ST_WIDTH = ("--ImageDepthf_outf", "8", "--ImageDepthf_basef", "8", "--Depthf_out
             "8", "--Imagef_basef", "8", "--ndf", "8")  # the float32 checks' widths
 # the float32 checks: kind -> (global batch, H, W); SR's H, W are HR (LR 256x256: the
 # U-Nets halve the LR grid 7 times)
+# stage 2 (translation: one G step, then the D step on its feed) at 128x128, the
+# smallest frame whose translator bottleneck (H/4 = 32 rows) two ranks split, at
+# the translators' hardcoded widths
 ST_CHECKS = {"main": (2, 384, 512), "norm_batch": (2, 384, 512), "sr": (1, 512, 512),
-             "i2d": (2, 384, 512)}
+             "i2d": (2, 384, 512), "translation": (2, 128, 128)}
 ST_FULL_ARGV = ()           # flags appended to the bf16 full-width runs (a rehearsal's widths)
 ST_SR_HR = (1024, 1280)     # the bf16 SR step's HR frame: bench.py's geometry
-ST_TIMED = 3                # bf16 SR steps timed, after one
+ST_TIMED = 2                # bf16 SR steps timed, after one
 ST_JITTER_SEEDS = (12, 13)  # the one-process floor: the larger gap of two jittered steps
+ST_STAGE2 = (6, 256, 256)   # the bf16 stage-2 iteration: the README's batch and crops
+ST_STAGE2_TIMED = 1         # its iterations timed, after one (~1400 collectives each)
+ST_STAGE2_FRAMES = (2, 12)  # frames written a domain for its CLI run, and linked to
 
 
 def _st_argv(kind, tmp):
     """The float32 check's argv of ``kind`` at width 8."""
     f32 = ["--compute_dtype", "float32", *ST_WIDTH]
     b, h, w = ST_CHECKS[kind]
+    if kind == "translation":  # the translators' widths are hardcoded; the Ds' at ndf 64
+        return _translation_argv(tmp, "st", ["--compute_dtype", "float32", "--batch_size",
+                                             str(b), "--crop_size_h", str(h), "--crop_size_w",
+                                             str(w), "--num_iter_gen", "1"])
     if kind == "sr":
         return _sr_train_argv(tmp, "st") + f32 + ["--crop_size_h", str(h // 2),
                                                    "--crop_size_w", str(w // 2)]
@@ -3977,8 +4038,18 @@ def _st_argv(kind, tmp):
 
 def _st_batch(kind):
     b, h, w = ST_CHECKS[kind]
-    return _synthetic_batch(b, h, w, 60 + list(ST_CHECKS).index(kind),
-                            lr_hw=(h // 2, w // 2) if kind == "sr" else None)
+    seed = 60 + list(ST_CHECKS).index(kind)
+    if kind == "translation":
+        return _translation_batch(b, h, w, seed)
+    return _synthetic_batch(b, h, w, seed, lr_hw=(h // 2, w // 2) if kind == "sr" else None)
+
+
+def _translation_batch(b, h, w, seed):
+    """A stage-2 batch as ``TranslationDataset`` gives it: depths in [-1, 1]
+    with 5% holes at -1, images in [-1, 1]."""
+    bat = _synthetic_batch(b, h, w, seed)
+    return {"A_depth": bat["A_d"], "A_img": bat["A_i"], "B_depth": bat["B_d"],
+            "B_img": bat["B_i"]}
 
 
 def _st_counts():
@@ -4010,10 +4081,12 @@ class _StJitter:
     """The one-process step's own floor: K1's outputs, the InstanceNorms'
     moments and the BatchNorms' outputs times (1 + 1e-6 N(0, 1)), the scale
     of the float32 rounding that the bands' other summation order leaves
-    (phase (q)'s yardstick, which jitters K1 alone), drawn from ``seed``."""
+    (phase (q)'s yardstick, which jitters K1 alone), drawn from ``seed``;
+    with ``group_norm`` the GroupNorms' outputs too (the stage-2
+    translators normalise by GroupNorm)."""
 
-    def __init__(self, seed):
-        self.seed = seed
+    def __init__(self, seed, group_norm=False):
+        self.seed, self.group_norm = seed, group_norm
 
     def __enter__(self):
         import contextlib
@@ -4029,6 +4102,7 @@ class _StJitter:
             return t * (1 + 1e-6 * torch.randn(t.shape, generator=gen, device=t.device))
 
         run, moments, bn = K._fused_forward, TL.moments_hw, TL.BatchNorm2d.forward
+        gn = TL.GroupNorm.forward
 
         def conv(*args):
             res = run(*args)
@@ -4039,7 +4113,10 @@ class _StJitter:
                       mock.patch.object(TL, "moments_hw",
                                         lambda x: tuple(noise(t) for t in moments(x))),
                       mock.patch.object(TL.BatchNorm2d, "forward",
-                                        lambda m, x: noise(bn(m, x)))):
+                                        lambda m, x: noise(bn(m, x))),
+                      mock.patch.object(TL.GroupNorm, "forward",
+                                        (lambda m, x: noise(gn(m, x))) if self.group_norm
+                                        else gn)):
             self.stack.enter_context(patch)
 
     def __exit__(self, *exc):
@@ -4048,7 +4125,8 @@ class _StJitter:
 
 def _st_step(kind, tmp, mesh, jitter=None):
     """One float32 step of ``kind`` on ``mesh`` (two for I2D --use_D, whose
-    pool swaps in the second), its weights drawn from seed 8: the global
+    pool swaps in the second; for stage 2 an iteration of one G step and
+    the D step), its weights drawn from seed 8: the global
     metrics, the first step's gradients on the optimized nets, their
     weights and every running statistic after it, the replay pool, and the
     launches and collectives of the first step. ``jitter``: a seed of
@@ -4060,9 +4138,11 @@ def _st_step(kind, tmp, mesh, jitter=None):
     from desr_tpu_torch.models.i2d_model import I2DModel
     from desr_tpu_torch.models.main_model import MainModel
     from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
     from desr_tpu_torch.options import train_options
 
-    cls = {"sr": MainSRModel, "i2d": I2DModel}.get(kind, MainModel)
+    cls = {"sr": MainSRModel, "i2d": I2DModel, "translation": TranslationModel}.get(kind,
+                                                                                    MainModel)
     opt = train_options.parse(_st_argv(kind, tmp), print_options=False)
     model = cls(opt, device=mesh.device, compute_dtype=torch.float32, is_train=True,
                 generator=torch.Generator().manual_seed(8), mesh=mesh)
@@ -4070,7 +4150,8 @@ def _st_step(kind, tmp, mesh, jitter=None):
     nets = list(model.optimized_nets)
     b = ST_CHECKS[kind][0]
     res = {}
-    with _StJitter(jitter) if jitter is not None else contextlib.nullcontext():
+    with (_StJitter(jitter, group_norm=kind == "translation") if jitter is not None
+          else contextlib.nullcontext()):
         for it in range(1, 3 if kind == "i2d" else 2):
             model.set_input(batch)
             torch.cuda.synchronize() if ST_DEVICE == "cuda" else None
@@ -4103,13 +4184,48 @@ def _st_full_argv(tmp):
             + list(ST_FULL_ARGV))
 
 
-def _st_sr_bf16(tmp, mesh):
-    """The bf16 SR step at full width on ``mesh``, HR ``ST_SR_HR``: one
-    step's launches and collectives, ms a step over ``ST_TIMED`` steps after
-    one (host clock, the card synchronised; the ranks start together) and
-    this process's peak memory."""
+def _st_timed(model, batch, first_iter, steps=None):
+    """ms a step of ``steps`` (``ST_TIMED``) steps of ``model`` on ``batch``
+    (host clock, the card synchronised; the ranks start together),
+    counting from iteration ``first_iter``."""
     import torch
     import torch.distributed as dist
+
+    steps = steps or ST_TIMED
+    if model.mesh.size > 1:
+        dist.barrier()
+    t0 = time.perf_counter()
+    for it in range(steps):
+        model.set_input(batch)
+        model.optimize_parameters(first_iter + it)
+    if ST_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _st_peak(reset=False):
+    """This process's peak GiB on the card since the last reset (None on
+    the CPU); with ``reset`` the caches are emptied and a new peak opened."""
+    import torch
+
+    if ST_DEVICE != "cuda":
+        return None
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _st_sr_bf16(tmp, mesh, remat=False):
+    """The bf16 SR step at full width on ``mesh``, HR ``ST_SR_HR``: one
+    step's launches and collectives, ms a step over ``ST_TIMED`` steps after
+    one and this process's peak memory. With ``remat`` then, on the same
+    model: under deterministic cuDNN the step's gradients from the same
+    weights and holes without remat twice (the floor) and under
+    ``--remat_blocks``, their gaps; then the remat step's launches and
+    collectives (its recompute's apart), ms and peak memory."""
+    import torch
 
     from desr_tpu_torch.models.main_sr_model import MainSRModel
     from desr_tpu_torch.options import train_options
@@ -4122,39 +4238,118 @@ def _st_sr_bf16(tmp, mesh):
                         generator=torch.Generator().manual_seed(9), mesh=mesh)
     batch = _synthetic_batch(1, *hr, 64, lr_hw=(hr[0] // 2, hr[1] // 2))
     sync = torch.cuda.synchronize if ST_DEVICE == "cuda" else (lambda: None)
-    if ST_DEVICE == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    _st_peak(reset=True)
     model.set_input(batch)
     sync()
     _st_reset()
     model.optimize_parameters(1)
     sync()
-    counts = _st_counts()
-    if mesh.size > 1:
-        dist.barrier()
-    t0 = time.perf_counter()
-    for it in range(ST_TIMED):
-        model.set_input(batch)
-        model.optimize_parameters(2 + it)
-    sync()
-    ms = (time.perf_counter() - t0) * 1e3 / ST_TIMED
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if ST_DEVICE == "cuda" else None
-    losses = {k: float(v) for k, v in model.metrics.items()}
+    out = {"counts": _st_counts(), "ms": _st_timed(model, batch, 2), "peak_gib": _st_peak()}
+    out["losses"] = {k: float(v) for k, v in model.metrics.items()}
+    if remat:
+        out["remat"] = _st_remat_sr(model, batch, sync)
     del model
     if ST_DEVICE == "cuda":
         torch.cuda.empty_cache()
-    return {"counts": counts, "ms": ms, "peak_gib": peak, "losses": losses}
+    return out
+
+
+def _st_remat_sr(model, batch, sync):
+    """``_st_sr_bf16``'s ``--remat_blocks`` half on its model (the staged
+    ``batch``): the gaps to the step without remat (loss terms relative;
+    weight gradients relative L2 and their floor, the larger gap of the
+    step without remat against itself), then the remat step's launches,
+    ms and peak GiB."""
+    import numpy as np
+    import torch
+
+    def run():
+        model.hole_generator.manual_seed(11)
+        m = model.compute_grads()
+        return ({k: float(v) for k, v in m.items()},
+                {f"{n}.{k}": p.grad.detach().clone() for n in model.trainable_nets
+                 for k, p in model.nets[n].named_parameters() if p.grad is not None})
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).float())
+                     / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+    model.set_input(batch)
+    with _Deterministic():
+        _set_remat(model, "none")
+        m0, g0 = run()
+        m00, g00 = run()
+        _set_remat(model, "remat_blocks")
+        m1, g1 = run()
+    res = {"terms_rel": {k: abs(m1[k] - v) / max(abs(v), 1e-12) for k, v in m0.items()},
+           "terms_floor_rel": {k: abs(m00[k] - v) / max(abs(v), 1e-12) for k, v in m0.items()},
+           "grads_rel": {k: rel(g1[k], v) for k, v in g0.items()},
+           "grads_floor_rel": {k: rel(g00[k], v) for k, v in g0.items()},
+           "grads_bit_equal": int(sum(bool(torch.equal(g1[k], v)) for k, v in g0.items())),
+           "grads_n": len(g0)}
+    res["grads_norm"] = float(np.sqrt(sum(float(v.float().square().sum()) for v in g1.values())))
+    del g0, g00, g1
+    _st_peak(reset=True)
+    model.set_input(batch)
+    sync()
+    _st_reset()
+    model.optimize_parameters(1)
+    sync()
+    res.update(counts=_st_counts(), ms=_st_timed(model, batch, 2), peak_gib=_st_peak(),
+               losses={k: float(v) for k, v in model.metrics.items()})
+    _set_remat(model, "none")
+    return res
+
+
+def _st_stage2_argv(tmp, name, extra=()):
+    """The README's stage-2 flags (``_translation_argv``) over ``ST_RANKS``
+    spatial ranks."""
+    return _translation_argv(tmp, name, ["--num_devices", str(ST_RANKS), "--spatial_devices",
+                                         str(ST_RANKS), *extra, *ST_FULL_ARGV])
+
+
+def _st_stage2_bf16(tmp, mesh):
+    """The bf16 stage-2 iteration at the README's flags (``ST_STAGE2``: 3 G
+    steps, then the D step) on ``mesh`` (one process: the ranks time the
+    CLI's own iterations): one iteration's launches and collectives, ms an
+    iteration over ``ST_STAGE2_TIMED`` after one, this process's peak
+    memory and the terms."""
+    import torch
+
+    from desr_tpu_torch.models.translation_model import TranslationModel
+    from desr_tpu_torch.options import train_options
+
+    opt = train_options.parse(_st_stage2_argv(tmp, "st2"), print_options=False)
+    model = TranslationModel(opt, device=mesh.device, compute_dtype=torch.bfloat16,
+                             is_train=True, generator=torch.Generator().manual_seed(10),
+                             mesh=mesh)
+    batch = _translation_batch(*ST_STAGE2, 65)
+    sync = torch.cuda.synchronize if ST_DEVICE == "cuda" else (lambda: None)
+    _st_peak(reset=True)
+    model.set_input(batch)
+    sync()
+    _st_reset()
+    model.optimize_parameters(ST_STAGE2[0])
+    sync()
+    out = {"counts": _st_counts(), "ms": _st_timed(model, batch, 2, ST_STAGE2_TIMED),
+           "peak_gib": _st_peak(), "losses": {k: float(v) for k, v in model.metrics.items()}}
+    del model
+    if ST_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _st_rank(mesh, tmp):
     """One of phase (s)'s ranks: the float32 checks (TF32 off, torch's
     deterministic mode), then the CLI's rank entry (``train._rank_main``,
     what ``train --num_devices 2 --spatial_devices 2`` runs in each rank)
-    for 2 bf16 SR steps, then the bf16 SR step timed."""
+    for 2 bf16 SR steps and 2 bf16 stage-2 iterations (each iteration timed,
+    host clock with the card synchronised, and the run's peak memory), then
+    the bf16 SR step timed without and with ``--remat_blocks``."""
     import torch
 
     from desr_tpu_torch import train
+    from desr_tpu_torch.models.translation_model import TranslationModel
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4163,15 +4358,31 @@ def _st_rank(mesh, tmp):
         for kind in ST_CHECKS:
             out[kind] = _st_step(kind, tmp, mesh)
     torch.backends.cudnn.allow_tf32 = True  # the CLI's own setting
-    _st_reset()
-    t0 = time.perf_counter()
-    out["cli_losses"] = {k: float(v) for k, v in
-                         train._rank_main(mesh, _st_full_argv(tmp)).items()}
-    if ST_DEVICE == "cuda":
-        torch.cuda.synchronize()
-    out["cli_counts"] = _st_counts()
-    out["cli_s"] = time.perf_counter() - t0
-    out["sr_bf16"] = _st_sr_bf16(tmp, mesh)
+    sync = torch.cuda.synchronize if ST_DEVICE == "cuda" else (lambda: None)
+    iteration = TranslationModel.optimize_parameters
+    iter_ms = []
+
+    def timed_iteration(model, *args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        iteration(model, *args, **kw)
+        sync()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for key, argv in (("cli", _st_full_argv(tmp)),
+                      ("cli_stage2", _st_stage2_argv(tmp, "st2cli", ["--continue_train"]))):
+        _st_reset()
+        _st_peak(reset=True)
+        t0 = time.perf_counter()
+        with mock.patch.object(TranslationModel, "optimize_parameters", timed_iteration):
+            out[f"{key}_losses"] = {k: float(v)
+                                    for k, v in train._rank_main(mesh, argv).items()}
+        sync()
+        out[f"{key}_counts"] = _st_counts()
+        out[f"{key}_s"] = time.perf_counter() - t0
+        out[f"{key}_peak_gib"] = _st_peak()
+    out["cli_stage2_iter_ms"] = iter_ms
+    out["sr_bf16"] = _st_sr_bf16(tmp, mesh, remat=True)
     return out
 
 
@@ -4256,33 +4467,50 @@ def phase_spatial_training(tmp):
     on the one card (NCCL takes one rank a card), each frame's rows split
     between them. Float32 at width 8 (TF32 off, torch's deterministic
     mode): the main step on 384x512 crops (batch 2), the same under --norm
-    batch, the SR step at batch 1 (HR 512x640) and two I2D --use_D steps
-    (batch 2), each against the one-process step on the same global batch
-    (``_st_check`` states the bounds). Then bf16 at the full widths: 2 SR
-    steps in bench.py's configuration through the CLI's rank entry
-    (finite losses, frozen nets unchanged, trained nets moved, every K1
-    launch with halo rows), and the SR step at HR 1024x1280 timed with its
-    peak memory a rank, against one process (two processes sharing one
-    card: not a scaling figure)."""
+    batch, the SR step at batch 1 (HR 512x640), two I2D --use_D steps
+    (batch 2) and a stage-2 iteration at 128x128 (batch 2, one G step, the
+    translators' own widths), each against the one-process step on the
+    same global batch (``_st_check`` states the bounds). Then bf16 at the
+    full widths through the CLI's rank entry: 2 SR steps in bench.py's
+    configuration and 2 stage-2 iterations at the README's flags (finite
+    losses, frozen nets unchanged, trained nets moved, every K1 launch
+    with halo rows); the SR step at HR 1024x1280 timed with its peak memory
+    a rank, against one process (two processes sharing one card: not a
+    scaling figure), and under --remat_blocks on the ranks against it
+    (``_st_remat_report``); the stage-2 iteration timed the same way
+    (``_st_stage2_report``)."""
     import numpy as np
     import torch
 
     from desr_tpu_torch import checkpoints as ckpt
     from desr_tpu_torch import parallel
     from desr_tpu_torch.models.main_sr_model import MainSRModel
+    from desr_tpu_torch.models.translation_model import TranslationModel
     from desr_tpu_torch.options import train_options
 
     t0 = time.perf_counter()
     _write_train_domain(tmp, "A", seed=70, n=2)
     _write_train_domain(tmp, "B", seed=71, n=2)
-    opt = train_options.parse(_st_full_argv(tmp), print_options=False)
-    model = MainSRModel(opt, device=ST_DEVICE, compute_dtype=torch.bfloat16, is_train=True,
-                        generator=torch.Generator().manual_seed(9))
-    for n in model.model_names:
-        ckpt.save_net(model.nets[n], ckpt.net_ckpt_path(tmp, "stcli", "latest", n))
-    before = _state(model, model.model_names)
-    trained = model.trainable_nets
-    del model
+    written, n = ST_STAGE2_FRAMES
+    for dom, seed in (("A", 72), ("B", 73)):  # stage 2's dataroot: <tmp>/train{A,B}
+        folder = os.path.join(tmp, f"train{dom}")
+        _write_frames(folder, written, seed=seed)
+        for sub in ("depth", "img"):
+            for i in range(written, n):
+                os.link(os.path.join(folder, sub, f"f{i % written:02d}.png"),
+                        os.path.join(folder, sub, f"f{i:02d}.png"))
+    before, trained = {}, {}
+    for key, name, argv, cls in (
+            ("sr", "stcli", _st_full_argv(tmp), MainSRModel),
+            ("stage2", "st2cli", _st_stage2_argv(tmp, "st2cli"), TranslationModel)):
+        opt = train_options.parse(argv, print_options=False)
+        model = cls(opt, device=ST_DEVICE, compute_dtype=torch.bfloat16, is_train=True,
+                    generator=torch.Generator().manual_seed(9))
+        for net in model.model_names:
+            ckpt.save_net(model.nets[net], ckpt.net_ckpt_path(tmp, name, "latest", net))
+        before[key] = (name, _state(model, model.model_names))
+        trained[key] = model.optimized_nets if key == "stage2" else model.trainable_nets
+        del model
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = parallel.launch(_st_rank, [f"{ST_DEVICE}:0"] * ST_RANKS, backend="gloo",
@@ -4326,13 +4554,31 @@ def phase_spatial_training(tmp):
     check(ranks[0]["cli_counts"] == ranks[1]["cli_counts"],
           f"[s] CLI: the ranks issued other launches or collectives: "
           f"{ranks[0]['cli_counts']} / {ranks[1]['cli_counts']}")
-    # the nets rank 0 saved at the epoch's end (save_net: a state_dict file)
-    after = {n: torch.load(ckpt.net_ckpt_path(tmp, "stcli", "latest", n), map_location="cpu")
-             for n in before}
-    for n, state in before.items():
-        same = all(torch.equal(v.cpu(), after[n][k].cpu()) for k, v in state.items())
-        check(same == (n not in trained), f"[s] CLI: {n} " + ("moved" if same else "unchanged")
-              + (" (trained)" if n in trained else " (frozen)"))
+    # the CLI's 2 bf16 stage-2 iterations: every K1 launch with halo rows,
+    # each with a backward (the G steps'), finite losses
+    per_iter = STAGE2_K1_PER_ITER
+    want = {"K1": 2 * per_iter, "K1 halo": 2 * per_iter, "K1 backward halo": 2 * per_iter,
+            "K2": 0, "K3": 0, "K3 backward": 0}
+    for r, rank in enumerate(ranks):
+        c = rank["cli_stage2_counts"]
+        got = {k: c[k] for k in want}
+        check(got == want, f"[s] train --spatial_devices 2 --model_type translation rank {r}: "
+              f"launches {got}; want {want}")
+        check(all(np.isfinite(list(rank["cli_stage2_losses"].values())))
+              and rank["cli_stage2_losses"],
+              f"[s] stage-2 CLI rank {r}: losses {rank['cli_stage2_losses']}")
+        paths[f"train_spatial_stage2_cli_rank{r}"] = got
+    check(ranks[0]["cli_stage2_counts"] == ranks[1]["cli_stage2_counts"],
+          f"[s] stage-2 CLI: the ranks issued other launches or collectives: "
+          f"{ranks[0]['cli_stage2_counts']} / {ranks[1]['cli_stage2_counts']}")
+    # the nets rank 0 saved at the epochs' ends (save_net: a state_dict file)
+    for key, (name, states) in before.items():
+        for n, state in states.items():
+            after = torch.load(ckpt.net_ckpt_path(tmp, name, "latest", n), map_location="cpu")
+            same = all(torch.equal(v.cpu(), after[k].cpu()) for k, v in state.items())
+            check(same == (n not in trained[key]),
+                  f"[s] {key} CLI: {n} " + ("moved" if same else "unchanged")
+                  + (" (trained)" if n in trained[key] else " (frozen)"))
     # the bf16 SR step at full width: ms, peak memory a rank, collectives
     one = _st_sr_bf16(tmp, one_mesh)
     sr = [rank["sr_bf16"] for rank in ranks]
@@ -4361,9 +4607,90 @@ def phase_spatial_training(tmp):
     print(f"[s] CLI train --num_devices 2 --spatial_devices 2 --SR: 2 steps, a rank K1 "
           f"{ranks[0]['cli_counts']['K1']} (all with halo rows), K3 "
           f"{ranks[0]['cli_counts']['K3']}, finite losses, frozen nets unchanged, "
-          f"{', '.join(trained)} moved; {max(r['cli_s'] for r in ranks):.1f} s")
+          f"{', '.join(trained['sr'])} moved; {max(r['cli_s'] for r in ranks):.1f} s")
+    c = ranks[0]["cli_stage2_counts"]
+    print(f"[s] CLI train --num_devices 2 --spatial_devices 2 --model_type translation (README "
+          f"flags: batch 6, 256x256 crops, bf16): 2 iterations, a rank K1 {c['K1']} (all with "
+          f"halo rows, {c['K1 backward halo']} backwards with halo rows), finite losses, "
+          f"{', '.join(trained['stage2'])} moved; "
+          f"{max(r['cli_stage2_s'] for r in ranks):.1f} s")
+    report.update(_st_remat_report(ranks))
+    report.update(_st_stage2_report(ranks, _st_stage2_bf16(tmp, one_mesh)))
     print("[s] " + json.dumps(report))
     return paths
+
+
+def _st_remat_report(ranks):
+    """Phase (s)'s checks of the bf16 SR step under ``--remat_blocks`` on the
+    two ranks (``_st_remat_sr``): the ranks alike; loss terms within
+    max(1e-5, 3x their floor) relative and weight gradients within
+    max(1e-3, 3x their floor) relative L2 of the step without remat
+    (``_st_check``'s bounds; the floor: that step against itself under
+    deterministic cuDNN, which the SR step's bicubic backward does not
+    make bit-exact); every K1 launch with halo rows, the recompute's
+    exchanges alike on both ranks. Returns the report's entries."""
+    import numpy as np
+
+    rm = [rank["sr_bf16"]["remat"] for rank in ranks]
+    check(rm[0]["counts"] == rm[1]["counts"] and rm[0]["grads_norm"] == rm[1]["grads_norm"],
+          f"[s] --remat_blocks SR: the ranks differ: {rm[0]['counts']} / {rm[1]['counts']}, "
+          f"grads norm {rm[0]['grads_norm']} / {rm[1]['grads_norm']}")
+    r, c = rm[0], rm[0]["counts"]
+    bad = [k for k, v in r["terms_rel"].items() if v > max(1e-5, 3 * r["terms_floor_rel"][k])]
+    bad += [k for k, v in r["grads_rel"].items() if v > max(1e-3, 3 * r["grads_floor_rel"][k])]
+    check(not bad, f"[s] --remat_blocks SR step vs no remat, off in {bad[:5]}")
+    check(c["K1"] == c["K1 halo"] > SR_K1_PER_STEP and c["exchange_remat"] > 0,
+          f"[s] --remat_blocks SR step: a rank's launches and collectives {c}")
+    for i, rank in enumerate(rm):
+        check(all(np.isfinite(list(rank["losses"].values()))),
+              f"[s] --remat_blocks SR rank {i}: {rank['losses']}")
+    plain = [rank["sr_bf16"] for rank in ranks]
+    worst = max(r["grads_rel"].values())
+    print(f"[s] bf16 SR step under --remat_blocks over 2 ranks, HR {ST_SR_HR[0]}x{ST_SR_HR[1]}: "
+          f"against no remat (deterministic cuDNN) terms max rel {max(r['terms_rel'].values()):.3g}"
+          f", weight grads worst rel L2 {worst:.3g} (the step against itself "
+          f"{max(r['grads_floor_rel'].values()):.3g}; {r['grads_bit_equal']}/{r['grads_n']} "
+          f"bit-equal); a rank K1 {c['K1']} (all with halo rows; {c['K1'] - SR_K1_PER_STEP} in "
+          f"the recompute), recompute collectives {c['exchange_remat']} exchanges, "
+          f"{c['gather_remat']} gathers, {c['all_reduce_remat']} moment all-reduces; "
+          f"{max(x['ms'] for x in rm):.1f} ms a step (no remat "
+          f"{max(x['ms'] for x in plain):.1f}); peak memory a rank "
+          + (f"{max(x['peak_gib'] for x in rm):.3f} GiB (no remat "
+             f"{max(x['peak_gib'] for x in plain):.3f})"
+             if r["peak_gib"] is not None else "not measured (CPU)"))
+    return {"sr_bf16_remat_blocks": {
+        "ms_ranks": [x["ms"] for x in rm], "peak_gib_ranks": [x["peak_gib"] for x in rm],
+        "terms_max_rel": max(r["terms_rel"].values()), "grad_worst_rel": worst,
+        "grad_floor_worst_rel": max(r["grads_floor_rel"].values()),
+        "grads_bit_equal": r["grads_bit_equal"], "grads_n": r["grads_n"], "counts_rank": c}}
+
+
+def _st_stage2_report(ranks, one):
+    """The bf16 stage-2 iteration at the README's flags on the two ranks
+    (the CLI's second iteration, and the CLI run's peak memory) against
+    one process (``_st_stage2_bf16``): a rank's collectives an iteration
+    (half the CLI's two), K1 as often as one process; ms an iteration and
+    peak memory a rank. Returns the report's entries."""
+    c = {k: v // 2 for k, v in ranks[0]["cli_stage2_counts"].items()}
+    o = one["counts"]
+    check(c["K1"] == o["K1"] == STAGE2_K1_PER_ITER and len(ranks[0]["cli_stage2_iter_ms"]) == 2,
+          f"[s] bf16 stage-2 iteration: a rank's launches {c}, one process {o}, iterations "
+          f"timed {ranks[0]['cli_stage2_iter_ms']}")
+    ms = [rank["cli_stage2_iter_ms"][-1] for rank in ranks]
+    peak = [rank["cli_stage2_peak_gib"] for rank in ranks]
+    print(f"[s] bf16 stage-2 iteration (3 G steps, 1 D step), batch {ST_STAGE2[0]} at "
+          f"{ST_STAGE2[1]}x{ST_STAGE2[2]}, README flags: per rank K1 {c['K1']} (all with halo "
+          f"rows, {c['K1 backward halo']} backwards with halo rows); collectives an iteration: "
+          f"forward {c['exchange']} halo exchanges, {c['gather']} gathers along H, "
+          f"{c['all_reduce']} moment all-reduces; backward {c['exchange_bwd']} exchange "
+          f"adjoints, {c['gather_bwd']} gather adjoints, {c['all_reduce_sum_bwd']} all-reduce "
+          f"adjoints; {max(ms):.1f} ms the CLI's second iteration over 2 gloo ranks sharing one "
+          f"card (not a scaling figure) vs one process {one['ms']:.1f} ms; peak memory a rank "
+          + (f"{max(peak):.3f} GiB (the CLI run) vs one process {one['peak_gib']:.3f} GiB"
+             if one["peak_gib"] is not None else "not measured (CPU)"))
+    return {"stage2_bf16": {"ms_ranks": ms, "ms_one_process": one["ms"],
+                            "peak_gib_ranks": peak, "peak_gib_one_process": one["peak_gib"],
+                            "counts_rank": c, "counts_one_process": o}}
 
 
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):

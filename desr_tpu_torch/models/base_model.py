@@ -16,7 +16,9 @@ net's whole call (``run_net``, the JAX ``_maybe_remat``,
 main_model.py:47-56), ``--remat_blocks`` and ``--remat_tails`` the runs of
 layers inside every net (``layers.set_remat``). A frozen net runs under
 no_grad and keeps no activations, so a checkpoint there would change
-nothing: ``remat_call`` makes it the plain call.
+nothing: ``remat_call`` makes it the plain call. On a spatial mesh a
+checkpoint's recompute re-enters the spatial state of its forward
+(``parallel/spatial.py:replay``) and issues its collectives again.
 
 A model owns its data mesh (``self.mesh``, ``desr_tpu_torch/parallel``; one
 device unless the caller passes the mesh of its rank). ``set_input`` and

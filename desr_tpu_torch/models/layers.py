@@ -30,7 +30,8 @@ transposed conv crops its output to the rank's rows, and InstanceNorm and
 GroupNorm sum their moments over the ranks. A conv with no padding of its
 own and stride 1 reads rows that the pad before it already added (every
 such conv in the nets follows a ReflectionPad2d or a ReplicationPad2d, or
-is 1x1). A padded conv runs on a band only where its output is the input's
+is 1x1). A padded conv, ``Conv2d`` or ``SpectralNormConv2d``
+(``conv_rows``), runs on a band only where its output is the input's
 rows / stride (``band_rule``); the PatchGAN's 4x4 stride-1 tail, which
 gives H - 1 rows, runs whole (``networks.NLayerDiscriminator``). In
 training BatchNorm takes its moments over the step's group, data x
@@ -102,28 +103,36 @@ def _rows_pad(x, sp, top, bottom, w_pads, mode):
     return F.pad(x, pads) if mode in ("zeros", "constant") else F.pad(x, pads, mode=mode)
 
 
+def conv_rows(conv, x, w, b, plain):
+    """``conv``'s output (a ``Conv2d`` or a ``SpectralNormConv2d``: its
+    kernel_size, stride, padding, padding_mode, dilation and groups) of x
+    with weight ``w`` and bias ``b``: ``plain(x, w, b)`` without an active
+    ``spatial`` tag, or for a stride-1 conv with no H padding (its rows
+    come with x, see the module); else the rank's band of rows, from
+    ``conv_halo`` rows of its neighbours and H padded at the frame's edges."""
+    sp = S.active(conv.spatial)
+    (k, _), (stride, _), (p, pw) = conv.kernel_size, conv.stride, conv.padding
+    if sp is None or (p == 0 and stride == 1):
+        return plain(x, w, b)
+    top, bottom = conv_halo(k, stride, p)
+    if not band_rule(k, stride, p) or conv.dilation != (1, 1) or x.shape[2] % stride:
+        raise NotImplementedError(
+            f"a {k}x{k} stride-{stride} conv (padding {p}) on {x.shape[2]} rows a rank")
+    mode = conv.padding_mode
+    x = _rows_pad(x, sp, top, bottom, (0, 0) if mode == "zeros" else (pw, pw), mode)
+    return F.conv2d(x, w, b, conv.stride, (0, pw) if mode == "zeros" else 0,
+                    conv.dilation, conv.groups)
+
+
 class Conv2d(nn.Conv2d):
     """torch Conv2d (zeros/reflect/replicate padding, stride) with f32 params;
-    on a rank's band of rows under a ``spatial`` tag (see the module)."""
+    on a rank's band of rows under a ``spatial`` tag (``conv_rows``)."""
 
     spatial = None
 
     def forward(self, x):
-        w, b = self.weight.to(x.dtype), _cast(self.bias, x)
-        sp = S.active(self.spatial)
-        if sp is None:
-            return self._conv_forward(x, w, b)
-        (k, _), (stride, _), (p, pw) = self.kernel_size, self.stride, self.padding
-        if p == 0 and stride == 1:  # its rows come with x (see the module)
-            return self._conv_forward(x, w, b)
-        top, bottom = conv_halo(k, stride, p)
-        if not band_rule(k, stride, p) or self.dilation != (1, 1) or x.shape[2] % stride:
-            raise NotImplementedError(
-                f"a {k}x{k} stride-{stride} conv (padding {p}) on {x.shape[2]} rows a rank")
-        mode = self.padding_mode
-        x = _rows_pad(x, sp, top, bottom, (0, 0) if mode == "zeros" else (pw, pw), mode)
-        return F.conv2d(x, w, b, self.stride, (0, pw) if mode == "zeros" else 0,
-                        self.dilation, self.groups)
+        return conv_rows(self, x, self.weight.to(x.dtype), _cast(self.bias, x),
+                         self._conv_forward)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -415,14 +424,22 @@ class SpectralNormConv2d(nn.Module):
     back, then sigma = u . (W v) with the gradient through W alone. Keys
     ``weight_orig``, ``bias``, ``weight_u`` and ``weight_v``; ``reset_uv``
     converges u and v for a fresh weight, as the JAX init does.
+
+    Under a ``spatial`` tag the conv runs on the rank's band by ``Conv2d``'s
+    rule and halo rows (``conv_rows``). The power iteration reads only the
+    weight and the stored ``weight_u``, which are alike on every rank, so
+    every rank computes the same sigma with no collective.
     """
 
     n_iters = 3
     n_init_iters = 30
+    spatial = None
+    padding_mode, dilation, groups = "zeros", (1, 1), 1
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, bias=True):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.kernel_size = (kernel_size, kernel_size)
+        self.stride, self.padding = (stride, stride), (padding, padding)
         self.weight_orig = nn.Parameter(torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         self.register_buffer("weight_u", torch.zeros(out_ch))
@@ -450,7 +467,10 @@ class SpectralNormConv2d(nn.Module):
         with torch.no_grad():
             u, v = self._power(wm, self.weight_u, self.n_iters)
         w_sn = w / (u @ (wm @ v))
-        return F.conv2d(x, w_sn.to(x.dtype), _cast(self.bias, x), self.stride, self.padding)
+        return conv_rows(self, x, w_sn.to(x.dtype), _cast(self.bias, x), self._plain)
+
+    def _plain(self, x, w, b):
+        return F.conv2d(x, w, b, self.stride, self.padding)
 
 
 def get_norm_layer(norm_type, lineage="pix2pix"):
@@ -496,12 +516,23 @@ def remat_call(fn, mode, *args):
     "tails" also keeps the conv outputs (a selective-checkpoint policy), so
     only the norms and activations are recomputed. Under no_grad (frozen
     nets, eval forwards) it is the plain call. Nothing inside draws random
-    numbers, so no RNG state is kept."""
+    numbers, so no RNG state is kept.
+
+    On a rank's band (``--spatial_devices``) the recompute runs in the
+    spatial state of the first forward (``spatial.replay``: inside or
+    outside ``whole()``, which also picks a BatchNorm's group), and issues
+    the span's collectives again, in the forward's order on every rank
+    (counted as ``exchange_remat``, ``gather_remat``, ``all_reduce_remat``).
+    Under "tails" an exchange's output is recomputed, not saved: the policy
+    keeps only the convs' outputs, and a conv's padded input, which its
+    backward reads, is rebuilt from the exchange's rows, so each exchange
+    in the span is one more ``all_gather`` in the backward on every rank.
+    """
     if mode is None or not torch.is_grad_enabled():
         return fn(*args)
     kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts,
                                           _save_conv_outputs)} if mode == "tails" else {}
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+    return checkpoint(S.replay(fn), *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def with_batch_norm_mode(fn, train, track=False):

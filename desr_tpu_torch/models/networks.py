@@ -21,7 +21,9 @@ frame's; each U-Net level is split or whole by its global H (JAX's
 ``spatial_anchor``, networks.py:187-207): the first whole level gathers its
 input and its output goes back to the rank's rows. The PatchGAN runs its
 stride-2 convs on bands and gathers before its stride-1 tail, whose logits
-(H/8 - 1 rows) every rank then holds whole. The backward of each comes
+(H/8 - 1 rows) every rank then holds whole (``bands_then_whole``, also the
+rule of stage 2's Gu discriminator); the pixel discriminator returns the
+band's logits. The backward of each comes
 through the adjoints of the exchanges, of K1's halo rows and of the gathers.
 """
 
@@ -315,8 +317,9 @@ class NLayerDiscriminator(nn.Module):
 
     Under a ``spatial`` tag the stride-2 convs run on the rank's band while
     the group splits their input (``Spatial.sharded``, an even band); the
-    first conv that does not (at the latest the 4x4 stride-1 conv, whose
-    output has one row fewer than its input) gathers its input along H, and
+    first conv (or spectral-norm conv) that does not (at the latest the 4x4
+    stride-1 conv, whose output has one row fewer than its input) gathers
+    its input along H (``bands_then_whole``), and
     it and every layer after it run whole (``spatial.whole()``): every rank
     returns the whole logits, of which a mean (``gan_loss``) is then one
     that every rank of a data group computes alike."""
@@ -343,18 +346,35 @@ class NLayerDiscriminator(nn.Module):
         sp = S.active(self.spatial)
         if sp is None:
             return self.model(x)
-        for i, layer in enumerate(self.model):
-            h = x.shape[2]
-            if isinstance(layer, Conv2d) and (layer.stride[0] == 1 or h % 2
-                                              or not sp.sharded(h * sp.size)):
-                with S.whole():
-                    return self.model[i:](S.gather_h(x, sp))
-            x = layer(x)
-        return x
+        return bands_then_whole(self.model, x, sp, lambda conv, h: (
+            conv.stride[0] != 1 and h % 2 == 0 and sp.sharded(h * sp.size)))
+
+
+def bands_then_whole(layers, x, sp, on_band):
+    """The Sequential ``layers`` applied to the rank's band x while
+    ``on_band(conv, h)`` holds at each conv (``Conv2d`` or
+    ``SpectralNormConv2d``; h the band's rows of its input); at the first
+    conv where it does not, x is gathered along H and that conv and every
+    later layer run whole (``spatial.whole()``), alike on every rank of the
+    group. The rule reads global shapes only, so every rank gathers at the
+    same layer."""
+    for i, layer in enumerate(layers):
+        if isinstance(layer, (Conv2d, SpectralNormConv2d)) and not on_band(layer, x.shape[2]):
+            with S.whole():
+                return layers[i:](S.gather_h(x, sp))
+        x = layer(x)
+    return x
 
 
 class PixelDiscriminator(nn.Module):
-    """1x1-conv pixel GAN (networks.py:271-280), keys under ``net.``."""
+    """1x1-conv pixel GAN (networks.py:271-280), keys under ``net.``.
+
+    Every layer is local to a pixel, so under a ``spatial`` tag it runs on
+    the rank's band and returns the band's logits; its norms (``--norm_d
+    instance|batch|group``) take the frame's moments, the tagged
+    InstanceNorm2d / GroupNorm over the spatial group and BatchNorm2d over
+    the step's group. A mean of the banded logits (``gan_loss``) is then N
+    times the rank's share of the global one (``parallel/mesh.py``)."""
 
     def __init__(self, input_nc, ndf, norm_layer, use_bias):
         super().__init__()

@@ -25,6 +25,21 @@ computed here; the masked cos-sim cycle_n_A divides by sum(mask) + 1e6; the
 weight ramps (``calc_l_step``, ``update_loss_weight``) are hooks that the
 trainer does not call, as in main.py. --fused_iter, one XLA program per
 iteration in the JAX package with the same trajectory, runs this same loop.
+
+Under ``--spatial_devices`` (``BaseModel.step_layout``) every step runs on
+this rank's band of each frame's rows: the translators' convs, pads,
+transposed convs and GroupNorms read halo rows and the frame's moments, and
+their K1 blocks take halo rows forward and backward; the FOV normals take
+the band's rows of the camera grid and one halo row each side. The
+PatchGAN and Gu Ds gather before their whole levels, so every rank holds
+their whole logits; the pixel D returns the band's. Each term follows the
+losses' convention over the step's group (``ops/losses.py``): the masked
+L1 and cos-sim terms divide by the global mask count (``group``); the
+means (``l1_loss``, ``cos_sim_loss_planar``, ``gan_loss`` on banded
+logits) are over equal bands; ``gan_loss`` on whole logits is a mean that
+every rank of a data group computes alike; ``tv_norm_planar`` counts a
+seam once. The metrics are the global batch's (``global_metrics``), the
+visuals whole frames (``whole_frames``).
 """
 
 from __future__ import annotations
@@ -193,18 +208,23 @@ class TranslationModel(BaseModel):
         f["fake_depth_A"] = self._apply_G("G_B", dB, img_B)
         f["hole_mask_B"] = f["fake_depth_A"] <= HOLE_BORDER
         for k in ("real_depth_A", "real_depth_B", "fake_depth_A", "fake_depth_B"):
-            f[k.replace("depth", "norm")] = surface_normals_fov_planar(f[k])
+            f[k.replace("depth", "norm")] = self._normals(f[k])
         if opt.use_cycle_A:
             f["rec_depth_A"] = self._apply_G("G_B", f["fake_depth_B"], img_A)
-            f["rec_norm_A"] = surface_normals_fov_planar(f["rec_depth_A"])
+            f["rec_norm_A"] = self._normals(f["rec_depth_A"])
         if opt.use_cycle_B:
             f["rec_depth_B"] = self._apply_G("G_A", f["fake_depth_A"], img_B)
-            f["rec_norm_B"] = surface_normals_fov_planar(f["rec_depth_B"])
+            f["rec_norm_B"] = self._normals(f["rec_depth_B"])
         if idt and opt.l_identity > 0:
             if not opt.no_idt_A:
                 f["idt_A"] = self._apply_G("G_A", dB, img_B)
             f["idt_B"] = self._apply_G("G_B", dA, img_A)
         return f
+
+    def _normals(self, depth):
+        """The FOV normals of a planar depth map (the rank's band of it
+        under ``spatial``)."""
+        return surface_normals_fov_planar(depth, spatial=self.spatial)
 
     def _d_logits(self, name, x):
         """A discriminator on a planar depth (B, H, W) or normal map
@@ -272,7 +292,7 @@ class TranslationModel(BaseModel):
             m["idt_B"] = L.l1_loss(f["idt_B"], f["real_depth_A"]) * opt.l_identity
             loss_B = loss_B + m["idt_B"]
         if opt.l_tv_A > 0:
-            m["tv_norm_A"] = L.tv_norm_planar(f["fake_norm_B"]) * opt.l_tv_A
+            m["tv_norm_A"] = L.tv_norm_planar(f["fake_norm_B"], self.spatial) * opt.l_tv_A
             loss_A = loss_A + m["tv_norm_A"]
         m["depth_range_A"] = L.masked_l1_loss(f["fake_depth_B"], f["real_depth_A"],
                                               ~f["hole_mask_A"], group=self.step_group) \
@@ -321,7 +341,7 @@ class TranslationModel(BaseModel):
         (A_depth, A_img, B_depth, B_img)."""
         batch = self.shard(batch)
         return Shard({k: _to_device(batch[k], self.device).float() for k in INPUT_KEYS},
-                     batch.rows), {}
+                     batch.rows, batch.h_rows), {}
 
     def compute_grads(self, batch=None):
         """The G step's forward, losses and backward (:354-371), gradients
@@ -329,12 +349,13 @@ class TranslationModel(BaseModel):
         terms and depth_difs, detached; the D step's feed, detached)."""
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
-        f = self.gen_forward(batch)
-        loss, m = self.g_losses(f)
-        loss.backward()
+        with self.step_layout(batch):
+            f = self.gen_forward(batch)
+            loss, m = self.g_losses(f)
+            loss.backward()
+            with torch.no_grad():
+                m.update(self.depth_difs(f))
         self.reduce_grads(self.trainable_nets)
-        with torch.no_grad():
-            m.update(self.depth_difs(f))
         return ({k: v.detach() for k, v in m.items()},
                 {k: f[k].detach() for k in self.d_feed_keys()})
 
@@ -346,8 +367,9 @@ class TranslationModel(BaseModel):
             self.nets[dn].requires_grad_(True)
         try:
             self.optimizer_D.zero_grad(set_to_none=True)
-            total, m = self.d_losses(f)
-            total.backward()
+            with self.step_layout(self._batch):
+                total, m = self.d_losses(f)
+                total.backward()
             self.reduce_grads(self.disc_names)
         finally:
             for dn in self.disc_names:
@@ -363,7 +385,7 @@ class TranslationModel(BaseModel):
             self.optimizer.step()
         for j in range(self.opt.num_iter_dis if self.disc_names else 0):
             if j > 0 or feed is None:
-                with torch.no_grad():
+                with torch.no_grad(), self.step_layout(self._batch):
                     feed = self.gen_forward(self._batch, idt=False)
             self.metrics.update(self.d_grads(feed))
             self.optimizer_D.step()
@@ -373,9 +395,10 @@ class TranslationModel(BaseModel):
     def calculate(self, stage="test"):
         """The eval forward (:424-433, :545-548): depth_dif_A/B in meters,
         and the visuals of ``visual_names`` (NHWC images, planar depths)."""
-        f = self.gen_forward(self._batch, idt=False)
-        self.metrics = self.global_metrics(self.depth_difs(f))
-        self.visuals = {k: f[k] for k in self.visual_names if k in f}
+        with self.step_layout(self._batch):
+            f = self.gen_forward(self._batch, idt=False)
+            self.metrics = self.global_metrics(self.depth_difs(f))
+        self.visuals = self.whole_frames({k: f[k] for k in self.visual_names if k in f})
 
     def calc_test_loss(self):
         self.calculate()

@@ -14,7 +14,10 @@ ported: the dilated bottleneck and ``GeneratorI_F`` / ``GeneratorF_D``, which
 no model builds, and translator dropout, which ``default_translator_opt``
 turns off. The composites (encoder, decoder and bottleneck parts, the
 ResnetBlockTs, the up layers) read their ``remat`` mode
-(``layers.set_remat``), as zoo A's do.
+(``layers.set_remat``), as zoo A's do. Under ``--spatial_devices`` the
+translators run on a rank's band of rows as the serving nets do
+(``layers``, ``networks``), and the Gu discriminator gathers before its
+first level that the group does not split (``GuDiscriminator``).
 """
 
 from __future__ import annotations
@@ -40,10 +43,12 @@ from desr_tpu_torch.models.layers import (
 from desr_tpu_torch.models.networks import (
     NLayerDiscriminator,
     PixelDiscriminator,
+    bands_then_whole,
     calculate_gain,
     fused_resnet_chain,
     init_weights,
 )
+from desr_tpu_torch.parallel import spatial as S
 
 
 class TransposeUp(nn.Module):
@@ -238,7 +243,18 @@ def define_Gen(opt, input_type, out_type="depth", generator=None) -> nn.Module:
 class GuDiscriminator(nn.Module):
     """DepthDiscriminator "Gu" (translation_networks.py:345-357): eight 3x3
     conv + BatchNorm + LeakyReLU stages, then a 3x3 conv to one logit; keys
-    under ``model.``."""
+    under ``model.``.
+
+    Under a ``spatial`` tag its 3x3 convs (stride 1 or 2, padding 1) run on
+    the rank's band while the group splits their output
+    (``Spatial.sharded``); before the first conv whose output it does not
+    split (16 global rows at a 256 crop over two ranks), the input is
+    gathered along H and the rest runs whole (``bands_then_whole``), so
+    every rank returns the whole logits. Its BatchNorms take their moments
+    over the step's group on bands and over the ranks that split the batch
+    at the whole levels (``layers.BatchNorm2d``)."""
+
+    spatial = None
 
     def __init__(self, input_nc, ndf, conv_cls):
         super().__init__()
@@ -251,7 +267,11 @@ class GuDiscriminator(nn.Module):
         self.model = nn.Sequential(*seq)
 
     def forward(self, x):
-        return self.model(x)
+        sp = S.active(self.spatial)
+        if sp is None:
+            return self.model(x)
+        return bands_then_whole(self.model, x, sp, lambda conv, h: (
+            h % conv.stride[0] == 0 and sp.sharded(h * sp.size // conv.stride[0])))
 
 
 def define_D(opt, input_type="depth", generator=None) -> nn.Module:

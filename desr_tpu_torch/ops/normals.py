@@ -9,11 +9,12 @@
 - ``surface_normals_fov_planar``: the translation stage's fixed-60-degree-FOV
   camera-grid normals (normals.py:97).
 
-Under ``--spatial_devices`` the first two take ``spatial`` (a rank's
-``Spatial``, or None): the depth is the rank's band of the frame's rows, a
-difference along H at a seam between ranks is central, from one row of each
-neighbour (``exchange_rows``), one-sided only at the frame's edges, and the
-band's pixel rows are the frame's (``depth_to_points_planar``).
+Under ``--spatial_devices`` each takes ``spatial`` (a rank's ``Spatial``,
+or None): the depth is the rank's band of the frame's rows, a difference
+along H at a seam between ranks reads one row of each neighbour
+(``exchange_rows``), one-sided (or the FOV normals' reflect pad) only at
+the frame's edges, and the band's pixel rows are the frame's
+(``depth_to_points_planar``, the FOV normals' camera grid).
 """
 
 from __future__ import annotations
@@ -131,19 +132,33 @@ def _fov_grid(h, w, fov_deg, dtype, device):
                         torch.ones((h, w), dtype=dtype, device=device)], dim=-1)
 
 
-def surface_normals_fov_planar(depth_bhw, fov_deg=60.0, canvas_hw=(482, 642), eps=1e-8):
+def surface_normals_fov_planar(depth_bhw, fov_deg=60.0, canvas_hw=(482, 642), eps=1e-8,
+                               spatial=None):
     """Fixed-FOV normals of the translation stage: (B, H, W) -> (B, 3, H, W)
     (normals.py:92-117), with the as-shipped quirks: the crop into the
     482x642 canvas starts at ``p + 1``, one past centre, and the two
     difference windows over the reflect pad are offset by one row (gx) and one
     column (gy), so the first gy row is exactly zero (``safe_norm`` keeps its
-    gradient finite)."""
+    gradient finite).
+
+    With an active ``spatial`` the depth is the rank's band of equal bands
+    in rank order: its grid rows start at the frame's ``p + 1`` plus the
+    band's first row, one exchange brings a depth row from each neighbour,
+    and only the frame's first and last rows reflect; so the first gy row is
+    zero on the frame's first rank alone, and the band's normals are the
+    frame's rows of the whole frame's."""
     b, h, w = depth_bhw.shape
+    sp = S.active(spatial)
+    top = bottom = 0
+    frame_h, lo = (h, 0) if sp is None else (h * sp.size, h * sp.rank)
+    if sp is not None:
+        depth_bhw, top, bottom = S.exchange_rows(depth_bhw, 1, 1, sp, dim=1)
     ch, cw = canvas_hw
     grid = _fov_grid(ch, cw, fov_deg, depth_bhw.dtype, depth_bhw.device)
-    ph, pw = (ch - h) // 2, (cw - w) // 2
-    grid = grid[ph + 1:ph + 1 + h, pw + 1:pw + 1 + w].permute(2, 0, 1)
-    pv = F.pad(depth_bhw[:, None] * grid[None], (1, 1, 1, 1), mode="reflect")
+    ph, pw = (ch - frame_h) // 2, (cw - w) // 2
+    y0 = ph + 1 + lo - top
+    grid = grid[y0:y0 + top + h + bottom, pw + 1:pw + 1 + w].permute(2, 0, 1)
+    pv = F.pad(depth_bhw[:, None] * grid[None], (1, 1, 1 - top, 1 - bottom), mode="reflect")
     gx = (pv[:, :, 0:h, 0:w] - pv[:, :, 0:h, 2:2 + w]) / 2.0
     gy = (pv[:, :, 2:2 + h, 0:w] - pv[:, :, 0:h, 0:w]) / 2.0
     crs = torch.linalg.cross(gx, gy, dim=1)

@@ -12,9 +12,10 @@ counterpart in the port, stop the run. An unknown flag gets argparse's own
 error. The port adds ``--device`` (default ``cuda``). ``--num_devices`` N
 trains on N ranks (``desr_tpu_torch/parallel``), ``--batch_size`` being the
 global batch; ``--spatial_devices`` S (dividing N) makes them N / S data
-groups of S ranks that split each frame's rows, for ``--model_type main``
-(``--SR`` too) and ``I2D``. ``SPATIAL_NOT_PORTED`` lists what stops the run
-("not yet ported") beside S > 1.
+groups of S ranks that split each frame's rows, for every ``--model_type``
+and under the remat flags. ``SPATIAL_NOT_PORTED`` lists what stops the run
+("not yet ported") beside S > 1: ``--steps_per_call`` > 1 and
+``--device_aug``.
 
 ``--remat_tails`` keeps the JAX default None, which the JAX models turn into
 their per-stage default (on for SR, I2D and translation); the port reads None
@@ -35,8 +36,6 @@ XLA_ONLY = ("pallas_fuse", "no_pallas_fuse", "pallas_fuse_frozen", "fused_pad",
 LR_POLICIES = ("linear", "step", "cosine", "plateau")
 # what --spatial_devices S > 1 does not run yet: (test on the options, the flag)
 SPATIAL_NOT_PORTED = (
-    (lambda o: o.model_type == "translation", "--model_type translation"),
-    (lambda o: o.remat or o.remat_blocks or o.remat_tails, "--remat/--remat_blocks/--remat_tails"),
     (lambda o: o.steps_per_call > 1, "--steps_per_call > 1"),
     (lambda o: o.device_aug, "--device_aug"),
 )
@@ -123,7 +122,7 @@ _HELP = {
                    "(one under --device cpu); more than the visible cards raises",
     "spatial_devices": "the image-H axis of the mesh: S > 1 (dividing the ranks) makes "
                        "N / S data groups of S ranks that split each frame's rows "
-                       "(main, --SR, I2D)",
+                       "(every stage)",
 }
 
 

@@ -34,7 +34,7 @@ is N times its share, and so is a mean over a whole tensor that every rank
 of a data group computes alike (a U-Net level the group does not split).
 A sum or a count over such a whole tensor is taken over ``batch_group``, the
 ranks that hold distinct frames, so that its S copies count once. Serving
-and training (main, ``--SR``, I2D) run on such a mesh.
+and training (every stage) run on such a mesh.
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ that gloo also takes for CUDA tensors (two ranks on one card), and
 Every rank issues the same backward collectives in the same order: the
 backward of each is unconditional, and a cotangent that autograd leaves
 undefined arrives as zeros (``set_materialize_grads``), so no rank skips a
-collective that its neighbours wait in.
+collective that its neighbours wait in. A remat checkpoint's recompute,
+which autograd runs in the backward, re-enters its forward's state
+(``replay``) and issues that span's forward collectives again.
 """
 
 from __future__ import annotations
@@ -51,15 +53,21 @@ from desr_tpu_torch.parallel.mesh import all_reduce_sum
 MIN_ROWS = 16  # rows a rank at least holds of a split tensor (spatial_anchor's)
 
 # collectives issued since the last ``reset_counts``: halo exchanges, gathers
-# along H and moment all-reduces in the forward, and the exchanges' and
-# gathers' adjoints in the backward (``reduce_sum``'s backward is
-# ``parallel/mesh.py``'s, counted there)
-COUNTS = {"exchange": 0, "gather": 0, "all_reduce": 0, "exchange_bwd": 0, "gather_bwd": 0}
+# along H and moment all-reduces in the forward, the same issued again by a
+# checkpoint's recompute in the backward (``*_remat``, see ``replay``), and
+# the exchanges' and gathers' adjoints in the backward (``reduce_sum``'s
+# backward is ``parallel/mesh.py``'s, counted there)
+COUNTS = {"exchange": 0, "gather": 0, "all_reduce": 0, "exchange_remat": 0, "gather_remat": 0,
+          "all_reduce_remat": 0, "exchange_bwd": 0, "gather_bwd": 0}
 
 
 def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def _count(name):
+    COUNTS[name + "_remat" if any(_RECOMPUTE) else name] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +103,7 @@ def from_mesh(mesh):
 
 
 _WHOLE = []  # one entry a ``whole()`` context entered
+_RECOMPUTE = []  # one entry a ``replay`` call running: whether it is a recompute
 
 
 @contextlib.contextmanager
@@ -105,6 +114,30 @@ def whole():
         yield
     finally:
         _WHOLE.pop()
+
+
+def replay(fn):
+    """``fn`` that runs every call in the spatial state of the first one
+    (the depth of ``whole()`` at the time ``replay`` is called), so that a
+    ``torch.utils.checkpoint``'s recompute, which autograd runs in the
+    backward outside the caller's contexts, takes the same branches and
+    issues the same collectives as the forward did: a tensor of a level run
+    whole stays whole (not a band given halo rows), and every rank issues
+    the recompute's collectives in one order. The calls after the first
+    count their collectives apart (``exchange_remat``, ...)."""
+    depth, first = len(_WHOLE), [True]
+
+    def run(*args):
+        recompute, first[0] = not first[0], False
+        saved = _WHOLE[:]
+        _WHOLE[:] = [True] * depth
+        _RECOMPUTE.append(recompute)
+        try:
+            return fn(*args)
+        finally:
+            _WHOLE[:] = saved
+            _RECOMPUTE.pop()
+    return run
 
 
 def active(sp):
@@ -180,7 +213,7 @@ def exchange_rows(x, top, bottom, sp, dim=2):
         raise ValueError(f"a halo of {top} + {bottom} rows from ranks holding {h} rows")
     if top == bottom == 0:
         return x, 0, 0
-    COUNTS["exchange"] += 1
+    _count("exchange")
     out = _Exchange.apply(x, top, bottom, sp, dim)
     return out, 0 if sp.first else top, 0 if sp.last else bottom
 
@@ -206,7 +239,7 @@ class _Gather(torch.autograd.Function):
 def gather_h(x, sp, dim=2):
     """The whole tensor along ``dim`` on every rank: the ranks' bands,
     concatenated in rank order (one all_gather)."""
-    COUNTS["gather"] += 1
+    _count("gather")
     return _Gather.apply(x, sp, dim)
 
 
@@ -221,5 +254,5 @@ def take_h(x, sp, dim=2):
 
 def reduce_sum(x, sp):
     """The sum of ``x`` over the group (one all_reduce; differentiable)."""
-    COUNTS["all_reduce"] += 1
+    _count("all_reduce")
     return all_reduce_sum(x, sp.group)

@@ -44,7 +44,8 @@ last train loss); with ``--do_test`` an eval pass averages the test losses.
 ``--use_wandb`` logs the losses and matplotlib panels (``utils/plots.py``)
 to wandb instead of the gallery, and falls back to the console when wandb
 cannot be imported. ``--remat``, ``--remat_blocks`` and ``--remat_tails``
-checkpoint the trained nets (``models/base_model.py``).
+checkpoint the trained nets (``models/base_model.py``), on one card or
+beside ``--spatial_devices``.
 
 ``--device_aug`` (main without ``--no_aug``, ``--SR``, I2D; no effect on
 translation, as in JAX) moves the train augmentation onto the card: the
@@ -56,7 +57,8 @@ epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
 trace format), with a ``train_step`` span around each step and a
 ``device_finish`` span around each batch's upload and warp (main.py:43-47,
 180-184). Still refused: the XLA-only switches, and what
-``train_options.SPATIAL_NOT_PORTED`` lists beside ``--spatial_devices`` > 1.
+``train_options.SPATIAL_NOT_PORTED`` lists beside ``--spatial_devices`` > 1
+(``--steps_per_call`` > 1, ``--device_aug``).
 
 ``--num_devices N`` (N > 1; 0: every visible card) trains data-parallel
 (``desr_tpu_torch/parallel``): N spawned ranks, NCCL on the cards (rank r on
@@ -65,7 +67,7 @@ batch of ``--batch_size``, computing the step one process would compute on
 the whole batch. Rank 0 alone prints, writes the loss log, the gallery, the
 checkpoints and the profiler trace, and runs wandb; every rank loads.
 
-``--spatial_devices S`` (S > 1, dividing N; main, ``--SR`` and I2D) makes
+``--spatial_devices S`` (S > 1, dividing N; every stage) makes
 the N ranks N / S data groups of S ranks, JAX's 2-D mesh
 (desr_tpu/parallel/mesh.py:27-43): the S ranks of a group decode the same
 items and each trains on its band of every frame's rows, with halo rows
@@ -75,6 +77,8 @@ take the frames gathered along H; rank 0 writes them.
 
     python -m desr_tpu_torch.train --model_type main --SR ... --batch_size 1 \
         --num_devices 2 --spatial_devices 2
+    python -m desr_tpu_torch.train --model_type translation ... --batch_size 6 \
+        --crop_size_h 256 --crop_size_w 256 --num_devices 2 --spatial_devices 2
 """
 
 from __future__ import annotations

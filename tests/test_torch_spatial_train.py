@@ -167,20 +167,29 @@ def test_patchgan_stride1_tail_is_refused_on_a_band():
         conv(torch.zeros(1, 4, 16, 8))
 
 
-@pytest.mark.parametrize("flag", ["--remat", "--remat_blocks", "--remat_tails"])
-def test_model_refuses_remat_on_a_spatial_mesh(tmp_path, capsys, flag):
-    """The train options, which every model is built from, refuse the remat
-    flags with a spatial mesh axis as not yet ported, rather than let a
-    checkpoint's recompute fail inside a step."""
+# the three cases keep the ids they had while the remat flags refused a
+# spatial mesh: each remat flag now runs there (tests/test_torch_spatial_remat.py),
+# and beside a flag that still refuses the run stops on that flag
+@pytest.mark.parametrize("flag,other,msg", [
+    pytest.param("--remat", ["--steps_per_call", "2"], "--steps_per_call > 1", id="--remat"),
+    pytest.param("--remat_blocks", ["--device_aug"], "--device_aug", id="--remat_blocks"),
+    pytest.param("--remat_tails", ["--steps_per_call", "2"], "--steps_per_call > 1",
+                 id="--remat_tails"),
+])
+def test_model_refuses_remat_on_a_spatial_mesh(tmp_path, capsys, flag, other, msg):
+    """The train options, which every model is built from, take each remat
+    flag with a spatial mesh axis, and refuse it beside ``--steps_per_call
+    2`` or ``--device_aug``, which are not yet ported there, naming that
+    flag."""
     from desr_tpu_torch.options import train_options
 
     argv = _main_argv(tmp_path, [flag, "--device", "cpu", "--num_devices", "2",
                                  "--spatial_devices", "2"])
+    assert getattr(train_options.parse(argv, print_options=False), flag[2:])
     with pytest.raises(SystemExit):
-        train_options.parse(argv, print_options=False)
+        train_options.parse(argv + other, print_options=False)
     err = capsys.readouterr().err
-    assert "--remat/--remat_blocks/--remat_tails with --spatial_devices > 1 is not yet " \
-           "ported" in err, err
+    assert f"{msg} with --spatial_devices > 1 is not yet ported" in err, err
 
 
 # ----------------------------------------------------------------- two ranks

@@ -602,9 +602,9 @@ def test_every_port_flag_default_equals_jax():
 
 
 # the first two cases keep the ids they had while every --spatial_devices > 1
-# refused: translation still does, and one device does not divide by S = 2
+# refused: --steps_per_call 2 still does, and one device does not divide by S = 2
 @pytest.mark.parametrize("flag,msg", [
-    pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--model_type", "translation"],
+    pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--steps_per_call", "2"],
                  "not yet ported", id="flag0-not yet ported"),
     pytest.param(["--spatial_devices", "2"], "--num_devices 1 does not divide by "
                  "--spatial_devices 2", id="flag1-not yet ported"),

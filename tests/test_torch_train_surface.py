@@ -369,9 +369,9 @@ def test_newly_accepted_flags_parse(flags, attr, value):
 
 
 # the first two cases keep the ids they had while every --spatial_devices > 1
-# refused: translation still does, and one device does not divide by S = 2
+# refused: --device_aug still does, and one device does not divide by S = 2
 @pytest.mark.parametrize("flags,msg", [
-    pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--model_type", "translation"],
+    pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--device_aug"],
                  "not yet ported", id="flags0-not yet ported"),
     pytest.param(["--spatial_devices", "2"], "--num_devices 1 does not divide by "
                  "--spatial_devices 2", id="flags1-not yet ported"),
