@@ -29,6 +29,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     the main step's on its 384x512 crops (B=12, 96x128x128, reflect; G_A_d
     B=6, 96x128x256, replicate), the translators serving (B=8,
     128x160x256, replicate) and training in stage 2 (B=6, 64x64x256,
+    replicate), and phase (t)'s split generators (B=6, 64x64x128,
     replicate). Then K1 at phase (p)'s shapes: the blocks at 32x32 (width
     8: B=8 32->32; the default widths: B=8 128->128, the translator B=4
     256->256), SR's HR crops (B=8 64x64x128, B=4 64x64x256), I2D's crops
@@ -241,8 +242,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     what ``predict --num_devices 2 --spatial_devices 2`` runs in each rank;
     rank 0 gathers the rows and writes the PNGs) at the default widths in
     bf16 with seeded weights: main on 8 480x640 frames, --SR on 4 960x1280
-    (HR 1024x1280), --I2D and --translate AtoB on the 8, and main under
-    --pallas_conv (K2); every K1 / K2 launch of a rank must read a halo row
+    (HR 1024x1280), --I2D (at --num_workers 2: each rank's pool of two
+    host workers decodes its frames, rank 0's writes the PNGs, and every
+    rank ends its pool before it returns) and --translate AtoB on the 8,
+    and main under --pallas_conv (K2); every K1 / K2 launch of a rank must
+    read a halo row
     (paths ``serve_spatial_<mode>_rank<r>``, counts ``K1 halo`` and ``K2
     halo``), the ranks alike. Each against ``predict --num_devices 1`` on
     the same frames (PNGs: max and mean mm), and each mode's forward over
@@ -256,9 +260,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     one card, one spatial group, each frame's rows split between them.
     float32, TF32 off, torch's deterministic mode, width 8, seeded weights:
     the main step on 384x512 crops at batch 2, the same under --norm batch,
-    the SR step at batch 1 (HR 512x512), two I2D --use_D steps at batch 2
-    and a stage-2 iteration (one G step, then the D step on its feed) at
-    batch 2 on 128x128 frames with the translators' hardcoded widths, each
+    the SR step at batch 1 (HR 512x512), two I2D --use_D steps at batch 2,
+    a stage-2 iteration (one G step, then the D step on its feed) at
+    batch 2 on 128x128 frames with the translators' hardcoded widths, a
+    --steps_per_call 2 group of two main steps (at --lr 0, so that the
+    second starts from the same weights on every route; its floor from
+    three jitter draws) and one --device_aug main step on the loader's
+    first batch (each rank's batch, its band of the data group's frames
+    finished on the card, bit-equal to its band of one process's), each
     against the one-process step on the same global batch (terms
     within max(1e-5, 3x the floor), weight gradients within max(1e-3, 3x
     the floor) relative L2, the floor being the larger gap of the
@@ -267,7 +276,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     relative from two seeds; the
     running statistics within phase (q)'s bounds; the ranks alike bit for
     bit, every K1 launch with halo rows, K1 and K3 as often as one
-    process). Then bf16 at the default widths through the CLI's rank entry
+    process); on the ranks, the group at the default lr equals the same
+    two steps taken one at a time, bit for bit. Then bf16 at the default
+    widths through the CLI's rank entry
     (``train._rank_main``, what ``train --num_devices 2 --spatial_devices
     2`` runs in each rank): 2 SR steps in bench.py's configuration (batch 1,
     HR 1024x1280; K1 42 a step, all with halo rows, K3 2 and 2) and 2
@@ -284,6 +295,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     recompute's collectives; and the bf16 stage-2 iteration timed (1
     after one) with its collectives and peak memory a rank, against one
     process.
+(t) the capabilities no shipped configuration reaches, at full width,
+    float32, each through K1 against its plain version (forward within
+    (b)'s bound, gradients within (e)'s, max(1e-3, 3x the plain route's
+    gap under a 1e-6 perturbation) relative L2): a zoo-A
+    ResnetBlock with dropout in training at the main step's block shape
+    (B=12, 96x128, 128 channels, reflect; K1 2 a forward, the second
+    without a prologue), its Dropout's mask on the card (keep rate within
+    0.5 +- 1e-3, the CPU's draw bit for bit, the forward's mask again in
+    --remat_blocks' recompute); G_A with dropout at stage 2's B=6 256x256
+    (K1 18 a forward); GeneratorI_F -> GeneratorF_D at ngf_img_feature 32
+    on B=6 256x256 frames (K1 20 a forward, the dilated blocks on cuDNN);
+    define_G(use_old=True) under group norm, GroupNorm(1): a resnet_6blocks
+    at Depth_f's geometry (K1 12) and a unet_128 at Task's, forward.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -293,7 +317,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     reached (bound_share), and for K1/K2 the rate (tflops); K1 has rows at
     the main serving shape, the translator's, the SR step's two HR shapes,
     the I2D step's, the augmented main step's two, the translators' serving
-    shape, stage 2's and phase (p)'s eight (one in float32; with the time of
+    shape, stage 2's, phase (t)'s split generators' and phase (p)'s eight
+    (one in float32; with the time of
     K1's backward at stage 2's shape,
     ``backward_ms`` by CUDA events and ``backward_device_ms`` by the
     profiler, and cuDNN's conv backward alone, ``library_backward_ms`` and
@@ -379,6 +404,10 @@ Q_SERVE_SHAPE = (2, 128, 160, 128)     # --I2D serving 480x640 (Image_f); SR ser
 Q_LOSS_SHAPE = (4, 128, 128)           # K3 at the main chains' scenes and SR's LR crops
 Q_SR_LOSS_SHAPE = (4, 256, 256)        # K3 at SR's HR crops
 STAGE2_K1_PER_ITER = 216  # 18 a G apply x 4 live applies a G step x 3 G steps
+# phase (t), the capabilities no shipped configuration reaches: the split
+# generators at ngf_img_feature 32 on stage 2's batch of 256x256 crops
+SPLIT_SHAPE = (6, 64, 64, 128)  # their dilation-1 ResnetBlockTs' NHWC input
+SPLIT_K1 = 20             # GeneratorI_F's first block 2 + GeneratorF_D's 9 blocks 18, a forward
 
 
 class SmokeFailure(RuntimeError):
@@ -581,7 +610,7 @@ def phase_kernels():
              "K1 aug translator": 0.0, "K1 translate": 0.0, "K1 stage2": 0.0,
              "K1 quality w8": 0.0, "K1 quality w8 float32": 0.0, "K1 quality": 0.0, "K1 quality translator": 0.0,
              "K1 quality SR HR": 0.0, "K1 quality SR translator": 0.0, "K1 quality I2D": 0.0,
-             "K1 quality translate": 0.0, "K1 quality serve": 0.0}
+             "K1 quality translate": 0.0, "K1 quality serve": 0.0, "K1 split": 0.0}
     # the serving path's variants and borders; the translator's ResnetBlockT
     # (G_A_d on the train path) runs stats, then norm+relu+stats, replicate;
     # the SR stage's ResnetBlocks at LR and HR, and its translators at HR
@@ -607,7 +636,8 @@ def phase_kernels():
             (" quality SR translator", Q_SR_TRANS_SHAPE, ("replicate",), K1_VARIANTS[:2]),
             (" quality I2D", Q_I2D_SHAPE, ("reflect",), K1_VARIANTS[:2]),
             (" quality translate", Q_TRANSLATE_SHAPE, ("replicate",), K1_VARIANTS[:2]),
-            (" quality serve", Q_SERVE_SHAPE, ("reflect",), K1_VARIANTS[:2])):
+            (" quality serve", Q_SERVE_SHAPE, ("reflect",), K1_VARIANTS[:2]),
+            (" split", SPLIT_SHAPE, ("replicate",), K1_VARIANTS[:2])):
         n_pix = shape[1] * shape[2]
         for dtype in (torch.float32, torch.bfloat16):
             x, w, scale, shift = _inputs(dtype, shape=shape)
@@ -3750,6 +3780,7 @@ SP_MODES = {
 SP_CKPT = {"main": "sp_main", "sr": "sp_main", "i2d": "sp_i2d", "translate": "sp_tr"}
 SP_F32_BATCH = 2            # the float32 check's batch (the bf16 one serves the CLI's)
 SP_TIMED = 2                # forwards timed a mode, after one
+SP_POOLED = {"i2d": 2}      # modes the ranks' CLI serves with --num_workers N (each rank a pool)
 SP_F32_BOUND = 1e-3         # float32, deterministic cuDNN: (c)'s bound of the kernels' route
 
 
@@ -3853,8 +3884,10 @@ def _sp_forwards(mode, tmp, mesh):
 
 def _sp_rank(mesh, tmp):
     """One of phase (r)'s ranks: the CLI's rank (``predict._rank_serve``) in
-    each mode, then under ``--pallas_conv`` (K2), each with its launches and
-    collectives; then ``_sp_forwards`` of each mode."""
+    each mode (``SP_POOLED``'s with a pool of host workers a rank, which
+    ``_rank_serve`` ends before it returns), then under ``--pallas_conv``
+    (K2), each with its launches and collectives; then ``_sp_forwards`` of
+    each mode."""
     import torch
 
     from desr_tpu_torch import predict
@@ -3865,7 +3898,8 @@ def _sp_rank(mesh, tmp):
     for mode in SP_MODES:
         _sp_reset()
         t0 = time.perf_counter()
-        predict._rank_serve(mesh, _sp_argv(tmp, mode, os.path.join(tmp, f"out2_{mode}")))
+        pool = ["--num_workers", str(SP_POOLED[mode])] if mode in SP_POOLED else []
+        predict._rank_serve(mesh, _sp_argv(tmp, mode, os.path.join(tmp, f"out2_{mode}"), pool))
         torch.cuda.synchronize()
         res["cli"][mode] = dict(_sp_counts(), wall_s=time.perf_counter() - t0)
     _sp_reset()
@@ -3973,8 +4007,9 @@ def phase_spatial(tmp):
             "ms_2_ranks": [f["ms"] for f in fwd2], "ms_one_process": fwd1["ms"],
             "peak_gib_ranks": [f["peak_gib"] for f in fwd2], "peak_gib_one_process": fwd1["peak_gib"],
             "forward_counts_rank": c, "cli_wall_s_ranks": [r["cli"][mode]["wall_s"] for r in ranks],
-            "cli_wall_s_one_process": wall1}
-        print(f"[r] {mode} ({n} frames {hw[0]}x{hw[1]}): per rank K1 {c['K1']} a forward, "
+            "cli_wall_s_one_process": wall1, "num_workers_ranks": SP_POOLED.get(mode, 0)}
+        print(f"[r] {mode} ({n} frames {hw[0]}x{hw[1]}, --num_workers "
+              f"{SP_POOLED.get(mode, 0)} a rank): per rank K1 {c['K1']} a forward, "
               f"{c['K1 halo']} with halo rows; {c['exchange']} halo exchanges, {c['all_reduce']} "
               f"moment all-reduces, {c['gather']} gathers along H a forward; "
               f"{max(report[mode]['ms_2_ranks']):.2f} ms a batch over 2 gloo ranks sharing one "
@@ -4008,12 +4043,20 @@ ST_WIDTH = ("--ImageDepthf_outf", "8", "--ImageDepthf_basef", "8", "--Depthf_out
 # stage 2 (translation: one G step, then the D step on its feed) at 128x128, the
 # smallest frame whose translator bottleneck (H/4 = 32 rows) two ranks split, at
 # the translators' hardcoded widths
+# --steps_per_call 2 (main_group: a group of two main steps, the second on a
+# batch of its own, at --lr 0 so that the second starts from the first's
+# weights on every route: Adam's first step moves each weight by lr x the
+# sign of its gradient, which flips at the noise floor) and --device_aug
+# (main_device_aug: the main step on the loader's first batch, each rank's
+# band of the frames finished on the card)
 ST_CHECKS = {"main": (2, 384, 512), "norm_batch": (2, 384, 512), "sr": (1, 512, 512),
-             "i2d": (2, 384, 512), "translation": (2, 128, 128)}
+             "i2d": (2, 384, 512), "translation": (2, 128, 128),
+             "main_group": (2, 384, 512), "main_device_aug": (2, 384, 512)}
 ST_FULL_ARGV = ()           # flags appended to the bf16 full-width runs (a rehearsal's widths)
 ST_SR_HR = (1024, 1280)     # the bf16 SR step's HR frame: bench.py's geometry
 ST_TIMED = 2                # bf16 SR steps timed, after one
 ST_JITTER_SEEDS = (12, 13)  # the one-process floor: the larger gap of two jittered steps
+ST_GROUP_SEEDS = {"main_group": (14,)}  # a third draw for the group's second step
 ST_STAGE2 = (6, 256, 256)   # the bf16 stage-2 iteration: the README's batch and crops
 ST_STAGE2_TIMED = 1         # its iterations timed, after one (~1400 collectives each)
 ST_STAGE2_FRAMES = (2, 12)  # frames written a domain for its CLI run, and linked to
@@ -4033,15 +4076,40 @@ def _st_argv(kind, tmp):
     if kind == "i2d":
         return _i2d_train_argv(tmp, "st", f32 + ["--batch_size", str(b), "--pool_size", "2"])
     return _train_argv(tmp, "st", f32 + ["--batch_size", str(b)]
-                       + (["--norm", "batch"] if kind == "norm_batch" else []), aug=True)
+                       + (["--norm", "batch"] if kind == "norm_batch" else [])
+                       + (["--device_aug"] if kind == "main_device_aug" else [])
+                       + (["--lr", "0"] if kind == "main_group" else []), aug=True)
 
 
 def _st_batch(kind):
+    """The kind's global host batch (main_group: a list of two; None for
+    main_device_aug, whose loader gives it)."""
     b, h, w = ST_CHECKS[kind]
     seed = 60 + list(ST_CHECKS).index(kind)
     if kind == "translation":
         return _translation_batch(b, h, w, seed)
+    if kind == "main_group":
+        return [_synthetic_batch(b, h, w, seed), _synthetic_batch(b, h, w, seed + 100)]
+    if kind == "main_device_aug":
+        return None
     return _synthetic_batch(b, h, w, seed, lr_hw=(h // 2, w // 2) if kind == "sr" else None)
+
+
+def _st_device_aug_batch(opt, mesh):
+    """The first batch of ``opt``'s ``--device_aug`` loader on ``mesh``: on
+    ranks their band of the data group's frames, finished on the card
+    (``RankLoader`` over ``DeviceLoader``), in one process the whole batch,
+    drawn as the ranks draw (``shared_draws``); and its tensors on the host."""
+    import torch
+
+    from desr_tpu_torch.data.loader import create_dataset
+    from desr_tpu_torch.data.main_dataset import MainDataset
+
+    loader = create_dataset(opt, MainDataset, device=mesh.device,
+                            mesh=mesh if mesh.size > 1 else None)
+    loader.dataset.shared_draws = True
+    batch = next(iter(loader))
+    return batch, {k: _dp_host(v) for k, v in batch.items() if torch.is_tensor(v)}
 
 
 def _translation_batch(b, h, w, seed):
@@ -4150,13 +4218,19 @@ def _st_step(kind, tmp, mesh, jitter=None):
     nets = list(model.optimized_nets)
     b = ST_CHECKS[kind][0]
     res = {}
+    if kind == "main_device_aug":
+        batch, res["batch"] = _st_device_aug_batch(opt, mesh)
     with (_StJitter(jitter, group_norm=kind == "translation") if jitter is not None
           else contextlib.nullcontext()):
         for it in range(1, 3 if kind == "i2d" else 2):
-            model.set_input(batch)
+            if kind != "main_group":
+                model.set_input(batch)
             torch.cuda.synchronize() if ST_DEVICE == "cuda" else None
             _st_reset()
-            model.optimize_parameters(it * b)
+            if kind == "main_group":  # both steps counted; the second's gradients kept
+                model.optimize_parameters_multi(batch, len(batch) * b)
+            else:
+                model.optimize_parameters(it * b)
             torch.cuda.synchronize() if ST_DEVICE == "cuda" else None
             if it == 1:
                 res["counts"] = _st_counts()
@@ -4172,7 +4246,50 @@ def _st_step(kind, tmp, mesh, jitter=None):
     if kind == "i2d":
         pool = model.fake_depth_pool
         res.update(pool=_dp_host(torch.stack(pool.images)), pool_rng=pool.rng.getstate())
+    if kind == "main_group" and mesh.size > 1 and jitter is None:
+        res["group_vs_single"] = _st_group_vs_single(tmp, mesh, batch)
     return res
+
+
+def _st_group_vs_single(tmp, mesh, batches):
+    """On the ranks, at the default lr (the weights moving between the
+    steps): the ``optimize_parameters_multi`` group of ``batches`` and the
+    same steps one at a time from the same init, each in a model of its
+    own: whether their metrics, gradients and weights are bit-equal (phase
+    (n)'s check of one process, here on bands), and their launches and
+    collectives."""
+    import torch
+
+    from desr_tpu_torch.models.main_model import MainModel
+    from desr_tpu_torch.options import train_options
+
+    argv = [a for a in _st_argv("main_group", tmp)]
+    i = argv.index("--lr")
+    del argv[i:i + 2]
+    b = len(batches[0]["A_i"])
+    runs = []
+    for grouped in (True, False):
+        model = MainModel(train_options.parse(argv, print_options=False), device=mesh.device,
+                          compute_dtype=torch.float32, is_train=True,
+                          generator=torch.Generator().manual_seed(8), mesh=mesh)
+        _st_reset()
+        if grouped:
+            model.optimize_parameters_multi(batches, len(batches) * b)
+        else:
+            for it, batch in enumerate(batches, 1):
+                model.set_input(batch)
+                model.optimize_parameters(it * b)
+        torch.cuda.synchronize() if ST_DEVICE == "cuda" else None
+        runs.append(({k: float(v) for k, v in model.metrics.items()},
+                     {f"{n}.{k}": p.grad.clone() for n in model.trainable_nets
+                      for k, p in model.nets[n].named_parameters() if p.grad is not None},
+                     {f"{n}.{k}": p.detach().clone() for n in model.trainable_nets
+                      for k, p in model.nets[n].named_parameters()}, _st_counts()))
+        del model
+    (m0, g0, w0, c0), (m1, g1, w1, c1) = runs
+    return {"metrics": m0 == m1, "counts": c0 == c1,
+            "grads": all(torch.equal(v, g1[k]) for k, v in g0.items()),
+            "weights": all(torch.equal(v, w1[k]) for k, v in w0.items())}
 
 
 def _st_full_argv(tmp):
@@ -4521,7 +4638,8 @@ def phase_spatial_training(tmp):
     with _Deterministic():
         for kind in ST_CHECKS:
             one = _st_step(kind, tmp, one_mesh)
-            floors = [_st_step(kind, tmp, one_mesh, jitter=seed) for seed in ST_JITTER_SEEDS]
+            floors = [_st_step(kind, tmp, one_mesh, jitter=seed)
+                      for seed in ST_JITTER_SEEDS + ST_GROUP_SEEDS.get(kind, ())]
             report[kind] = g = _st_check(kind, [r[kind] for r in ranks], one, floors)
             c = ranks[0][kind]["counts"]
             report[kind]["counts_rank"] = c
@@ -4539,6 +4657,11 @@ def phase_spatial_training(tmp):
                 paths[f"train_spatial_{kind}_rank{r}"] = {
                     k: rank[kind]["counts"][k]
                     for k in ("K1", "K1 halo", "K1 backward halo", "K3", "K3 backward")}
+            if kind == "main_device_aug":
+                report[kind]["batch_keys_bit_equal"] = _st_device_aug_bands(
+                    [r[kind]["batch"] for r in ranks], one["batch"])
+            if kind == "main_group":
+                report[kind]["group_vs_single"] = _st_group_report(ranks)
     # the CLI's 2 bf16 SR steps: launches, losses, the nets it saved
     want = {"K1": 2 * SR_K1_PER_STEP, "K1 halo": 2 * SR_K1_PER_STEP, "K2": 0,
             "K3": 2 * K3_PER_STEP, "K3 backward": 2 * K3_BWD_PER_STEP,
@@ -4620,6 +4743,38 @@ def phase_spatial_training(tmp):
     return paths
 
 
+def _st_group_report(ranks):
+    """The ranks' ``--steps_per_call 2`` group at the default lr equals the
+    same two steps taken one at a time on them, bit for bit."""
+    for r, rank in enumerate(ranks):
+        g = rank["main_group"]["group_vs_single"]
+        check(all(g.values()), f"[s] --steps_per_call 2 rank {r}: the group against two single "
+              f"steps, bit-equal: {g}")
+    print("[s] --steps_per_call 2 main on the ranks, default lr: the group's metrics, "
+          "gradients, weights and collectives equal two single steps' bit for bit")
+    return ranks[0]["main_group"]["group_vs_single"]
+
+
+def _st_device_aug_bands(ranks, one):
+    """Each rank's first ``--device_aug`` batch is its band of one
+    process's, bit for bit: every image value's rows split in two by its
+    own height, K and the crop boxes whole. Returns the keys compared."""
+    import numpy as np
+
+    for r, got in enumerate(ranks):
+        check(set(got) == set(one), f"[s] --device_aug rank {r}: keys {sorted(got)}")
+        for k, v in one.items():
+            if v.ndim == 4:
+                h = v.shape[1] // len(ranks)
+                v = v[:, r * h:(r + 1) * h]
+            check(got[k].shape == v.shape and np.array_equal(got[k], v),
+                  f"[s] --device_aug rank {r}: {k} is not its band of one process's batch "
+                  f"(max |d| {float(np.abs(got[k] - v).max()) if got[k].shape == v.shape else 'shape'})")
+    print(f"[s] --device_aug main, batch {ST_CHECKS['main_device_aug'][0]}: each rank's "
+          f"finished batch is its band of one process's, bit for bit ({', '.join(sorted(one))})")
+    return sorted(one)
+
+
 def _st_remat_report(ranks):
     """Phase (s)'s checks of the bf16 SR step under ``--remat_blocks`` on the
     two ranks (``_st_remat_sr``): the ranks alike; loss terms within
@@ -4693,6 +4848,258 @@ def _st_stage2_report(ranks, one):
                             "counts_rank": c, "counts_one_process": o}}
 
 
+# ------------------------------------------------------------------ (t)
+
+LAST_DEVICE = "cuda"             # phase (t)'s device (a CPU rehearsal sets "cpu")
+LAST_BLOCK = (12, 128, 96, 128)  # the main step's ResnetBlock input on 384x512 crops (NCHW)
+LAST_STAGE2 = (6, 256, 256)      # stage 2's batch and crops: G_A, and the split generators
+LAST_OLD = {"resnet_6blocks": ((12, 2, 384, 512), 128, 32),  # Depth_f's geometry
+            "unet_128": ((6, 3, 384, 512), 1, 64)}          # Task's: input, output_nc, ngf
+
+
+def _last_grads_close(tag, got, want, floor):
+    """A forward and backward through K1 (``got``) against the same through
+    its plain version (``want``), float32: the output within (b)'s bound,
+    1e-3 + 1e-4 |p| (``_compare``'s); the gradients within phase (e)'s
+    bound (``_train_parity``), each input's and each weight's within
+    max(1e-3, 3x ``floor``'s gap) relative L2, ``floor`` being the plain
+    route with K1's outputs and moments perturbed by 1e-6 relative, and a
+    bias's within 1e-3 of the net's largest weight-gradient norm (a conv
+    bias before a norm has an exact gradient of 0). Not an entry's worst
+    gap: a ReLU whose pre-activation is within rounding of 0 opens on one
+    route and not the other and moves that element's whole cotangent, so a
+    bound on single entries fails where the relative L2 gap stays small.
+    Returns the worst gaps and their floors."""
+    import torch
+
+    (out, dxs, grads), (p_out, p_dxs, p_grads), (_, f_dxs, f_grads) = got, want, floor
+    err = (out - p_out).abs()
+    check(bool(torch.isfinite(out).all()) and bool((err <= 1e-3 + 1e-4 * p_out.abs()).all()),
+          f"[t] {tag}: output off by {float(err.max()):.3g}")
+
+    def rel(a, b, scale=None):
+        return float((a - b).norm() / (b.norm() if scale is None else scale).clamp(min=1e-30))
+
+    check(set(grads) == set(p_grads), f"[t] {tag}: gradients of {sorted(grads)}")
+    scale = max(g.norm() for k, g in p_grads.items() if not k.endswith("bias"))
+    pairs = [(f"input {i}", d, p, f, None) for i, (d, p, f) in enumerate(zip(dxs, p_dxs, f_dxs))]
+    pairs += [(k, grads[k], g, f_grads[k], scale if k.endswith("bias") else None)
+              for k, g in p_grads.items()]
+    gap, bad = {"out": float(err.max()), "grads": 0.0, "floor": 0.0}, []
+    for k, d, p, f, sc in pairs:
+        g, fl = rel(d, p, sc), rel(f, p, sc)
+        bound = 1e-3 if sc is not None else max(1e-3, 3 * fl)
+        if g > gap["grads"]:
+            gap["grads"], gap["floor"] = g, fl
+        if g > bound:
+            bad.append(f"{k} ({g:.3g} > {bound:.3g})")
+    check(not bad, f"[t] {tag}: gradients off (relative L2): " + ", ".join(bad[:5]))
+    return gap
+
+
+def _last_sync():
+    import torch
+
+    if LAST_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _last_step(net, inputs, route=None):
+    """A forward and backward of a seeded scalar through ``net`` on the
+    ``inputs``, through K1, or with ``route`` "plain" its plain version, or
+    "noisy" the plain version with its outputs and moments perturbed by
+    1e-6 relative (seeded): (output, input gradients, parameter gradients),
+    and K1's launches."""
+    import contextlib
+
+    import torch
+
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    noise = torch.Generator().manual_seed(12)
+
+    def jitter(t):
+        return 1e-6 * torch.randn(t.shape, generator=noise).to(t.device)
+
+    def noisy(*args):
+        out, s, s2 = K.conv3x3_fused_plain(*args[:6], True, *args[7:])
+        mag = out.float().abs().sum(dim=(1, 2))
+        out = out * (1 + jitter(out))
+        return (out, s + mag * jitter(s), s2 * (1 + jitter(s2))) if args[6] else out
+
+    net.zero_grad(set_to_none=True)
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    fwd = {"plain": K.conv3x3_fused_plain, "noisy": noisy}.get(route)
+    patch = (mock.patch.object(K, "_fused_forward", fwd) if fwd is not None
+             else contextlib.nullcontext())
+    _last_sync()
+    _reset_counts()
+    with patch:
+        out = net(*xs)
+        cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(out.device)
+        (out * cot).sum().backward()
+    _last_sync()
+    k1 = _counts()["K1"]
+    return (out.detach(), [x.grad for x in xs],
+            {k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None}), k1
+
+
+def _last_routes(net, inputs):
+    """``_last_step`` through K1, its plain version and the perturbed plain
+    version: (the three results, K1's launches on the kernel route)."""
+    got, k1 = _last_step(net, inputs)
+    want, _ = _last_step(net, inputs, "plain")
+    floor, _ = _last_step(net, inputs, "noisy")
+    return got, want, floor, k1
+
+
+def phase_last_capabilities(tmp):
+    """(t): the capabilities no shipped configuration reaches, at full width
+    on the card, float32 (TF32 off), each through K1 against the same
+    through its plain version (``_last_grads_close``: (b)'s bound on the
+    output, (e)'s on the gradients, against the plain route's own
+    sensitivity):
+
+    - a zoo-A ResnetBlock with dropout in training at the main step's block
+      shape (B=12, 96x128, 128 channels, reflect), forward and backward: K1
+      2 launches a forward, the second without a prologue; its Dropout's
+      mask drawn on the card (keep rate within 0.5 +- 1e-3 over its 18.9M
+      values), equal bit for bit to the CPU's draw at a small shape, and the
+      same mask in ``--remat_blocks``'s recompute as in the forward, whose
+      step then equals the step without remat within those bounds;
+    - G_A (the translator) with dropout at stage 2's shape (B=6 256x256),
+      forward and backward: K1 18 a forward;
+    - GeneratorI_F -> GeneratorF_D at ngf_img_feature 32 on B=6 256x256
+      frames, forward and backward: K1 ``SPLIT_K1`` a forward (the dilated
+      blocks on cuDNN);
+    - ``define_G(use_old=True)`` under group norm, GroupNorm(1): a
+      resnet_6blocks at Depth_f's geometry (K1 12 a forward) against its
+      plain version, and a unet_128 at Task's, finite, forward only."""
+    import torch
+
+    from desr_tpu_torch.models import layers as TL
+    from desr_tpu_torch.models import networks as TN
+    from desr_tpu_torch.models import translation_networks as TT
+    from desr_tpu_torch.ops import conv3x3 as K
+
+    paths, report = {}, {}
+    gen = torch.Generator().manual_seed(21)
+    dev = LAST_DEVICE
+
+    def randn(*shape, seed):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+    # the dropout ResnetBlock; its masks recorded
+    t0 = time.perf_counter()
+    block = TN.ResnetBlock(LAST_BLOCK[1], "reflect", TL.InstanceNorm2d, True, True)
+    block = TL.name_dropouts(TN.init_weights(block, generator=gen)).to(dev).train()
+    TL.set_dropout_key(block, 3, 7)
+    x = randn(*LAST_BLOCK, seed=22)
+    masks = []
+    keep = TL.dropout_keep
+
+    def recording(*args, **kw):
+        masks.append(keep(*args, **kw))
+        return masks[-1]
+
+    with mock.patch.object(TL, "dropout_keep", recording):
+        got, want, floor, k1 = _last_routes(block, [x])
+        check(k1 == 2, f"[t] dropout block: K1 {k1}; want 2, the second without a prologue")
+        report["dropout_block"] = _last_grads_close("dropout ResnetBlock", got, want, floor)
+        rate = float(masks[0].double().mean())
+        check(abs(rate - 0.5) <= 1e-3 and all(torch.equal(m, masks[0]) for m in masks[1:]),
+              f"[t] dropout mask on the card: keep rate {rate:.6f}, or another mask in a step")
+        masks.clear()
+        TL.set_remat(block, "blocks")
+        remat, k1_remat = _last_step(block, [x])
+        TL.set_remat(block, None)
+    check(len(masks) == 2 and torch.equal(masks[0], masks[1]) and k1_remat == 4,
+          f"[t] --remat_blocks: {len(masks)} masks drawn, K1 {k1_remat} (want the forward's "
+          "mask again in the recompute, K1 4)")
+    report["dropout_block_remat_vs_none"] = _last_grads_close(
+        "dropout ResnetBlock under --remat_blocks", remat, got, floor)
+    small = (2, 8, 64, 64)
+    key = TL.dropout_key(3, 7, "conv_block.4.")
+    on_card = TL.dropout_keep(key, small, (0, 2, 2), (0, 64), dev).cpu()
+    check(torch.equal(on_card, TL.dropout_keep(key, small, (0, 2, 2), (0, 64), "cpu")),
+          "[t] the dropout mask drawn on the card differs from the CPU's")
+    report["dropout_keep_rate_on_card"] = rate
+    paths["train_last_dropout_block"] = {"K1": k1 + k1_remat}
+    print(f"[t] dropout ResnetBlock {LAST_BLOCK} float32: K1 2 a forward (the second stats "
+          f"only), vs plain {report['dropout_block']}; the mask's keep rate on the card "
+          f"{rate:.6f} over {masks[0].numel()} values, equal to the CPU's draw, the same in "
+          f"--remat_blocks' recompute (K1 4), that step vs none "
+          f"{report['dropout_block_remat_vs_none']}; {time.perf_counter() - t0:.1f} s")
+    del block, x, got, want, floor, remat, masks
+
+    # G_A with dropout at stage 2's shape
+    t0 = time.perf_counter()
+    b, h, w = LAST_STAGE2
+    g_a = TT.define_Gen(TT.default_translator_opt(dropout=True), "img_depth", generator=gen)
+    g_a = g_a.to(dev).train()
+    TL.set_dropout_key(g_a, 3, 8)
+    inputs = [randn(b, 1, h, w, seed=23).clamp(-1, 1), randn(b, 3, h, w, seed=24).clamp(-1, 1)]
+    got, want, floor, k1 = _last_routes(g_a, inputs)
+    check(k1 == TRANSLATE_K1_PER_BATCH, f"[t] G_A dropout: K1 {k1}; want "
+          f"{TRANSLATE_K1_PER_BATCH}")
+    report["g_a_dropout"] = _last_grads_close("G_A with dropout", got, want, floor)
+    paths["train_last_g_a_dropout"] = {"K1": k1}
+    print(f"[t] G_A with dropout, B={b} {h}x{w} float32: K1 {k1} a forward (9 blocks, each "
+          f"split at its Dropout), vs plain {report['g_a_dropout']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del g_a, got, want, floor
+
+    # the split generators, chained
+    t0 = time.perf_counter()
+    opt = TT.default_translator_opt()
+    opt.ngf_img_feature = 32
+    i_f = TT.define_Gen(opt, "img", "feature", generator=gen)
+    f_d = TT.define_Gen(opt, "feature", "depth", generator=gen)
+    chain = torch.nn.Sequential(i_f, f_d).to(dev).train()
+    img = randn(b, 3, h, w, seed=25).clamp(-1, 1)
+    got, want, floor, k1 = _last_routes(chain, [img])
+    check(k1 == SPLIT_K1, f"[t] GeneratorI_F -> GeneratorF_D: K1 {k1}; want {SPLIT_K1}")
+    report["split_generators"] = _last_grads_close("split generators", got, want, floor)
+    paths["train_last_split_generators"] = {"K1": k1}
+    print(f"[t] GeneratorI_F -> GeneratorF_D, ngf_img_feature 32, B={b} {h}x{w} float32: K1 "
+          f"{k1} a forward (I_F's first block 2, F_D's nine 18; I_F's dilated blocks on "
+          f"cuDNN), vs plain {report['split_generators']}; {time.perf_counter() - t0:.1f} s")
+    del chain, i_f, f_d, got, want, floor
+
+    # use_old GroupNorm(1)
+    t0 = time.perf_counter()
+    for netG, (shape, out_nc, ngf) in LAST_OLD.items():
+        net = TN.define_G(shape[1], out_nc, ngf, netG, norm="group", use_old=True,
+                          generator=gen).to(dev).eval()
+        x = randn(*shape, seed=26).clamp(-1, 1)
+        with torch.no_grad():
+            _last_sync()
+            _reset_counts()
+            out = net(x)
+            _last_sync()
+            k1 = _counts()["K1"]
+            with mock.patch.object(K, "_fused_forward", K.conv3x3_fused_plain):
+                plain = net(x)
+        err = (out - plain).abs()
+        want_k1 = 12 if netG == "resnet_6blocks" else 0
+        check(bool(torch.isfinite(out).all()) and k1 == want_k1
+              and bool((err <= 1e-3 + 1e-4 * plain.abs()).all()),
+              f"[t] use_old {netG}: K1 {k1} (want {want_k1}), max |d| vs plain "
+              f"{float(err.max()):.3g}")
+        report[f"use_old_{netG}"] = {"out": float(err.max()), "K1": k1}
+        if k1:
+            paths[f"serve_last_use_old_{netG}"] = {"K1": k1}
+        del net, x, out, plain
+    print(f"[t] define_G(use_old=True), GroupNorm(1): resnet_6blocks "
+          f"{LAST_OLD['resnet_6blocks'][0]} K1 12 a forward, vs plain "
+          f"{report['use_old_resnet_6blocks']['out']:.3g}; unet_128 "
+          f"{LAST_OLD['unet_128'][0]} finite; {time.perf_counter() - t0:.1f} s")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    print("[t] " + json.dumps(report))
+    return paths
+
+
 def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
     """One row per kernel and shape (K1 has four, K3's sums and backward two
     each); ``launches``
@@ -4741,14 +5148,16 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
              f"I2D step {I2D_K1_PER_STEP} (Image_f; with a backward under "
              "--i2d_train_features)"),
             ("conv3x3_fused", "K1 aug", AUG_SHAPE, "reflect", k1,
-             "augmented main step 24 (I2D_features, Depth_f with a backward)"),
+             "augmented main step 24 (I2D_features, Depth_f with a backward); phase (t): a "
+             "dropout ResnetBlock 2 (float32, with a backward), a use_old resnet_6blocks 12"),
             ("conv3x3_fused", "K1 aug translator", AUG_TRANS_SHAPE, "replicate", k1,
              f"augmented main step {K1_TRANS_PER_STEP} (G_A_d)"),
             ("conv3x3_fused", "K1 translate", TRANSLATE_SHAPE, "replicate", k1,
              f"--translate serving {TRANSLATE_K1_PER_BATCH} a batch (G_A or G_B)"),
             ("conv3x3_fused", "K1 stage2", STAGE2_SHAPE, "replicate", k1,
              f"stage-2 iteration {STAGE2_K1_PER_ITER} (G_A, G_B: 18 an apply, 4 applies a "
-             "G step, 3 G steps; each with a backward)"),
+             "G step, 3 G steps; each with a backward); phase (t): G_A with dropout 18 "
+             "(float32, with a backward)"),
             ("conv3x3", "K2", SERVE_SHAPE, "reflect", "desr_tpu/ops/pallas_conv.py:309",
              "main serving --pallas_conv route 24 a batch"),
             # phase (p)'s shapes (the quality chains; the launches are K1's on that path)
@@ -4771,7 +5180,10 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
              f"quality p4's --translate BtoA serving {TRANSLATE_K1_PER_BATCH} a batch of 2"),
             ("conv3x3_fused", "K1 quality serve", Q_SERVE_SHAPE, "reflect", k1,
              f"quality p4's --I2D serving {I2D_K1_PER_BATCH} a batch of 2; p3's SR serving "
-             "12 (I2D_features at LR) from the artifact")):
+             "12 (I2D_features at LR) from the artifact"),
+            ("conv3x3_fused", "K1 split", SPLIT_SHAPE, "replicate", k1,
+             f"phase (t): GeneratorI_F -> GeneratorF_D {SPLIT_K1} a forward (float32, with "
+             "a backward), on the kernel and on its plain version")):
         dtype = rest[0] if rest else torch.bfloat16
         dt = str(dtype)[6:]
         b, h, w, c = shape
@@ -5084,7 +5496,8 @@ def main():
                       phase_sr_training, phase_i2d_serving, phase_translate_serving,
                       phase_i2d_training, phase_translation_training, phase_device_aug,
                       phase_train_surface, phase_bench_io, phase_quality,
-                      phase_data_parallel, phase_spatial, phase_spatial_training):
+                      phase_data_parallel, phase_spatial, phase_spatial_training,
+                      phase_last_capabilities):
             t0 = time.perf_counter()
             tmp = os.path.join(root, phase.__name__)
             os.makedirs(tmp)

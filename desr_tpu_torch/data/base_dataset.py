@@ -86,6 +86,14 @@ def normalize_pair(depth, img):
     return T.normalize_depth_np(np.asarray(depth)), T.normalize_image_np(np.asarray(img))
 
 
+
+def _worker_number():
+    """1 + the DataLoader worker's id in a worker process, 0 inline."""
+    from torch.utils.data import get_worker_info
+
+    info = get_worker_info()
+    return 0 if info is None else info.id + 1
+
 class UnpairedFolderDataset:
     """Unpaired sampling (base_dataset.py:92-241): B sequential
     (index % B_size), A uniform random from the item's own generator."""
@@ -139,13 +147,19 @@ class UnpairedFolderDataset:
             self.A_add_paths = list(np.array(self.A_add_paths)[idx_A])
             self.B_add_paths = list(np.array(self.B_add_paths)[idx_B])
 
+    shared_draws = False  # set by the loader on a spatial mesh
+
     def item_rng(self, index):
         # the process id and a per-dataset draw counter in the entropy, as
         # the JAX package: forked loader workers would otherwise replay the
-        # same draws
+        # same draws. The S ranks of a spatial data group decode the same
+        # items and must draw alike (``shared_draws``): there the loader
+        # worker's number stands in for the process id, as each rank's
+        # worker k decodes the same batches in the same order
         self._draws += 1
+        stream = _worker_number() if self.shared_draws else os.getpid()
         return np.random.default_rng(
-            np.random.SeedSequence([self.seed, index, self._draws - 1, os.getpid()]))
+            np.random.SeedSequence([self.seed, index, self._draws - 1, stream]))
 
     def pick_indices(self, index, rng):
         return int(rng.integers(0, self.A_size)), index % self.B_size

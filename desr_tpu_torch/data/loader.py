@@ -19,8 +19,12 @@ batch (``RankBatchSampler``); its batches come as ``parallel.Shard``s that
 carry the global batch's rows (``RankLoader``). ``--num_threads`` workers
 run per rank. Under ``--spatial_devices`` the S ranks of a data group
 decode the same items (the data axis alone splits the batch), with the
-same augmentation (``item_rng(index)``), and each keeps its band of the
-frames' rows (``parallel.split_h``), which its ``Shard`` records.
+same augmentation (``item_rng(index)`` with ``shared_draws``: the loader
+worker's number, not the process id, in its entropy), and each keeps its
+band of the frames' rows (``parallel.split_h``), which its ``Shard``
+records. Under ``--device_aug`` too: a rank's ``DeviceLoader`` finishes
+the data group's whole frames (the warp reads rows from anywhere in a
+frame) and ``RankLoader`` then cuts its band of the finished batch.
 """
 
 from __future__ import annotations
@@ -136,6 +140,8 @@ def create_dataset(opt, dataset_cls, stage="train", device=None, mesh=None):
     a ``RankLoader`` of this rank's rows."""
     dataset = dataset_cls(opt, stage=stage)
     print(f"dataset [{type(dataset).__name__}] was created")
+    if mesh is not None and mesh.spatial > 1:
+        dataset.shared_draws = True  # the S ranks of a data group draw alike
     finish = None
     if getattr(dataset, "device_aug_active", lambda: False)():
         if device is None:

@@ -1,20 +1,22 @@
 """Host-side geometry and normalisers (counterpart of ``desr_tpu/data/transforms.py``).
 
-The JAX package calls cv2 with albumentations 0.4.6 semantics; the card's
-machine has no cv2, so the port writes the branches it runs in numpy:
-Resize with interpolation 2 (cv2 INTER_CUBIC, the legacy datasets'), 3 (cv2
-INTER_AREA) and 4 (cv2 INTER_LANCZOS4), all through the matrices of
-``ops/resize.py``, PadIfNeeded (centred, border REFLECT_101, which is
+The JAX package calls cv2 with albumentations 0.4.6 semantics. The port calls
+no cv2, whose builds differ from host to host, and writes the branches in
+numpy: Resize with every interpolation code the JAX package passes to cv2,
+0 (INTER_NEAREST), 1 (INTER_LINEAR), 2 (INTER_CUBIC, the legacy datasets'),
+3 (INTER_AREA) and 4 (INTER_LANCZOS4), through the index and weight tables
+of ``ops/resize.py``; PadIfNeeded (centred, border REFLECT_101, which is
 numpy's "reflect"), Rotate (cv2's bilinear ``warpAffine``, border
 REFLECT_101), RandomCrop, the horizontal flip and ColorJitter, whose hue step
-is cv2's uint8 RGB<->HSV round trip written as arithmetic. Nearest (0) and
-bilinear (1), which no dataset asks for, are not ported.
+is cv2's uint8 RGB<->HSV round trip written as arithmetic.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+INTER_NEAREST = 0
+INTER_LINEAR = 1
 INTER_CUBIC = 2
 INTER_AREA = 3
 INTER_LANCZOS4 = 4
@@ -22,19 +24,18 @@ INTER_LANCZOS4 = 4
 
 def resize(img, height, width, interpolation=INTER_AREA):
     """cv2.resize of a float HW or HWC array to (height, width)
-    (transforms.py:44-47); INTER_CUBIC, INTER_AREA and INTER_LANCZOS4 are ported."""
+    (transforms.py:44-47) with cv2's interpolation code 0-4."""
     if img.shape[0] == height and img.shape[1] == width:
         return img
     # imported here: ops.resize imports torch, which the serving CLI's
     # decode workers (this module's other users) do without
     from desr_tpu_torch.ops import resize as R
 
-    fns = {INTER_CUBIC: R.resize_cv2_cubic_np, INTER_AREA: R.resize_cv2_inter_area_np,
+    fns = {INTER_NEAREST: R.resize_cv2_nearest_np, INTER_LINEAR: R.resize_cv2_linear_np,
+           INTER_CUBIC: R.resize_cv2_cubic_np, INTER_AREA: R.resize_cv2_inter_area_np,
            INTER_LANCZOS4: R.resize_cv2_lanczos4_np}
     if interpolation not in fns:
-        raise NotImplementedError(
-            f"resizing with cv2 interpolation {interpolation} (transforms.py:44-47): "
-            "not yet ported; INTER_CUBIC (2), INTER_AREA (3) and INTER_LANCZOS4 (4) are")
+        raise KeyError(f"cv2 interpolation {interpolation}: the resize takes codes 0-4")
     return fns[interpolation](img, (height, width))
 
 

@@ -50,8 +50,10 @@ import torch.nn as nn
 from desr_tpu_torch import checkpoints as ckpt
 from desr_tpu_torch import resolve_device
 from desr_tpu_torch.models.layers import (
+    Dropout,
     remat_call,
     set_batch_norm_group,
+    set_dropout_key,
     set_remat,
     with_batch_norm_mode,
 )
@@ -98,6 +100,8 @@ class BaseModel(nn.Module):
         self.lr = getattr(opt, "lr", 2e-4)
         self.plateau_history = []
         self.remat_nets, self.remat_inner = remat_modes(opt)
+        self.batches_used = 0  # the step of the Dropouts' masks
+        self._has_dropout = None
 
     def apply_remat(self):
         """Set the inner remat mode on every net (after they are built)."""
@@ -262,8 +266,16 @@ class BaseModel(nn.Module):
         Every BatchNorm takes its moments over ``step_group`` on a band and
         over the B-splitting ranks on a tensor that the spatial ranks hold
         whole. On a spatial mesh the nets are tagged with this rank's
-        ``Spatial``."""
+        ``Spatial``. Each ``Dropout`` of the nets draws its masks from
+        ``--seed``, the count of batches used so far and the batch's rows
+        (``layers.set_dropout_key``; no shipped net has one)."""
         self._batch, self._paths = batch, paths
+        self.batches_used += 1
+        if self._has_dropout is None:
+            self._has_dropout = any(isinstance(m, Dropout) for m in self.nets.modules())
+        if self._has_dropout:
+            set_dropout_key(self.nets, getattr(self.opt, "seed", 0), self.batches_used,
+                            getattr(batch, "rows", None))
         if self.spatial is not None and not self._nets_tagged:
             S.set_spatial_group(self.nets, self.spatial)
             self._nets_tagged = True

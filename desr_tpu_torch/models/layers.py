@@ -7,11 +7,14 @@ the dtype of what it is given. Conv weights are OIHW and transposed-conv
 weights IOHW, so ``state_dict`` keys and shapes equal the JAX param dicts.
 
 Plain ``torch.nn`` modules are used where they already have the semantics
-(ReLU, LeakyReLU, Tanh, Dropout), or subclassed where only the spatial axis
-needs more (the pads, and Upsample: nearest, and bilinear with
+(ReLU, LeakyReLU, Tanh), or subclassed where only the spatial axis needs
+more (the pads, and Upsample: nearest, and bilinear with
 align_corners=False, which is the JAX layer's ``resize_bilinear``).
-BatchNorm and the spectral-norm conv follow the JAX layers rather than
-``torch.nn``'s (see each). The JAX package's XLA-steering variants of the
+BatchNorm, Dropout and the spectral-norm conv follow the JAX layers rather
+than ``torch.nn``'s (see each): Dropout's mask is a pure function of a
+seed, the step, the layer's ``state_dict`` prefix and the element's place
+in the global batch, so a checkpoint's recompute, N ranks and S bands draw
+one process's mask. The JAX package's XLA-steering variants of the
 same functions (ring_pad, tap_conv, split_conv, fused_pad, phase_convt,
 row_tap, fold_norm) are not ported.
 
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import zlib
 
 import torch
 import torch.nn as nn
@@ -54,7 +58,6 @@ from torch.utils.checkpoint import (
 )
 
 from torch.nn import (  # noqa: F401  (re-exported for networks.py)
-    Dropout,
     Identity,
     LeakyReLU,
     ReLU,
@@ -207,6 +210,129 @@ class Upsample(nn.Upsample):
         return y[:, :, f:f + h * f]
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """x * c mod 2**32 for x in [0, 2**32) (a Python int or an int64
+    tensor) and a constant c < 2**32, in 16-bit halves, so that no product
+    leaves int64."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A bijection of [0, 2**32) that scatters neighbouring inputs (the
+    "lowbias32" integer finaliser: xorshift, multiply, xorshift, multiply,
+    xorshift)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_key(seed, step, prefix):
+    """The 32-bit key of a Dropout's mask: the model's ``seed``, the
+    ``step`` and the layer's ``state_dict`` prefix, folded in as the JAX
+    layer folds ``crc32(prefix) % 2**31`` into its step's key
+    (desr_tpu/models/layers.py:1364-1375)."""
+    key = _mix32(int(seed) & _M32)
+    key = _mix32(key ^ (int(step) & _M32))
+    return _mix32(key ^ (zlib.crc32(prefix.encode()) % 2 ** 31))
+
+
+def dropout_keep(key, shape, rows, h_rows, device, p=0.5):
+    """The bool keep mask of a rank's block of an NCHW tensor of ``shape``:
+    element (b, c, y, x) of the global tensor is kept where
+    mix(lo32(i) ^ mix(hi32(i) ^ key)) < (1 - p) * 2**32, i its row-major
+    index in the global batch (``_mix32``). So the mask is the one drawn at
+    the global shape and cut to the block, and no generator's state enters.
+
+    ``rows`` = (lo, hi, n): the block's batch holds rows lo..hi of a global
+    batch of n; a batch of k times hi - lo rows holds them for each of k
+    branches concatenated along B (branch j's rows j*n + lo .. j*n + hi of
+    a global k*n: the main model's batched syn and real calls).
+    ``h_rows`` = (y0, h): the block's rows start at row y0 of frames of h
+    rows (a spatial rank's band)."""
+    b, c, hb, w = shape
+    lo, hi, n = rows
+    if b % (hi - lo):
+        raise ValueError(f"a batch of {b} rows is no whole number of shares of rows {lo}..{hi}")
+    k = b // (hi - lo)
+    y0, h = h_rows
+    ar = functools.partial(torch.arange, device=device, dtype=torch.int64)
+    bi = torch.cat([ar(j * n + lo, j * n + hi) for j in range(k)])
+    i = (((bi[:, None, None, None] * c + ar(c)[None, :, None, None]) * h
+          + ar(y0, y0 + hb)[None, None, :, None]) * w + ar(w)[None, None, None, :])
+    mixed = _mix32((i & _M32) ^ _mix32((i >> 32) ^ key))
+    return mixed < round((1.0 - p) * 2 ** 32)
+
+
+class Dropout(nn.Module):
+    """The JAX layer's dropout (layers.py:1364-1375): the identity in eval
+    and at p = 0; in training each value is kept with probability 1 - p and
+    divided by 1 - p (x 2 at the nets' p = 0.5), or set to 0. No
+    parameters, so no ``state_dict`` keys.
+
+    The mask (``dropout_keep``) is a pure function of ``seed`` and ``step``
+    (which the model sets, ``set_dropout_key``), of ``prefix``, the layer's
+    ``state_dict`` prefix in its net (``name_dropouts``, which the net's
+    builder calls), and of the element's place in the global batch. It does
+    not read a generator, so a ``torch.utils.checkpoint`` recompute under
+    ``--remat``, ``--remat_blocks`` or ``--remat_tails`` draws the forward's
+    mask. ``rows`` (the model's staged ``Shard.rows``) places a rank's
+    batch in the global one, and under a ``spatial`` tag the band's rows
+    sit at rank x its rows in a frame of S times as many: N ranks and S
+    bands draw one process's mask. Inside ``spatial.whole()`` (a U-Net
+    level no rank splits) the tensor is the whole frame on every rank of
+    the group, and so is its mask. A test may set ``mask`` (a keep mask of
+    the input's shape) outright: then it is used as it is.
+    """
+
+    spatial = None
+    seed = 0
+    step = 0
+    prefix = ""
+    rows = None
+    mask = None
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = self.mask
+        if keep is None:
+            sp = S.active(self.spatial)
+            h = x.shape[2]
+            h_rows = (0, h) if sp is None else (sp.rank * h, sp.size * h)
+            rows = self.rows or (0, x.shape[0], x.shape[0])
+            keep = dropout_keep(dropout_key(self.seed, self.step, self.prefix), x.shape, rows,
+                                h_rows, x.device, self.p)
+        return torch.where(keep.to(x.device, torch.bool), x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def name_dropouts(net):
+    """Set each ``Dropout``'s ``prefix`` to its ``state_dict`` prefix in
+    ``net`` (the JAX layer's ``prefix``); returns ``net``."""
+    for name, m in net.named_modules():
+        if isinstance(m, Dropout):
+            m.prefix = name + "."
+    return net
+
+
+def set_dropout_key(module, seed, step, rows=None):
+    """Set the ``seed``, the ``step`` and the ``rows`` = (lo, hi, n) of the
+    global batch the rank holds (None: the whole batch) on every
+    ``Dropout`` of ``module``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.seed, m.step, m.rows = seed, step, None if rows is None else tuple(rows)
+
+
 def moments_hw(x):
     """(sum, sum of squares) over H and W of an NCHW tensor, in f32: (B, C) each."""
     x32 = x.float()
@@ -293,7 +419,8 @@ def norm_vectors(norm, s, s2, n, bias=None):
     channels, and an affine weight and bias fold into the vectors too.
     """
     if not isinstance(norm, (InstanceNorm2d, GroupNorm)):
-        raise NotImplementedError(f"norm_vectors for {type(norm).__name__}: not yet ported")
+        raise NotImplementedError(f"norm_vectors for {type(norm).__name__}: K1's chain folds "
+                                  "InstanceNorm and GroupNorm only")
     s, s2 = s.float(), s2.float()
     if bias is not None:
         b = bias.float()
@@ -515,8 +642,9 @@ def remat_call(fn, mode, *args):
     keeps only the inputs and recomputes all of ``fn`` in the backward;
     "tails" also keeps the conv outputs (a selective-checkpoint policy), so
     only the norms and activations are recomputed. Under no_grad (frozen
-    nets, eval forwards) it is the plain call. Nothing inside draws random
-    numbers, so no RNG state is kept.
+    nets, eval forwards) it is the plain call. Nothing inside draws from a
+    generator (a Dropout's mask is a pure function, ``dropout_keep``), so
+    no RNG state is kept.
 
     On a rank's band (``--spatial_devices``) the recompute runs in the
     spatial state of the first forward (``spatial.replay``: inside or

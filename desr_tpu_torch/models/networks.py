@@ -50,6 +50,7 @@ from desr_tpu_torch.models.layers import (
     Upsample,
     frame_moments,
     get_norm_layer,
+    name_dropouts,
     norm_vectors,
     remat_call,
     run_layers,
@@ -60,7 +61,7 @@ from desr_tpu_torch.parallel import spatial as S
 _PAD_MODE = {"reflect": "reflect", "replicate": "replicate", "zero": "zeros"}
 
 
-def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None):
+def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None, dropout=None):
     """x + norm2(conv2(relu(norm1(conv1(x))))) as the fused chain of
     ``Sequential._run_fused_chain`` (layers.py:271-337), NCHW in and out.
 
@@ -71,11 +72,17 @@ def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None):
     Both convs are ``conv3x3_fused``: the kernel on the card, its plain
     version on the CPU; differentiable either way.
 
+    With a ``dropout`` layer that is in training, the chain stops at it, as
+    the JAX chain does (``_fused_link`` returns None at a Dropout): the
+    normalise+ReLU is one multiply-add and max rounded to x's dtype, the
+    mask is applied to it, and conv2 is K1 without a prologue, stats only.
+
     Under an active ``spatial`` the rank's band of x, then of conv1's raw
     output, takes one halo row from each neighbour (K1's ``halo_top`` /
     ``halo_bottom``; the prologue normalises the halo rows as its own), and
     each conv's (s, s2) are summed over the ranks in one all_reduce, with n
-    the frame's pixel count.
+    the frame's pixel count. After a dropout conv2's halo rows are the
+    neighbours' dropped rows.
     """
     x = x.contiguous(memory_format=torch.channels_last)
     xh = x.permute(0, 2, 3, 1)  # NHWC view, contiguous
@@ -92,7 +99,12 @@ def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None):
 
     y, s, s2, n_all = conv(xh, c1.weight, None, None, pad_mode)
     sc, sh = norm_vectors(n1, s, s2, n_all, c1.bias)
-    z, s, s2, n_all = conv(y, c2.weight, sc, sh, pad_mode, True)
+    if dropout is not None and dropout.training and dropout.p:
+        a = torch.relu(y.float() * sc[:, None, None, :] + sh[:, None, None, :]).to(x.dtype)
+        a = dropout(a.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        z, s, s2, n_all = conv(a, c2.weight, None, None, pad_mode)
+    else:
+        z, s, s2, n_all = conv(y, c2.weight, sc, sh, pad_mode, True)
     sc, sh = norm_vectors(n2, s, s2, n_all, c2.bias)
     out = xh + (z.float() * sc[:, None, None, :] + sh[:, None, None, :]).to(x.dtype)
     return out.permute(0, 3, 1, 2)
@@ -103,9 +115,11 @@ class ResnetBlock(nn.Module):
     (networks.py:69-96); keys under ``conv_block.``.
 
     Under instance or group norm the forward is ``fused_resnet_chain`` on
-    every device. With ``fused=False`` each conv is the ``conv3x3`` kernel
-    and the norms run as layers (the JAX ``--pallas_conv`` route); under
-    batch or no norm with ``fused`` the block runs its layers, cuDNN's convs.
+    every device; in training a Dropout splits it (two K1 launches, the
+    second without a prologue). With ``fused=False`` each conv is the
+    ``conv3x3`` kernel and the norms run as layers (the JAX
+    ``--pallas_conv`` route); under batch or no norm with ``fused`` the
+    block runs its layers, cuDNN's convs.
     Under a remat mode the fused chain is one checkpointed span; the layers'
     runs go through ``run_layers`` (a BatchNorm stays outside). Under a
     ``spatial`` tag K1 and K2 read halo rows (``fused_resnet_chain``).
@@ -137,7 +151,7 @@ class ResnetBlock(nn.Module):
         self.conv_block = nn.Sequential(*blocks)
         self.pad_mode = _PAD_MODE[padding_type]
         self.fused = fused
-        self.use_dropout = use_dropout
+        self._dropout = next((m for m in blocks if isinstance(m, Dropout)), None)
         convs = [m for m in blocks if isinstance(m, Conv2d)]
         # the module after each conv is its norm (Identity under --norm none)
         norms = [blocks[next(i for i, b in enumerate(blocks) if b is c) + 1] for c in convs]
@@ -145,19 +159,19 @@ class ResnetBlock(nn.Module):
         self._fusable = all(isinstance(n, (InstanceNorm2d, GroupNorm)) for n in norms)
 
     def forward(self, x):
-        if self.training and self.use_dropout:
-            raise NotImplementedError("ResnetBlock dropout in training: not yet ported")
         if not self.fused:
             x = x.contiguous(memory_format=torch.channels_last)
             (c1, c2), (n1, n2) = self._convs, self._norms
-            steps = [self._k2(c1), n1, torch.relu, self._k2(c2), n2]
+            drop = [] if self._dropout is None else [self._dropout]
+            steps = [self._k2(c1), n1, torch.relu, *drop, self._k2(c2), n2]
             return x + run_layers(steps, x, self.remat)
         if self._fusable:
             return remat_call(self._chain, self.remat, x)
         return x + run_layers(self.conv_block, x, self.remat)
 
     def _chain(self, x):
-        return fused_resnet_chain(x, self._convs, self._norms, self.pad_mode, self.spatial)
+        return fused_resnet_chain(x, self._convs, self._norms, self.pad_mode, self.spatial,
+                                  self._dropout)
 
     def _k2(self, conv):
         """The conv as K2 (``conv3x3``) on an NCHW tensor, bias added; with
@@ -473,11 +487,15 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
     ``generator`` seeds the weight init (a fresh one seeded 0 when None).
     ``fused`` picks the ResnetBlock route (see ResnetBlock). ``use_sr`` (the
     U-Net SR head) is a capability of the zoo that no model of either package
-    reaches: ``MainSRModel``'s Task is the plain U-Net on the HR grid.
+    reaches: ``MainSRModel``'s Task is the plain U-Net on the HR grid. So
+    are ``use_old`` under ``norm="group"``, GroupNorm(1, affine=False) at
+    every norm (networks.py:229-230; K1's ``norm_vectors`` folds its one
+    group over all channels), and ``use_dropout`` in training (each
+    ``Dropout`` is named by its ``state_dict`` prefix here).
     """
-    if use_old and norm == "group":
-        raise NotImplementedError("use_old GroupNorm(1): not yet ported")
     norm_layer, use_bias = get_norm_layer(norm)
+    if use_old and norm == "group":
+        norm_layer = lambda ch: GroupNorm(1, ch, affine=False)  # noqa: E731
     if netG in ("resnet_9blocks", "resnet_6blocks"):
         n_blocks = 9 if netG == "resnet_9blocks" else 6
         net = ResnetGenerator(input_nc, output_nc, ngf, norm_layer, use_bias, use_dropout,
@@ -490,7 +508,7 @@ def define_G(input_nc, output_nc, ngf, netG, norm="instance", use_dropout=False,
         raise NotImplementedError(f"Generator model name [{netG}] is not recognized")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_weights(net, init_type, init_gain, generator)
+    return name_dropouts(init_weights(net, init_type, init_gain, generator))
 
 
 def define_D(input_nc, ndf, netD, n_layers_D=3, norm="instance", init_type="normal",

@@ -3,16 +3,20 @@ frozen as ``G_A_d``, and stage 2's discriminators (counterpart of
 ``desr_tpu/models/translation_networks.py``).
 
 ``define_Gen`` builds the ``img_depth`` and ``depth`` inputs with the
-transpose, upconv or uptranspose upsampling and no dilation, on the hardcoded
-``default_translator_opt`` (translation_networks.py:254-264); ``define_D`` the
-basic, n_layers, Gu and pixel discriminators, with --use_spnorm.
-Attribute names reproduce the JAX ``init`` keys (``enc_img.model.0.weight``,
-``bottlenec.model.3.conv_block.1.bias``, ``dec_depth.model.0.transposeconv.weight``,
-``model.0.weight_orig``), so a JAX param dict or a reference
-``latest_net_G_A_d.pth`` loads with ``load_state_dict(strict=True)``. Not
-ported: the dilated bottleneck and ``GeneratorI_F`` / ``GeneratorF_D``, which
-no model builds, and translator dropout, which ``default_translator_opt``
-turns off. The composites (encoder, decoder and bottleneck parts, the
+transpose, upconv or uptranspose upsampling, on the hardcoded
+``default_translator_opt`` (translation_networks.py:254-264), and the split
+generators ``GeneratorI_F`` (image -> feature: an encoder and six
+ResnetBlockTs dilated 1, 2, 4, 8, 8, 8) and ``GeneratorF_D`` (feature ->
+depth: nine ResnetBlockTs and a decoder), which no model builds;
+``define_D`` the basic, n_layers, Gu and pixel discriminators, with
+--use_spnorm. Attribute names reproduce the JAX ``init`` keys
+(``enc_img.model.0.weight``, ``bottlenec.model.3.conv_block.1.bias``,
+``dec_depth.model.0.transposeconv.weight``, ``enc.model.0.weight``,
+``dec.model.6.weight``, ``model.0.weight_orig``), so a JAX param dict or a
+reference ``latest_net_G_A_d.pth`` loads with ``load_state_dict(strict=True)``.
+Translator dropout (``opt.dropout``, which ``default_translator_opt`` turns
+off) puts a ``layers.Dropout`` in each ResnetBlockT.
+The composites (encoder, decoder and bottleneck parts, the
 ResnetBlockTs, the up layers) read their ``remat`` mode
 (``layers.set_remat``), as zoo A's do. Under ``--spatial_devices`` the
 translators run on a rank's band of rows as the serving nets do
@@ -31,12 +35,14 @@ from desr_tpu_torch.models.layers import (
     BatchNorm2d,
     Conv2d,
     ConvTranspose2d,
+    Dropout,
     LeakyReLU,
     ReLU,
     SpectralNormConv2d,
     Tanh,
     Upsample,
     get_norm_layer,
+    name_dropouts,
     remat_call,
     run_layers,
 )
@@ -103,33 +109,44 @@ UP_LAYERS = {"transpose": TransposeUp, "upconv": UpConv, "uptranspose": UpTransp
 
 
 class ResnetBlockT(nn.Module):
-    """[conv3x3 (replicate), norm, ReLU, conv3x3 (replicate), norm] + skip
-    (translation_networks.py:124-148), keys under ``conv_block.``.
+    """[conv3x3 (replicate, dilation d), norm, ReLU, (Dropout), conv3x3, norm]
+    + skip (translation_networks.py:124-148), keys under ``conv_block.``.
 
-    The forward is ``fused_resnet_chain`` with replicate borders: the
-    [Conv2d(k=3, pad=1, padding_mode=replicate)] link that
+    With dilation 1 the forward is ``fused_resnet_chain`` with replicate
+    borders: the [Conv2d(k=3, pad=1, padding_mode=replicate)] link that
     ``Sequential._fused_link`` parses (layers.py:257-262), GroupNorm folded
-    into scale/shift. Under a remat mode the chain is one checkpointed span;
-    under a ``spatial`` tag K1 reads halo rows.
+    into scale/shift, split at the Dropout in training. A dilated block
+    (``GeneratorI_F``'s, padding d) runs its layers, cuDNN's convs, as the
+    JAX package runs XLA's there (its ring route needs dilation 1,
+    layers.py:674); its convs refuse a ``spatial`` tag (``conv_rows``). Under
+    a remat mode the chain is one checkpointed span (a dilated block's runs
+    go through ``run_layers``); under a ``spatial`` tag K1 reads halo rows.
     """
 
     remat = None
     spatial = None
 
-    def __init__(self, dim, norm_factory, use_bias):
+    def __init__(self, dim, norm_factory, use_bias, dilation=1, dropout=False):
         super().__init__()
-        blocks = [Conv2d(dim, dim, 3, padding=1, padding_mode="replicate", bias=use_bias),
-                  norm_factory(dim), ReLU(),
-                  Conv2d(dim, dim, 3, padding=1, padding_mode="replicate", bias=use_bias),
-                  norm_factory(dim)]
+        conv = lambda: Conv2d(dim, dim, 3, padding=dilation, dilation=dilation,  # noqa: E731
+                              padding_mode="replicate", bias=use_bias)
+        blocks = [conv(), norm_factory(dim), ReLU()]
+        if dropout:
+            blocks.append(Dropout(0.5))
+        blocks += [conv(), norm_factory(dim)]
         self.conv_block = nn.Sequential(*blocks)
+        self.dilation = dilation
+        self._dropout = blocks[3] if dropout else None
 
     def forward(self, x):
+        if self.dilation != 1:
+            return x + run_layers(self.conv_block, x, self.remat)
         return remat_call(self._chain, self.remat, x)
 
     def _chain(self, x):
         b = self.conv_block
-        return fused_resnet_chain(x, (b[0], b[3]), (b[1], b[4]), "replicate", self.spatial)
+        return fused_resnet_chain(x, (b[0], b[-2]), (b[1], b[-1]), "replicate", self.spatial,
+                                  self._dropout)
 
 
 class _Part(nn.Module):
@@ -169,10 +186,14 @@ def _decoder(base_nc, output_nc, norm_factory, use_bias, up_layer, n_downsamplin
     return _Part(layers)
 
 
-def _bottleneck(base_nc, n_blocks, norm_factory, use_bias, n_downsampling):
-    """translation_networks.py:187-194 without dilation or dropout."""
+def _bottleneck(base_nc, n_blocks, norm_factory, use_bias, n_downsampling, dropout=False,
+                use_dilation=False):
+    """translation_networks.py:187-194: block i dilated min(2**i, 8) with
+    ``use_dilation``."""
     dim = base_nc * 2 ** n_downsampling
-    return _Part([ResnetBlockT(dim, norm_factory, use_bias) for _ in range(n_blocks)])
+    return _Part([ResnetBlockT(dim, norm_factory, use_bias,
+                               min(2 ** i, 8) if use_dilation else 1, dropout)
+                  for i in range(n_blocks)])
 
 
 class TranslationGenerator(nn.Module):
@@ -187,8 +208,6 @@ class TranslationGenerator(nn.Module):
         super().__init__()
         if input_type not in ("img_depth", "depth"):
             raise NotImplementedError(f"input type {input_type}")
-        if opt.dropout:
-            raise NotImplementedError("translator dropout: not yet ported")
         norm_factory, _ = get_norm_layer(opt.norm, lineage="translation")
         up_layer = UP_LAYERS[opt.upsampling_type]
         nd = opt.n_downsampling
@@ -201,7 +220,8 @@ class TranslationGenerator(nn.Module):
         else:
             base_nc = opt.ngf_depth * 2
             self.enc_depth = _encoder(opt.input_nc_depth, base_nc, norm_factory, use_bias, nd)
-        self.bottlenec = _bottleneck(base_nc, opt.n_blocks, norm_factory, use_bias, nd)
+        self.bottlenec = _bottleneck(base_nc, opt.n_blocks, norm_factory, use_bias, nd,
+                                     opt.dropout)
         self.dec_depth = _decoder(base_nc, opt.output_nc_depth, norm_factory, use_bias,
                                   up_layer, nd)
 
@@ -225,19 +245,60 @@ def default_translator_opt(**overrides):
     return opt
 
 
+class GeneratorI_F(nn.Module):
+    """image -> feature split generator (translation_networks.py:266-287):
+    an encoder of ``ngf_img_feature`` base channels (``enc.``) and six
+    ResnetBlockTs dilated 1, 2, 4, 8, 8, 8 (``bottlenec.``)."""
+
+    def __init__(self, opt, use_bias):
+        super().__init__()
+        norm_factory, _ = get_norm_layer(opt.norm, lineage="translation")
+        base_nc, nd = opt.ngf_img_feature, opt.n_downsampling
+        self.enc = _encoder(opt.input_nc_img, base_nc, norm_factory, use_bias, nd)
+        self.bottlenec = _bottleneck(base_nc, 6, norm_factory, use_bias, nd, opt.dropout,
+                                     use_dilation=True)
+
+    def forward(self, x):
+        return self.bottlenec(self.enc(x))
+
+
+class GeneratorF_D(nn.Module):
+    """feature -> depth split generator (translation_networks.py:290-312):
+    nine ResnetBlockTs (``bottlenec.``) and the depth decoder with Tanh
+    (``dec.``)."""
+
+    def __init__(self, opt, use_bias):
+        super().__init__()
+        norm_factory, _ = get_norm_layer(opt.norm, lineage="translation")
+        base_nc, nd = opt.ngf_img_feature, opt.n_downsampling
+        self.bottlenec = _bottleneck(base_nc, 9, norm_factory, use_bias, nd, opt.dropout)
+        self.dec = _decoder(base_nc, opt.output_nc_depth, norm_factory, use_bias,
+                            UP_LAYERS[opt.upsampling_type], nd)
+
+    def forward(self, x):
+        return self.dec(self.bottlenec(x))
+
+
 def define_Gen(opt, input_type, out_type="depth", generator=None) -> nn.Module:
-    """Mirror of define_Gen (translation_networks.py:208) for the ``img_depth``
-    and ``depth`` inputs, built on the CPU with the lineage's init (InitCfg
-    with ``gain_from_nonlinearity``, relu: "normal" draws N(0, 0.02), xavier
-    and orthogonal take the gain sqrt(2), translation_networks.py:227-228).
-    ``generator`` seeds the init (a fresh one seeded 0 when None)."""
-    if (input_type, out_type) in (("img", "feature"), ("feature", "depth")):
-        raise NotImplementedError(f"define_Gen({input_type!r}, {out_type!r}), the split "
-                                  "generators GeneratorI_F / GeneratorF_D: not yet ported")
-    net = TranslationGenerator(opt, input_type, use_bias=opt.norm == "instance")
+    """Mirror of define_Gen (translation_networks.py:315-324): ``GeneratorI_F``
+    for ("img", "feature"), ``GeneratorF_D`` for ("feature", "depth"), else
+    the ``img_depth`` or ``depth`` translator; built on the CPU with the
+    lineage's init (InitCfg with ``gain_from_nonlinearity``, relu: "normal"
+    draws N(0, 0.02), xavier and orthogonal take the gain sqrt(2),
+    translation_networks.py:227-228), each ``Dropout`` named by its
+    ``state_dict`` prefix. ``generator`` seeds the init (a fresh one seeded
+    0 when None)."""
+    use_bias = opt.norm == "instance"
+    if (input_type, out_type) == ("img", "feature"):
+        net = GeneratorI_F(opt, use_bias)
+    elif (input_type, out_type) == ("feature", "depth"):
+        net = GeneratorF_D(opt, use_bias)
+    else:
+        net = TranslationGenerator(opt, input_type, use_bias)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return init_weights(net, opt.init_type, 0.02, generator, gain=calculate_gain("relu"))
+    return name_dropouts(init_weights(net, opt.init_type, 0.02, generator,
+                                      gain=calculate_gain("relu")))
 
 
 class GuDiscriminator(nn.Module):

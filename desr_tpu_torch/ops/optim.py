@@ -44,4 +44,5 @@ def lr_schedule(policy, epoch, base_lr, n_epochs, n_epochs_decay, epoch_count=1,
         return base_lr * (0.1 ** (epoch // lr_decay_iters))
     if policy == "cosine":
         return base_lr * (1 + math.cos(math.pi * epoch / n_epochs)) / 2
-    raise NotImplementedError(f"lr policy {policy!r}: not yet ported")
+    raise NotImplementedError(f"lr policy {policy!r}: not a policy of the epoch "
+                              "(linear, step or cosine)")

@@ -13,8 +13,10 @@ resize computes in float32 and casts back to the input's dtype, as
 The host data path resizes with the JAX package's numpy matrices of cv2's
 INTER_AREA (``resize_matrix``, ``resize_cv2_inter_area_np``), with the
 matrices of cv2's INTER_LANCZOS4 (``lanczos4_matrix``,
-``resize_cv2_lanczos4_np``), and with cv2's INTER_CUBIC (``cubic_taps``,
-``resize_cv2_cubic_np``, the legacy datasets'): the port needs no cv2. The SR stage's
+``resize_cv2_lanczos4_np``), with cv2's INTER_CUBIC (``cubic_taps``,
+``resize_cv2_cubic_np``, the legacy datasets'), INTER_NEAREST
+(``cv2_nearest_index``) and INTER_LINEAR (``linear_taps``): the port needs
+no cv2. The SR stage's
 ``--device_aug`` half resizes on the card with the same INTER_AREA weights
 (``resize_cv2_inter_area``).
 
@@ -283,4 +285,66 @@ def resize_cv2_cubic_np(img, out_hw):
         b = [k.reshape((oh,) + (1,) * (x.ndim - 1)) for k in b]
         s = [x[taps[:, k]] for k in range(4)]
         x = b[0] * s[0] + (b[1] * s[1] + (b[2] * s[2] + b[3] * s[3]))
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def cv2_nearest_index(in_size, out_size):
+    """cv2's INTER_NEAREST source index along one axis, as its resizeNN
+    builds it: output j reads floor(j * ifx) with ifx = 1 / (out / in) in
+    float64, clamped to the last source row. Cached: treat it as read-only."""
+    ifx = 1.0 / (out_size / in_size)
+    return np.minimum(np.floor(np.arange(out_size) * ifx).astype(np.int64), in_size - 1)
+
+
+def resize_cv2_nearest_np(img, out_hw):
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)`` of an
+    (H, W) or (H, W, C) numpy array: a gather at ``cv2_nearest_index``'s
+    rows and columns, the values as they are (float32 for a float array)."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    x = np.asarray(img, dtype=np.float32)
+    return np.ascontiguousarray(x[cv2_nearest_index(h, oh)][:, cv2_nearest_index(w, ow)])
+
+
+@functools.lru_cache(maxsize=64)
+def linear_taps(in_size, out_size, clamp_weights=True):
+    """cv2's INTER_LINEAR along one axis, as its resizeGeneric builds it:
+    output j reads source position f = float32((j + 0.5) * scale - 0.5),
+    scale = 1 / (out / in), at the taps floor(f) and floor(f) + 1 weighted
+    1 - frac(f) and frac(f) in float32, each tap clamped into the axis.
+    Along a row (``clamp_weights``) a position before the first source
+    pixel or at or past the last takes that pixel alone (weights 1 and 0);
+    down the columns cv2 keeps the weights and reads the clamped row twice.
+    Returns the (out_size, 2) indices and the two float32 ``(out_size,)``
+    weights. Cached: treat the result as read-only."""
+    src = ((np.arange(out_size) + 0.5) * (1.0 / (out_size / in_size)) - 0.5).astype(np.float32)
+    sx = np.floor(src).astype(np.int64)
+    fx = (src - sx).astype(np.float32)
+    if clamp_weights:
+        fx = np.where((sx < 0) | (sx >= in_size - 1), np.float32(0.0), fx)
+    taps = np.clip(np.stack([sx, sx + 1], axis=1), 0, in_size - 1)
+    return taps, (np.float32(1.0) - fx, fx)
+
+
+def resize_cv2_linear_np(img, out_hw):
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` of a float
+    (H, W) or (H, W, C) numpy array, in float32 in the order of cv2's float
+    code: HResizeLinear's ``S0 a0 + S1 a1`` along each row, then
+    VResizeLinear's ``S0 b0 + S1 b1`` down the columns (``linear_taps``:
+    half-pixel centres, the edges clamped). Equal to cv2 with its IPP path
+    off; cv2 hands float INTER_LINEAR to IPP by default, whose source
+    positions differ (up to ~4e-5 of a [-1, 1] range at a 12x downscale,
+    ~5e-6 at 3x)."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    x = np.asarray(img, dtype=np.float32)
+    if ow != w:
+        taps, (a0, a1) = linear_taps(w, ow)
+        shape = (1, ow) + (1,) * (x.ndim - 2)
+        x = x[:, taps[:, 0]] * a0.reshape(shape) + x[:, taps[:, 1]] * a1.reshape(shape)
+    if oh != h:
+        taps, (b0, b1) = linear_taps(h, oh, clamp_weights=False)
+        shape = (oh,) + (1,) * (x.ndim - 1)
+        x = x[taps[:, 0]] * b0.reshape(shape) + x[taps[:, 1]] * b1.reshape(shape)
     return np.ascontiguousarray(x, dtype=np.float32)

@@ -12,10 +12,8 @@ counterpart in the port, stop the run. An unknown flag gets argparse's own
 error. The port adds ``--device`` (default ``cuda``). ``--num_devices`` N
 trains on N ranks (``desr_tpu_torch/parallel``), ``--batch_size`` being the
 global batch; ``--spatial_devices`` S (dividing N) makes them N / S data
-groups of S ranks that split each frame's rows, for every ``--model_type``
-and under the remat flags. ``SPATIAL_NOT_PORTED`` lists what stops the run
-("not yet ported") beside S > 1: ``--steps_per_call`` > 1 and
-``--device_aug``.
+groups of S ranks that split each frame's rows, for every ``--model_type``,
+under the remat flags, ``--steps_per_call`` and ``--device_aug``.
 
 ``--remat_tails`` keeps the JAX default None, which the JAX models turn into
 their per-stage default (on for SR, I2D and translation); the port reads None
@@ -34,11 +32,6 @@ XLA_ONLY = ("pallas_fuse", "no_pallas_fuse", "pallas_fuse_frozen", "fused_pad",
             "fold_norm", "bf16_tail", "bf16_normals", "no_onepass_stats",
             "compiler_option", "no_donate", "compile_cache_dir")
 LR_POLICIES = ("linear", "step", "cosine", "plateau")
-# what --spatial_devices S > 1 does not run yet: (test on the options, the flag)
-SPATIAL_NOT_PORTED = (
-    (lambda o: o.steps_per_call > 1, "--steps_per_call > 1"),
-    (lambda o: o.device_aug, "--device_aug"),
-)
 COMPUTE_DTYPES = ("bfloat16", "bf16", "float32", "f32")
 
 # (name, type, default) of the valued flags the port accepts
@@ -191,20 +184,15 @@ def parse_with(parser, argv, is_train, print_options):
 
 
 def check_spatial(parser, opt, n=None):
-    """``parser.error`` where ``--spatial_devices`` S does not fit: S < 1;
-    with S > 1 a flag of ``SPATIAL_NOT_PORTED``, or S not dividing the
-    ranks ``n`` (``--num_devices``; one under ``--device cpu`` when it is
-    0; unknown until the cards are counted otherwise, as when ``n`` is
-    None)."""
+    """``parser.error`` where ``--spatial_devices`` S does not fit: S < 1,
+    or S > 1 not dividing the ranks ``n`` (``--num_devices``; one under
+    ``--device cpu`` when it is 0; unknown until the cards are counted
+    otherwise, as when ``n`` is None)."""
     s = opt.spatial_devices
     if s < 1:
         parser.error("--spatial_devices must be at least 1")
     if s == 1:
         return
-    for test, flag in SPATIAL_NOT_PORTED:
-        if test(opt):
-            parser.error(f"{flag} with --spatial_devices > 1 is not yet ported to "
-                         "desr_tpu_torch (train with the JAX main.py)")
     if n is None:
         n = opt.num_devices if opt.num_devices > 0 else 1 if opt.device == "cpu" else None
     if n is not None and n % s:

@@ -205,7 +205,9 @@ def split_h(batch, mesh, rows):
     rank's rows of its H axis (``Mesh.h_rows``: split when S divides H and
     H >= 32, else whole); ``h_rows`` records the tallest image value's. As in
     JAX, a batch that the data axis does not divide is whole on every rank,
-    H too. Without a spatial axis the values stay as they are."""
+    H too. Without a spatial axis the values stay as they are. A tensor's
+    band (a ``--device_aug`` batch, finished on the device) is made
+    contiguous, as the kernels take their inputs."""
     if mesh.spatial == 1 or rows[2] % mesh.data_size:
         return Shard(batch, rows)
     out, h_rows = {}, None
@@ -214,6 +216,8 @@ def split_h(batch, mesh, rows):
             h = v.shape[1]
             lo, hi = mesh.h_rows(h)
             v = v[:, lo:hi]
+            if torch.is_tensor(v):
+                v = v.contiguous()
             if h_rows is None or h > h_rows[2]:
                 h_rows = (lo, hi, h)
         out[k] = v

@@ -60,14 +60,18 @@ halo rows from its neighbours (``desr_tpu_torch/parallel/spatial.py``). The
 predictions are gathered to rank 0, which alone writes the PNGs; the other
 ranks print nothing. A frame that S does not divide (padding to /128
 divides it for S = 2 or 4) is served whole on every rank, as in JAX. N must
-divide by S; ``--export``, ``--from_export`` and ``--num_workers`` above 1
-are refused with it.
+divide by S; ``--export`` and ``--from_export`` are refused with it. With
+``--num_workers`` N (> 1) each rank starts its own pool of N spawned
+workers, which decodes its data group's frames 2 batches ahead; rank 0's
+pool also writes the PNGs, at most 2N in flight. Every rank closes its pool
+before its process group ends.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import glob
 import json
 import os
@@ -194,9 +198,6 @@ def _parse(argv):
     if args.spatial_devices > 1 and (args.export or args.from_export):
         parser.error("--export and --from_export run on one device (as the JAX CLI forces): "
                      "not with --spatial_devices > 1")
-    if args.spatial_devices > 1 and args.num_workers > 1:
-        parser.error("--num_workers > 1 with --spatial_devices > 1 is not yet ported "
-                     "(each rank decodes its frames inline)")
     if args.name is None and not args.from_export:
         parser.error("--name is required unless serving --from_export")
     if args.export and args.from_export:
@@ -228,18 +229,27 @@ def main(argv=None):
             parser.error(f"--num_devices {len(devices)} does not divide by --spatial_devices "
                          f"{args.spatial_devices}")
         return serve_ranks(argv, devices)
-    pool = None
-    if args.num_workers > 1:
-        # before torch touches the card; spawned, so no CUDA state is inherited
-        import multiprocessing
-
-        pool = multiprocessing.get_context("spawn").Pool(args.num_workers)
-    try:
+    with _worker_pool(args.num_workers) as pool:
         return _serve(args, parser, pool)
+
+
+@contextlib.contextmanager
+def _worker_pool(n):
+    """A pool of ``n`` spawned host workers (None for ``n`` <= 1), ended on
+    exit: spawned, so no CUDA state is inherited; a rank ends its pool
+    before its process group, as a pool left beside gloo ranks keeps the
+    process from exiting."""
+    if n <= 1:
+        yield None
+        return
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(n)
+    try:
+        yield pool
     finally:
-        if pool is not None:
-            pool.terminate()
-            pool.join()
+        pool.terminate()
+        pool.join()
 
 
 def serve_ranks(argv, devices, backend=None):
@@ -255,15 +265,16 @@ def serve_ranks(argv, devices, backend=None):
 
 
 def _rank_serve(mesh, argv):
-    """One rank of ``serve_ranks``: ``_serve`` on its device; the ranks
+    """One rank of ``serve_ranks``: ``_serve`` on its device, with its own
+    pool under ``--num_workers`` N > 1 (ended before it returns); the ranks
     after 0 print nothing."""
-    import contextlib
-
     args, parser = _parse(argv)
-    if mesh.rank == 0:
-        return _serve(args, parser, None, mesh)
-    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
-        return _serve(args, parser, None, mesh)
+    with contextlib.ExitStack() as stack:
+        if mesh.rank:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        pool = stack.enter_context(_worker_pool(args.num_workers))
+        return _serve(args, parser, pool, mesh)
 
 
 def gather_predictions(pred, items, shard, mesh):

@@ -56,9 +56,7 @@ three-shear map, not cv2's warp. ``--profile_dir <dir>`` records the
 epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
 trace format), with a ``train_step`` span around each step and a
 ``device_finish`` span around each batch's upload and warp (main.py:43-47,
-180-184). Still refused: the XLA-only switches, and what
-``train_options.SPATIAL_NOT_PORTED`` lists beside ``--spatial_devices`` > 1
-(``--steps_per_call`` > 1, ``--device_aug``).
+180-184). Still refused: the XLA-only switches.
 
 ``--num_devices N`` (N > 1; 0: every visible card) trains data-parallel
 (``desr_tpu_torch/parallel``): N spawned ranks, NCCL on the cards (rank r on
@@ -70,10 +68,16 @@ checkpoints and the profiler trace, and runs wandb; every rank loads.
 ``--spatial_devices S`` (S > 1, dividing N; every stage) makes
 the N ranks N / S data groups of S ranks, JAX's 2-D mesh
 (desr_tpu/parallel/mesh.py:27-43): the S ranks of a group decode the same
-items and each trains on its band of every frame's rows, with halo rows
-from its neighbours (``desr_tpu_torch/parallel/spatial.py``); the averaged
-gradient is the one-process step's. The gallery and ``--save_image_folder``
-take the frames gathered along H; rank 0 writes them.
+items with the same draws and each trains on its band of every frame's
+rows, with halo rows from its neighbours
+(``desr_tpu_torch/parallel/spatial.py``); the averaged gradient is the
+one-process step's. ``--steps_per_call`` groups the steps there too, each
+staged batch split or whole by its own rows, and under ``--device_aug``
+the S ranks finish the whole frames on their cards (the warp reads rows
+from anywhere in a frame) and each keeps its band, as the JAX package
+augments first and shards after (main.py:53-57). The gallery and
+``--save_image_folder`` take the frames gathered along H; rank 0 writes
+them.
 
     python -m desr_tpu_torch.train --model_type main --SR ... --batch_size 1 \
         --num_devices 2 --spatial_devices 2

@@ -321,9 +321,10 @@ def test_train_cli_num_devices_2_runs_an_epoch(tmp_path):
     """``python -m desr_tpu_torch.train --num_devices 2 --device cpu``: an I2D
     --use_D epoch of 2 global batches of 2 over two gloo ranks, and a split
     --save_all test pass: the checkpoints, one loss log with one line a step
-    (rank 0's alone), both ranks' rows of predictions; --spatial_devices 2
-    with --steps_per_call 2 refuses (grouped steps are not ported to the
-    spatial mesh)."""
+    (rank 0's alone), both ranks' rows of predictions; with
+    --spatial_devices 2 and --steps_per_call 2 the same epoch runs (I2D
+    --use_D takes its steps one at a time, as the JAX package's scan rule
+    says), one loss line a step."""
     flags = _i2d_frames(tmp_path, 4)
     ck = tmp_path / "ck"
     argv = [sys.executable, "-m", "desr_tpu_torch.train", "--model_type", "I2D", "--use_D",
@@ -344,7 +345,8 @@ def test_train_cli_num_devices_2_runs_an_epoch(tmp_path):
     assert res.stdout.count("saving the model at the end of epoch 1") == 1
     assert sorted(os.listdir(tmp_path / "pred")) == [f"scene{i:04d}_00_{i:04d}.png"
                                                      for i in range(4)]
+    argv[argv.index("--name") + 1] = "e2"
     res = subprocess.run(argv + ["--spatial_devices", "2", "--steps_per_call", "2"],
                          cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
-    assert res.returncode != 0 and "--steps_per_call > 1 with --spatial_devices > 1 is not " \
-        "yet ported" in res.stderr
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert (ck / "e2" / "loss_log.txt").read_text().count("(epoch: 1, iters:") == 2

@@ -57,7 +57,8 @@ def test_inter_area_matrices_are_the_jax_package_s():
 ], ids=["down2x", "down-frac", "up2x", "up-frac", "mixed", "one-axis"])
 def test_inter_area_matches_jax_and_cv2(shape, out):
     """HW and HWC float32: within 1e-5 of resize_cv2_inter_area and of
-    cv2.resize(INTER_AREA)."""
+    cv2.resize(INTER_AREA); interpolation 1 (INTER_LINEAR) within 1e-5 of
+    cv2.resize(INTER_LINEAR)."""
     from desr_tpu_torch.data import transforms as T
 
     x = np.random.default_rng(3).uniform(-1, 1, shape).astype(np.float32)
@@ -67,8 +68,9 @@ def test_inter_area_matches_jax_and_cv2(shape, out):
     np.testing.assert_allclose(got, want.reshape(got.shape), rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, cv2.resize(x, out[::-1], interpolation=cv2.INTER_AREA),
                                rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.resize(x, *out, interpolation=1)
+    np.testing.assert_allclose(T.resize(x, *out, interpolation=1),
+                               cv2.resize(x, out[::-1], interpolation=cv2.INTER_LINEAR),
+                               rtol=0, atol=1e-5)
 
 
 def _write_folder(root, n=3, hw=(100, 150), seed=0):

@@ -170,10 +170,12 @@ def test_predict_spatial_devices_2_matches_one_device(tmp_path):
         assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1, f
 
 
+# the --num_workers case keeps the id it had while it was refused: it now
+# parses (msg None; tests/test_torch_spatial_last.py serves with it)
 @pytest.mark.parametrize("flags,msg", [
     (["--export", "x"], "not with --spatial_devices"),
     (["--from_export", "x"], "not with --spatial_devices"),
-    (["--num_workers", "2"], "not yet ported"),
+    pytest.param(["--num_workers", "2"], None, id="flags2-not yet ported"),
     (["--num_devices", "3"], "does not divide by --spatial_devices 2"),
 ])
 def test_predict_spatial_refusals(tmp_path, capsys, flags, msg):
@@ -181,6 +183,10 @@ def test_predict_spatial_refusals(tmp_path, capsys, flags, msg):
 
     argv = ["--name", "x", "--input_depth", str(tmp_path), "--input_img", str(tmp_path),
             "--output", str(tmp_path / "o"), "--device", "cpu", "--spatial_devices", "2"]
+    if msg is None:
+        args, _ = predict._parse(argv + flags)
+        assert (args.num_workers, args.spatial_devices) == (2, 2)
+        return
     with pytest.raises(SystemExit) as e:
         predict.main(argv + flags)
     assert e.value.code != 0 and msg in capsys.readouterr().err

@@ -169,27 +169,27 @@ def test_patchgan_stride1_tail_is_refused_on_a_band():
 
 # the three cases keep the ids they had while the remat flags refused a
 # spatial mesh: each remat flag now runs there (tests/test_torch_spatial_remat.py),
-# and beside a flag that still refuses the run stops on that flag
-@pytest.mark.parametrize("flag,other,msg", [
-    pytest.param("--remat", ["--steps_per_call", "2"], "--steps_per_call > 1", id="--remat"),
-    pytest.param("--remat_blocks", ["--device_aug"], "--device_aug", id="--remat_blocks"),
-    pytest.param("--remat_tails", ["--steps_per_call", "2"], "--steps_per_call > 1",
+# and so do --steps_per_call 2 and --device_aug beside it
+# (tests/test_torch_spatial_last.py)
+@pytest.mark.parametrize("flag,other,attr", [
+    pytest.param("--remat", ["--steps_per_call", "2"], ("steps_per_call", 2), id="--remat"),
+    pytest.param("--remat_blocks", ["--device_aug"], ("device_aug", True), id="--remat_blocks"),
+    pytest.param("--remat_tails", ["--steps_per_call", "2"], ("steps_per_call", 2),
                  id="--remat_tails"),
 ])
-def test_model_refuses_remat_on_a_spatial_mesh(tmp_path, capsys, flag, other, msg):
+def test_model_refuses_remat_on_a_spatial_mesh(tmp_path, capsys, flag, other, attr):
     """The train options, which every model is built from, take each remat
-    flag with a spatial mesh axis, and refuse it beside ``--steps_per_call
-    2`` or ``--device_aug``, which are not yet ported there, naming that
-    flag."""
+    flag with a spatial mesh axis, alone and beside ``--steps_per_call 2``
+    or ``--device_aug``, and print no error."""
     from desr_tpu_torch.options import train_options
 
     argv = _main_argv(tmp_path, [flag, "--device", "cpu", "--num_devices", "2",
                                  "--spatial_devices", "2"])
     assert getattr(train_options.parse(argv, print_options=False), flag[2:])
-    with pytest.raises(SystemExit):
-        train_options.parse(argv + other, print_options=False)
-    err = capsys.readouterr().err
-    assert f"{msg} with --spatial_devices > 1 is not yet ported" in err, err
+    opt = train_options.parse(argv + other, print_options=False)
+    assert getattr(opt, flag[2:]) and getattr(opt, attr[0]) == attr[1]
+    train_options.check_spatial(train_options.build_parser(), opt, 2)
+    assert "error" not in capsys.readouterr().err
 
 
 # ----------------------------------------------------------------- two ranks

@@ -544,8 +544,9 @@ def test_loader_workers_give_the_inline_batches(tmp_path):
 
 
 def test_unported_dataset_branches_raise(tmp_path):
-    """A resize other than INTER_AREA still raises (the rotate + crop branch
-    is ported: tests/test_torch_augment.py); the resize to --load_size_h/_w
+    """A cv2 interpolation code past 0-4 raises, and INTER_LINEAR (1) gives
+    the JAX package's cv2 call within 1e-5 (the rotate + crop branch is
+    ported: tests/test_torch_augment.py); the resize to --load_size_h/_w
     (INTER_AREA, here 256x320 -> 240x320, then padded to 512x640) gives the
     JAX dataset's items within 1e-6, test and --no_aug train branches."""
     from desr_tpu.data.main_dataset import MainDataset as JaxDataset
@@ -555,8 +556,13 @@ def test_unported_dataset_branches_raise(tmp_path):
 
     _write_folder(str(tmp_path), n=1)
     flags = _data_flags(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.resize(np.zeros((4, 6), np.float32), 8, 12, interpolation=1)
+    x = np.random.default_rng(1).uniform(-1, 1, (4, 6)).astype(np.float32)
+    with pytest.raises(KeyError, match="codes 0-4"):
+        TT.resize(x, 8, 12, interpolation=5)
+    from desr_tpu.data import transforms as JT
+
+    np.testing.assert_allclose(TT.resize(x, 8, 12, interpolation=1), JT.resize(x, 8, 12, 1),
+                               rtol=0, atol=1e-5)
     argv = ["--model_type", "main", "--name", "d", "--checkpoints_dir", str(tmp_path / "ck"),
             *flags[:-4], "--load_size_h", "240", "--load_size_w", "320"]
     for stage in ("test", "train"):
@@ -602,10 +608,12 @@ def test_every_port_flag_default_equals_jax():
 
 
 # the first two cases keep the ids they had while every --spatial_devices > 1
-# refused: --steps_per_call 2 still does, and one device does not divide by S = 2
+# refused: --steps_per_call 2 now runs there (msg None: the options take it;
+# tests/test_torch_spatial_last.py runs it), and one device does not divide
+# by S = 2
 @pytest.mark.parametrize("flag,msg", [
     pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--steps_per_call", "2"],
-                 "not yet ported", id="flag0-not yet ported"),
+                 None, id="flag0-not yet ported"),
     pytest.param(["--spatial_devices", "2"], "--num_devices 1 does not divide by "
                  "--spatial_devices 2", id="flag1-not yet ported"),
     (["--no_donate"], "no counterpart"), (["--fold_norm"], "no counterpart"),
@@ -614,6 +622,12 @@ def test_every_port_flag_default_equals_jax():
 def test_train_cli_refuses_what_it_does_not_run(flag, msg, capsys):
     from desr_tpu_torch import train
 
+    if msg is None:
+        opt = train_options.parse(["--model_type", "main", "--device", "cpu", *flag],
+                                  print_options=False)
+        train_options.check_spatial(train_options.build_parser(), opt, opt.num_devices)
+        assert (opt.steps_per_call, opt.spatial_devices) == (2, 2)
+        return
     with pytest.raises(SystemExit) as e:
         train.main(["--model_type", "main", "--device", "cpu", *flag])
     assert e.value.code != 0 and msg in capsys.readouterr().err

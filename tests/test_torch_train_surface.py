@@ -369,16 +369,23 @@ def test_newly_accepted_flags_parse(flags, attr, value):
 
 
 # the first two cases keep the ids they had while every --spatial_devices > 1
-# refused: --device_aug still does, and one device does not divide by S = 2
+# refused: --device_aug now runs there (msg None: the options take it;
+# tests/test_torch_spatial_last.py runs it), and one device does not divide
+# by S = 2
 @pytest.mark.parametrize("flags,msg", [
     pytest.param(["--num_devices", "2", "--spatial_devices", "2", "--device_aug"],
-                 "not yet ported", id="flags0-not yet ported"),
+                 None, id="flags0-not yet ported"),
     pytest.param(["--spatial_devices", "2"], "--num_devices 1 does not divide by "
                  "--spatial_devices 2", id="flags1-not yet ported"),
     (["--compiler_option", "xla_tpu_scoped_vmem_limit_kib=65536"], "steers XLA"),
     (["--no_donate"], "steers XLA"), (["--compile_cache_dir", "/x"], "steers XLA"),
 ])
 def test_mesh_flags_and_xla_switches_still_refuse(flags, msg, capsys):
+    if msg is None:
+        opt = _parse(*flags)
+        train_options.check_spatial(train_options.build_parser(), opt, opt.num_devices)
+        assert opt.device_aug and opt.spatial_devices == 2
+        return
     with pytest.raises(SystemExit) as e:
         _parse(*flags)
     assert e.value.code != 0 and msg in capsys.readouterr().err

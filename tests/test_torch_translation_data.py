@@ -31,7 +31,8 @@ from desr_tpu_torch.models import translation_networks as TTT
 def test_lanczos_resize_matches_cv2_and_jax(shape):
     """resize(..., interpolation=4) to 320x320: cv2's INTER_LANCZOS4 (8 taps,
     not widened when it shrinks, edge taps clamped) within 1e-5 of cv2 and
-    of the JAX package's ``transforms.resize``; bilinear (1) stays refused."""
+    of the JAX package's ``transforms.resize``; bilinear (1) within 1e-5 of
+    both too."""
     x = np.random.default_rng(3).uniform(-1, 1, shape).astype(np.float32)
     x[:8] = -1.0  # a flat band and its edge, as a depth map's holes give
     got = TT.resize(x, 320, 320, TT.INTER_LANCZOS4)
@@ -39,8 +40,10 @@ def test_lanczos_resize_matches_cv2_and_jax(shape):
     np.testing.assert_allclose(got, cv2.resize(x, (320, 320), interpolation=cv2.INTER_LANCZOS4),
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(got, JT.resize(x, 320, 320, 4), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TT.resize(x, 320, 320, interpolation=1)
+    got = TT.resize(x, 320, 320, interpolation=1)
+    np.testing.assert_allclose(got, cv2.resize(x, (320, 320), interpolation=cv2.INTER_LINEAR),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, JT.resize(x, 320, 320, 1), rtol=0, atol=1e-5)
 
 
 def _write_domain(root, n, seed, hw=(64, 80)):
