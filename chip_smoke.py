@@ -160,12 +160,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     its depths within 2e-3; SR within 1e-5), the upload from pinned memory
     and device_finish's time by CUDA events and by the profiler; then the
     train CLI with 4 loader workers and TF32 as the CLI leaves it (PyTorch's
-    defaults), host augmentation and then --device_aug, 24 steps each:
+    defaults), host augmentation (20 steps) and then --device_aug (24):
     launches per step as in (e), (g), (j), finite losses; after the
     loader's first 8 batches (2 a worker, all queued when the epoch starts)
     the wall of 4 steps (a round of the 4 workers) unprofiled gives the
     step's time and pairs/s with the feed (with the host's time inside the
-    steps), and the next 4 steps under a
+    steps), and under --device_aug the next 4 steps under a
     CUDA-only profiler the card's busy share (kernels and copies over their
     wall) and the profiled step's time; the epoch's last 8 steps, which the
     workers feed back to back, are not read; then 2 I2D steps
@@ -208,9 +208,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 (p) the quality chain (``desr_tpu_torch/tools/quality_eval.py``, in-process,
     one chain at a time, on synthetic scenes that can be learnt): train
     through ``train.main``, serve through ``predict.main``, score with the
-    offline metrics. (p1) main at --width 8, float32, 90 steps (the JAX
-    tool's QUALITY_r03 configuration at 15 of its 30 epochs); (p2) main at
-    the default widths, bf16, 120 steps (20 epochs); (p3) SR at its 480x640 / 960x1280 geometry, default
+    offline metrics. (p1) main at --width 8, float32, 60 steps (the JAX
+    tool's QUALITY_r03 configuration at 10 of its 30 epochs); (p2) main at
+    the default widths, bf16, 60 steps (10 epochs); (p3) SR at its 480x640 / 960x1280 geometry, default
     widths, bf16, a 4-step main pretrain and 2 SR steps, served through
     --export / --from_export; (p4) I2D at 480x640 and stage 2 at 320x320,
     2 steps each. Checks: every split's nine metrics finite, one PNG a
@@ -285,7 +285,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     stage-2 iterations at the README's flags (batch 6, 256x256 crops from
     12 frames a domain; K1 216 an iteration, each with halo rows and a
     backward), finite losses, frozen nets unchanged and trained ones moved
-    in the saved checkpoints; then the bf16 SR step timed (2 after one)
+    in the saved checkpoints; then the bf16 SR step timed (1 after one)
     with its collectives forward and backward and peak memory a rank,
     against one process (two processes sharing one card: not a scaling
     figure); the same step under --remat_blocks on the ranks, held to it
@@ -307,7 +307,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     (K1 18 a forward); GeneratorI_F -> GeneratorF_D at ngf_img_feature 32
     on B=6 256x256 frames (K1 20 a forward, the dilated blocks on cuDNN);
     define_G(use_old=True) under group norm, GroupNorm(1): a resnet_6blocks
-    at Depth_f's geometry (K1 12) and a unet_128 at Task's, forward.
+    at Depth_f's geometry (K1 12) and a unet_128 at Task's, forward. Then
+    the helpers no model calls, on card tensors at stage 2's shapes against
+    the same calls on the CPU: masked_mean_dif, masked_signed_mean, the
+    masked cosine loss with compat_bug True and False (each within 1e-5
+    relative), MeanMatching both ways with its shift drawn by a CUDA
+    generator (bit for bit against the CPU on that shift); one line of
+    their gaps.
 (d) prints one {"kernels": [...]} line with each kernel's launches on the
     serving and train paths (and by path; ``launches_artifact``: phase (m)'s
     runs of the exported programs), error, time, the wrapper's host time a
@@ -1213,13 +1219,15 @@ def _serve_checks(model, batch, tag, k2_route):
 
 
 def _profile(fn, iters, tag="c", unit="batch"):
-    """Device time by kernel over ``iters`` calls of fn (torch.profiler), and
-    the device's busy share of the window's host wall time."""
+    """Device time by kernel over ``iters`` calls of fn (torch.profiler,
+    CUDA activity alone: the host's ops are not recorded, whose events took
+    a minute to gather over stage 2's iterations on a slow host), and the
+    device's busy share of the window's host wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -2239,6 +2247,7 @@ FED_WORKERS = 4             # the loader's default --num_threads
 FED_WARM = 2 * FED_WORKERS
 FED_TIMED, FED_PROFILED = FED_WORKERS, FED_WORKERS
 FED_STEPS = FED_WARM + FED_TIMED + FED_PROFILED + FED_WARM
+FED_HOST_STEPS = FED_STEPS - FED_PROFILED  # the host augmentation's runs: no profiled window
 FED_UNIQUE = 4              # frames written a domain (~0.7 s each); the rest are hard links
 FED_SR_UNIQUE = 1           # SR's 968x1296 colour frames written a domain
 JIT_BOUNDS = (10.0, 1e-4, 2e-3)  # ColorJitter, 0-255 scale: max, share above 1, above 1e-3
@@ -2277,9 +2286,10 @@ def _aug_parity(tag, ds, n):
     return rep, gaps, cpu, card, batch
 
 
-def _fed_run(argv, model_cls):
-    """train.main(argv) for FED_STEPS steps, ``optimize_parameters`` wrapped:
-    a sync and a host timestamp after step FED_WARM, after FED_TIMED more and
+def _fed_run(argv, model_cls, profiled=True):
+    """train.main(argv) for FED_STEPS steps (FED_HOST_STEPS without
+    ``profiled``), ``optimize_parameters`` wrapped: a sync and a host
+    timestamp after step FED_WARM, after FED_TIMED more and, if ``profiled``,
     after FED_PROFILED more; those FED_PROFILED steps under torch.profiler
     (CUDA activity: kernels and copies) for the card's busy share. Inside the
     timed window, without syncs: the host time spent inside the steps (the
@@ -2294,7 +2304,9 @@ def _fed_run(argv, model_cls):
     from desr_tpu_torch import train
 
     orig = model_cls.optimize_parameters
-    marks = (FED_WARM, FED_WARM + FED_TIMED, FED_WARM + FED_TIMED + FED_PROFILED)
+    n_prof = FED_PROFILED if profiled else 0
+    marks = (FED_WARM, FED_WARM + FED_TIMED, FED_WARM + FED_TIMED + n_prof)
+    steps = marks[2] + FED_WARM
     st = {"n": 0, "in_step": 0.0}
 
     def step(self, *a, **k):
@@ -2308,10 +2320,10 @@ def _fed_run(argv, model_cls):
         if st["n"] in marks:
             torch.cuda.synchronize()
             st[st["n"]] = time.perf_counter()
-            if st["n"] == marks[1]:
+            if profiled and st["n"] == marks[1]:
                 st["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 st["prof"].start()
-            elif st["n"] == marks[2]:
+            elif profiled and st["n"] == marks[2]:
                 st["prof"].stop()
         return out
 
@@ -2324,24 +2336,27 @@ def _fed_run(argv, model_cls):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     launches = _counts()
-    check(st["n"] == FED_STEPS, f"fed loop: {st['n']} steps, want {FED_STEPS}")
+    check(st["n"] == steps, f"fed loop: {st['n']} steps, want {steps}")
     timed = (st[marks[1]] - st[marks[0]]) * 1e3
-    profiled = (st[marks[2]] - st[marks[1]]) * 1e3
-    busy = sum(ev.time_range.elapsed_us() for ev in st["prof"].events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     bounds = range(marks[0], marks[1] + 1, FED_WORKERS)
     rounds = [(st[b] - st[a]) * 1e3 / FED_WORKERS for a, b in zip(bounds, bounds[1:])]
-    return {"step_ms": timed / FED_TIMED, "in_step_ms": st["in_step"] * 1e3 / FED_TIMED,
-            "round_step_ms": rounds,
-            "profiled_step_ms": profiled / FED_PROFILED, "busy_share": busy / profiled,
-            "losses_finite": bool(all(math.isfinite(v) for v in losses.values()))}, launches
+    out = {"steps": steps, "step_ms": timed / FED_TIMED,
+           "in_step_ms": st["in_step"] * 1e3 / FED_TIMED, "round_step_ms": rounds,
+           "losses_finite": bool(all(math.isfinite(v) for v in losses.values()))}
+    if profiled:
+        window = (st[marks[2]] - st[marks[1]]) * 1e3
+        busy = sum(ev.time_range.elapsed_us() for ev in st["prof"].events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out.update(profiled_step_ms=window / FED_PROFILED, busy_share=busy / window)
+    return out, launches
 
 
 def phase_device_aug(tmp):
     """--device_aug at the README geometry: the augmenter on the card against
     the same function on the CPU, its device ms per batch, and the fed train
     loop (4 loader workers) with the host augmentation and with --device_aug,
-    one after the other, for main, I2D and SR; then a --profile_dir run."""
+    one after the other, for main, I2D and SR (the host runs without the
+    profiled window); then a --profile_dir run."""
     import numpy as np
     import torch
 
@@ -2421,11 +2436,14 @@ def phase_device_aug(tmp):
               f"device_finish {rep['finish_event_ms']:.3f} ms by CUDA events, "
               f"augmenter {rep['augment_device_ms']} ms of device time (copies apart)")
 
-        # the fed loop: the host path, then --device_aug
+        # the fed loop: the host path (no profiled window), then --device_aug
         for mode in ("host", "device_aug"):
-            r, launches = _fed_run(argv + (["--device_aug"] if mode == "device_aug" else []),
-                                   model_cls)
-            want = {k: v * FED_STEPS for k, v in per_step.items()}
+            aug = mode == "device_aug"
+            r, launches = _fed_run(
+                argv + (["--device_aug"] if aug
+                        else ["--max_dataset_size", str(FED_HOST_STEPS * bs)]),
+                model_cls, profiled=aug)
+            want = {k: v * r["steps"] for k, v in per_step.items()}
             check(launches == want and r["losses_finite"],
                   f"[l] {stage} fed loop ({mode}): launches {launches}, want {want}; {r}")
             paths[f"train_fed_{stage}_{mode}"] = launches
@@ -2433,15 +2451,16 @@ def phase_device_aug(tmp):
             rep[f"fed_{mode}_pairs_per_s"] = bs * 1000 / r["step_ms"]
             rep[f"fed_{mode}_in_step_ms"] = r["in_step_ms"]
             rep[f"fed_{mode}_round_step_ms"] = r["round_step_ms"]
-            rep[f"fed_{mode}_profiled_step_ms"] = r["profiled_step_ms"]
-            rep[f"fed_{mode}_busy_share"] = r["busy_share"]
+            if aug:
+                rep[f"fed_{mode}_profiled_step_ms"] = r["profiled_step_ms"]
+                rep[f"fed_{mode}_busy_share"] = r["busy_share"]
             print(f"[l] {stage} fed loop, {mode}, batch {bs}, {FED_WORKERS} workers: "
-                  f"{r['step_ms']:.2f} ms a step ({rep[f'fed_{mode}_pairs_per_s']:.2f} pairs/s "
-                  f"with the feed) over {FED_TIMED} steps after {FED_WARM} (host inside the "
-                  f"step {r['in_step_ms']:.2f} ms; by round of {FED_WORKERS} "
-                  f"{min(r['round_step_ms']):.2f}-{max(r['round_step_ms']):.2f}); the next "
-                  f"{FED_PROFILED} profiled: {r['profiled_step_ms']:.2f} ms a step, card busy "
-                  f"{100 * r['busy_share']:.1f}%")
+                  f"{r['step_ms']:.2f} ms a step ({rep[f'fed_{mode}_pairs_per_s']:.2f} "
+                  f"pairs/s with the feed) over {FED_TIMED} steps after {FED_WARM} (host "
+                  f"inside the step {r['in_step_ms']:.2f} ms; by round of {FED_WORKERS} "
+                  f"{min(r['round_step_ms']):.2f}-{max(r['round_step_ms']):.2f})"
+                  + (f"; the next {FED_PROFILED} profiled: {r['profiled_step_ms']:.2f} ms a "
+                     f"step, card busy {100 * r['busy_share']:.1f}%" if aug else ""))
         if rep["augment_device_ms"] is not None:
             rep["augment_share_of_fed_step"] = (rep["augment_device_ms"]
                                                 / rep["fed_device_aug_step_ms"])
@@ -3291,12 +3310,12 @@ def phase_bench_io(tmp):
 # (tag, the quality tool's argv after --root, width: None runs the options'
 # default widths, whether trained rmse and rmse_h must beat the degraded input)
 QUALITY_CHAINS = (
-    ("p1 main width 8 f32", ["--stage", "main", "--width", "8", "--epochs", "15",
+    ("p1 main width 8 f32", ["--stage", "main", "--width", "8", "--epochs", "10",
                              "--n_train", "24", "--n_test", "8", "--batch_size", "4",
                              "--hw", "128", "128", "--compute_dtype", "float32",
                              "--seed", "0"], 8, True),
     ("p2 main full width bf16", ["--stage", "main", "--compute_dtype", "bfloat16",
-                                 "--epochs", "20"], None, True),
+                                 "--epochs", "10"], None, True),
     ("p3 sr full width bf16", ["--stage", "sr", "--compute_dtype", "bfloat16", "--n_train", "4",
                                "--n_test", "2", "--sr_pre_epochs", "4", "--epochs", "2"],
      None, False),
@@ -3414,8 +3433,8 @@ DP_MAIN = (6, 384, 512)    # the main step's global batch on the README's crops:
 DP_I2D = (4, 384, 512)     # I2D --use_D, 2 a rank; a pool of 2 swaps in the first step
 DP_TRANS = (4, 256, 256)   # stage 2 with --netD Gu, 2 a rank
 DP_SR_LR = (128, 128)      # the SR step at batch 1 (the replicate path), HR 256x256
-DP_TIMED = 2               # main steps timed on the ranks after the checked one
-DP_REDUCE = 3              # gradient averages timed after them
+DP_TIMED = 1               # main steps timed on the ranks after the checked one
+DP_REDUCE = 1              # gradient averages timed after them
 DP_LAUNCHES = {            # a rank's launches: phase (e)'s, (j)'s, (k)'s with one G step, (g)'s
     "main": {"K1": K1_PER_STEP, "K3": K3_PER_STEP, "K3 backward": K3_PER_STEP},
     "i2d": {"K1": I2D_K1_PER_STEP, "K3": 0, "K3 backward": 0},
@@ -3779,7 +3798,7 @@ SP_MODES = {
 }
 SP_CKPT = {"main": "sp_main", "sr": "sp_main", "i2d": "sp_i2d", "translate": "sp_tr"}
 SP_F32_BATCH = 2            # the float32 check's batch (the bf16 one serves the CLI's)
-SP_TIMED = 2                # forwards timed a mode, after one
+SP_TIMED = 1                # forwards timed a mode, after one
 SP_POOLED = {"i2d": 2}      # modes the ranks' CLI serves with --num_workers N (each rank a pool)
 SP_F32_BOUND = 1e-3         # float32, deterministic cuDNN: (c)'s bound of the kernels' route
 
@@ -4054,7 +4073,7 @@ ST_CHECKS = {"main": (2, 384, 512), "norm_batch": (2, 384, 512), "sr": (1, 512, 
              "main_group": (2, 384, 512), "main_device_aug": (2, 384, 512)}
 ST_FULL_ARGV = ()           # flags appended to the bf16 full-width runs (a rehearsal's widths)
 ST_SR_HR = (1024, 1280)     # the bf16 SR step's HR frame: bench.py's geometry
-ST_TIMED = 2                # bf16 SR steps timed, after one
+ST_TIMED = 1                # bf16 SR steps timed, after one
 ST_JITTER_SEEDS = (12, 13)  # the one-process floor: the larger gap of two jittered steps
 ST_GROUP_SEEDS = {"main_group": (14,)}  # a third draw for the group's second step
 ST_STAGE2 = (6, 256, 256)   # the bf16 stage-2 iteration: the README's batch and crops
@@ -4855,6 +4874,7 @@ LAST_BLOCK = (12, 128, 96, 128)  # the main step's ResnetBlock input on 384x512 
 LAST_STAGE2 = (6, 256, 256)      # stage 2's batch and crops: G_A, and the split generators
 LAST_OLD = {"resnet_6blocks": ((12, 2, 384, 512), 128, 32),  # Depth_f's geometry
             "unet_128": ((6, 3, 384, 512), 1, 64)}          # Task's: input, output_nc, ngf
+LAST_HELPER_REL = 1e-5  # the helpers' reductions on the card against the CPU's, float32
 
 
 def _last_grads_close(tag, got, want, floor):
@@ -4944,6 +4964,60 @@ def _last_step(net, inputs, route=None):
             {k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None}), k1
 
 
+def _last_helpers():
+    """The JAX package's helpers that no model calls, on card tensors at
+    stage 2's shapes against the same calls on the CPU: ``masked_mean_dif``
+    and ``masked_signed_mean`` on (6, 1, 256, 256) depth maps and the masked
+    cosine loss under both ``compat_bug`` denominators on (6, 3, 256, 256)
+    normals, each within ``LAST_HELPER_REL`` relative; MeanMatching in both
+    directions, its shift drawn on the card by a CUDA generator and in
+    [0, mu), its output equal bit for bit to the CPU's post-draw part on
+    that shift. Returns the gaps."""
+    import torch
+
+    from desr_tpu_torch.ops import losses as L
+
+    dev = LAST_DEVICE
+    b, h, w = LAST_STAGE2
+    gen = torch.Generator().manual_seed(31)
+    # [-1, 1] depth maps with holes at exactly -1 (9% and 5%), fake ~0.1 deeper
+    real, fake = (torch.clamp(torch.rand((b, 1, h, w), generator=gen) * 2.2 - lo, -1.0, 1.0)
+                  for lo in (1.2, 1.1))
+    mask = (torch.rand((b, 1, h, w), generator=gen) > 0.3).float()
+    normals = [torch.randn((b, 3, h, w), generator=gen) for _ in range(2)]
+    mask3 = mask.expand(-1, 3, -1, -1)
+    calls = {
+        "masked_mean_dif": (L.masked_mean_dif, (real, fake, mask), {}),
+        "masked_signed_mean": (L.masked_signed_mean, (real, fake, mask), {}),
+        "masked_cos_sim_loss_planar": (L.masked_cos_sim_loss_planar, (*normals, mask3), {}),
+        "masked_cos_sim_loss_planar_compat_bug_false": (
+            L.masked_cos_sim_loss_planar, (*normals, mask3), {"compat_bug": False}),
+    }
+    gaps = {}
+    for name, (fn, args, kw) in calls.items():
+        want = float(fn(*args, **kw))
+        got = fn(*(a.to(dev) for a in args), **kw)
+        check(got.device.type == dev, f"[t] {name} ran on {got.device}")
+        gaps[name] = abs(float(got) - want) / abs(want)
+        check(math.isfinite(float(got)) and gaps[name] <= LAST_HELPER_REL,
+              f"[t] {name} on the card {float(got)!r}, on the CPU {want!r}")
+    mu = 0.3
+    for direction in ("A2B", "B2A"):
+        out = L.mean_matching_shift(torch.Generator(device=dev).manual_seed(41), real.to(dev),
+                                    fake.to(dev), direction, mu)
+        shift = torch.rand((), generator=torch.Generator(device=dev).manual_seed(41),
+                           device=dev) * mu
+        want = L.mean_matching_apply(real, fake, direction, shift.cpu())
+        gap = max(float((o.cpu() - wt).abs().max()) for o, wt in zip(out, want))
+        check(all(o.device.type == dev for o in out) and 0.0 <= float(shift) < mu
+              and all(torch.equal(o.cpu(), wt) for o, wt in zip(out, want)),
+              f"[t] MeanMatching {direction}: shift {float(shift)!r} on {shift.device}, "
+              f"max |d| vs the CPU {gap:.3g}")
+        gaps[f"mean_matching_{direction}"] = gap
+        gaps[f"mean_matching_{direction}_shift"] = float(shift)
+    return gaps
+
+
 def _last_routes(net, inputs):
     """``_last_step`` through K1, its plain version and the perturbed plain
     version: (the three results, K1's launches on the kernel route)."""
@@ -4974,7 +5048,11 @@ def phase_last_capabilities(tmp):
       blocks on cuDNN);
     - ``define_G(use_old=True)`` under group norm, GroupNorm(1): a
       resnet_6blocks at Depth_f's geometry (K1 12 a forward) against its
-      plain version, and a unet_128 at Task's, finite, forward only."""
+      plain version, and a unet_128 at Task's, finite, forward only;
+    - the JAX package's helpers that no model calls (``_last_helpers``):
+      the masked means, the masked cosine loss under both ``compat_bug``
+      denominators, MeanMatching with its shift drawn on the card, against
+      the same calls on the CPU."""
     import torch
 
     from desr_tpu_torch.models import layers as TL
@@ -5094,6 +5172,13 @@ def phase_last_capabilities(tmp):
           f"{LAST_OLD['resnet_6blocks'][0]} K1 12 a forward, vs plain "
           f"{report['use_old_resnet_6blocks']['out']:.3g}; unet_128 "
           f"{LAST_OLD['unet_128'][0]} finite; {time.perf_counter() - t0:.1f} s")
+
+    # the helpers no model calls
+    t0 = time.perf_counter()
+    report["helpers"] = _last_helpers()
+    print(f"[t] the helpers no model calls, on the card against the CPU (relative gaps; "
+          f"MeanMatching max |d| and its shift drawn on the card): "
+          f"{json.dumps(report['helpers'])}; {time.perf_counter() - t0:.2f} s")
     if dev == "cuda":
         torch.cuda.empty_cache()
     print("[t] " + json.dumps(report))

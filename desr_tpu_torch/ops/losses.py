@@ -3,7 +3,8 @@
 Depth maps are (B, H, W), normal and image maps (B, C, H, W); each loss
 returns a scalar. The masked (task, holes, holes_l2) triplets of stage 3 run
 on the K3 kernel (``ops/masked_loss.py``); stage 2's masked L1s are plain
-sums, as in the JAX package.
+sums, as in the JAX package. ``masked_mean_dif``, ``masked_signed_mean`` and
+MeanMatching (``mean_matching_shift``) are its helpers that no model calls.
 
 Over data-parallel ranks (``desr_tpu_torch/parallel``) each rank's loss is N
 times its share of the global one, so that the ranks' mean gradient is the
@@ -59,6 +60,26 @@ def masked_l1_loss(x, y, mask, eps=1e-6, group=None):
     return _over_count(((y - x).abs() * mask).sum(), mask.sum(), eps, group)
 
 
+def masked_mean_dif(x, y, mask, eps=1e-6):
+    """The batch's mean of |per-item masked mean of (y - x)| (losses.py:37):
+    each item's sums run over every non-batch axis, so (B, C, H, W) here
+    computes what NHWC computes in the JAX package. Planar (B, H, W) maps
+    raise ValueError, as there (stage 2's ``--l_mean_A`` / ``--l_mean_B``
+    would pass such maps; the port refuses those flags)."""
+    if x.dim() != 4:
+        raise ValueError(f"masked_mean_dif takes 4-D maps, not shape {tuple(x.shape)}")
+    mask = mask.to(x.dtype)
+    num = ((y - x) * mask).sum(dim=(1, 2, 3))
+    den = mask.sum(dim=(1, 2, 3)) + eps
+    return (num / den).abs().mean()
+
+
+def masked_signed_mean(x, y, mask, eps=1e-6):
+    """sum((y - x) * mask) / (sum(mask) + eps) (losses.py:48)."""
+    mask = mask.to(x.dtype)
+    return ((y - x) * mask).sum() / (mask.sum() + eps)
+
+
 def _below(x, spatial):
     """x with the first row of the rank below appended along H (none at
     the frame's bottom), under an active ``spatial``; else x."""
@@ -89,14 +110,15 @@ def cos_sim_loss_planar(x, y, eps=1e-8):
     return (1.0 - _cos_planar(x, y, eps)).mean()
 
 
-def masked_cos_sim_loss_planar(x, y, mask_b3hw, eps=1e-8, group=None):
+def masked_cos_sim_loss_planar(x, y, mask_b3hw, compat_bug=True, eps=1e-8, group=None):
     """sum((1 - cos) * mask) / (sum(mask) + 1e6) on (B, C, H, W) maps with a
-    (B, C, H, W) mask (losses.py:246, the as-shipped ``compat_bug=True``
-    denominator); over ``group`` N times this rank's sum over the global
-    count."""
+    (B, C, H, W) mask (losses.py:245): the reference's shipped denominator
+    under ``compat_bug`` (the default, which every caller keeps), else
+    sum(mask) + 1e-6; over ``group`` N times this rank's sum over the
+    global count."""
     loss = (1.0 - _cos_planar(x, y, eps))[:, None]
     mask = mask_b3hw.to(x.dtype)
-    return _over_count((loss * mask).sum(), mask.sum(), 1e6, group)
+    return _over_count((loss * mask).sum(), mask.sum(), 1e6 if compat_bug else 1e-6, group)
 
 
 def gan_loss(prediction, target_is_real, mode="lsgan"):
@@ -215,3 +237,24 @@ def gradient_penalty(d_apply, real, fake, generator=None, gp_type="mixed", const
     (grads,) = torch.autograd.grad(d_apply(interp).sum(), interp, create_graph=True)
     norm = torch.linalg.vector_norm(grads.reshape(real.shape[0], -1) + eps, dim=1)
     return (norm - constant).square().mean() * lambda_gp, grads
+
+
+def mean_matching_apply(real, fake, direction, shift):
+    """The reference's MeanMatching after its draw (losses.py:180;
+    translation_network.py:244-279, which no shipped config calls): add
+    ``shift`` to the valid (> -1) pixels of ``fake`` ("A2B") or ``real``
+    ("B2A"), clamped to [-1, 1]. Returns (real, fake)."""
+    if direction == "A2B":
+        fake = torch.clamp(fake + shift * (fake > -1.0), -1.0, 1.0)
+    elif direction == "B2A":
+        real = torch.clamp(real + shift * (real > -1.0), -1.0, 1.0)
+    else:
+        raise NotImplementedError("Specify direction")
+    return real, fake
+
+
+def mean_matching_shift(generator, real, fake, direction, mu):
+    """MeanMatching (losses.py:180): one shift drawn from U[0, mu) by
+    ``generator``, on its device, then ``mean_matching_apply``."""
+    shift = torch.rand((), generator=generator, device=generator.device) * mu
+    return mean_matching_apply(real, fake, direction, shift)

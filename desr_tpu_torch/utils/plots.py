@@ -6,6 +6,7 @@ normals, RdYlBu colormap), ``plot_I2D`` (3 columns) and ``plot_translation``
 port's visuals (``utils/visualizer.py:image_hwc`` reads their layouts) and
 log one figure to ``wandb``. Each returns None, doing nothing, when
 matplotlib cannot be imported (the card's machine has none).
+``tensor2im_rgb`` and ``get_normals`` are the numpy display helpers.
 """
 
 from __future__ import annotations
@@ -31,12 +32,30 @@ def tensor2im_depth(arr, max_distance=5100.0):
     return (arr * (max_distance / 2) + max_distance / 2) / 1000.0
 
 
+def tensor2im_rgb(arr):
+    """[-1, 1] RGB -> [0, 1] for display; the first frame of a batch."""
+    a = np.asarray(arr)
+    if a.ndim == 4:
+        a = a[0]
+    return np.clip((a + 1) / 2, 0, 1)
+
+
+def get_normals(depth):
+    """Normals of a numpy depth map for display, in [0, 1] (plots.py:39-46)."""
+    dzdx = -np.gradient(depth, axis=0)
+    dzdy = -np.gradient(depth, axis=1)
+    ones = np.ones_like(depth)
+    n = np.stack([dzdx, dzdy, ones], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True) + 1e-6
+    return (n + 1) / 2
+
+
 def _show(ax, image, depth_cmap):
     arr = image_hwc(image)
     if arr is None:
         return
     if arr.shape[-1] == 3:
-        ax.imshow(np.clip((arr + 1) / 2, 0, 1))
+        ax.imshow(tensor2im_rgb(arr))
     else:
         ax.imshow(tensor2im_depth(arr[..., 0]), cmap=depth_cmap)
 
