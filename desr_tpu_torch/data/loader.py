@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils.data import BatchSampler, DataLoader, RandomSampler, SequentialSampler, Subset
 
+from desr_tpu_torch import tracing
 from desr_tpu_torch.parallel.mesh import split_h
 
 
@@ -76,7 +77,7 @@ class DeviceLoader:
 
     def __iter__(self):
         for batch in self.loader:
-            with torch.profiler.record_function("device_finish"):
+            with tracing.span("device_finish"):
                 batch = self.finish(batch, self.device)
             yield batch
 

@@ -48,7 +48,7 @@ import torch
 import torch.nn as nn
 
 from desr_tpu_torch import checkpoints as ckpt
-from desr_tpu_torch import resolve_device
+from desr_tpu_torch import resolve_device, tracing
 from desr_tpu_torch.models.layers import (
     Dropout,
     remat_call,
@@ -113,9 +113,10 @@ class BaseModel(nn.Module):
         recorded, one checkpoint over the whole call (its recompute
         normalises as ``train`` says, see ``layers.with_batch_norm_mode``)."""
         net = self.nets[name]
-        if not self.remat_nets:
-            return net(*args)
-        return remat_call(with_batch_norm_mode(net, train), "net", *args)
+        with tracing.span("net." + name):
+            if not self.remat_nets:
+                return net(*args)
+            return remat_call(with_batch_norm_mode(net, train), "net", *args)
 
     def split_trainable(self, betas=(0.9, 0.999), weight_decay=0.0):
         """Freeze every net, then give ``requires_grad`` back to the trainable
@@ -254,7 +255,8 @@ class BaseModel(nn.Module):
 
     def set_input(self, batch):
         """Stage this rank's rows of a host batch on the device (``stage``)."""
-        self.use_batch(*self.stage(batch))
+        with tracing.span("step.stage"):
+            self.use_batch(*self.stage(batch))
 
     def use_batch(self, batch, paths):
         """Make a staged batch the current one. ``step_group`` is the process
@@ -337,7 +339,8 @@ class BaseModel(nn.Module):
         per batch; the metrics kept are the last step's, as the JAX scan's.
         ``iters`` is the iteration count after the group. The last batch
         stays staged."""
-        staged = [self.stage(b) for b in batches]
+        with tracing.span("step.stage"):
+            staged = [self.stage(b) for b in batches]
         for batch, paths in staged:
             self.use_batch(batch, paths)
             self.optimize_parameters(iters)

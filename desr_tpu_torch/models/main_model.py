@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from desr_tpu_torch import tracing
 from desr_tpu_torch.models import networks, translation_networks
 from desr_tpu_torch.models.base_model import BaseModel
 from desr_tpu_torch.models.layers import batch_norm_mode
@@ -102,8 +103,11 @@ class ServingForward(torch.nn.Module):
     def guidance(self, images):
         """(features, depth prior) of the frozen image nets: compute-dtype
         NCHW features and a float32 (B, H, W) depth, on the images' grid."""
-        feats = self.I2D_features(images)
-        return feats, self.Image2Depth(feats)[:, 0].float()
+        with tracing.span("net.I2D_features"):
+            feats = self.I2D_features(images)
+        with tracing.span("net.Image2Depth"):
+            dbi = self.Image2Depth(feats)
+        return feats, dbi[:, 0].float()
 
     def forward(self, B_d, B_i):  # noqa: N803  (the batch keys)
         dt = self.compute_dtype
@@ -115,10 +119,13 @@ class ServingForward(torch.nn.Module):
         feats_real, real_dbi = self.guidance(real_image)
         real_pair = torch.stack([real_depth, real_dbi], dim=1).to(dt)
         real_pair = real_pair.contiguous(memory_format=torch.channels_last)
-        feat_real_d = self.Depth_f(real_pair)
+        with tracing.span("net.Depth_f"):
+            feat_real_d = self.Depth_f(real_pair)
         # channel order of main_model.py:237 (apply_parts is the same function)
         task_in = torch.cat([feats_real, feat_real_d, real_pair, real_image], dim=1)
-        return self.Task(task_in)[:, 0].float()
+        with tracing.span("net.Task"):
+            pred = self.Task(task_in)
+        return pred[:, 0].float()
 
 
 class MainModel(BaseModel):
@@ -254,11 +261,14 @@ class MainModel(BaseModel):
         of several ranks, this rank's rows of it (``shard``; a ``Shard`` as
         it is) and of the prediction (``serving_layout``).
         """
-        batch = self.shard(batch)
-        module = self.serving_module()
-        with self.serving_layout(batch, module):
-            return module(_to_device(batch["B_d"], self.device),
-                          _to_device(batch["B_i"], self.device))
+        with tracing.span("serve"):
+            batch = self.shard(batch)
+            module = self.serving_module()
+            with self.serving_layout(batch, module):
+                with tracing.span("serve.upload"):
+                    inputs = (_to_device(batch["B_d"], self.device),
+                              _to_device(batch["B_i"], self.device))
+                return module(*inputs)
 
     def _guidance(self, images):
         """(features, depth prior) of the frozen image nets: compute-dtype
@@ -300,8 +310,9 @@ class MainModel(BaseModel):
         batched = not getattr(self.opt, "no_batched_branches", False)
         bsz = real_image.shape[0]
         with torch.no_grad():
-            syn2real = nets["G_A_d"](batch["A_d"].to(dt).permute(0, 3, 1, 2),
-                                     syn_image)[:, 0].float()
+            with tracing.span("net.G_A_d"):
+                syn2real = nets["G_A_d"](batch["A_d"].to(dt).permute(0, 3, 1, 2), syn_image)
+            syn2real = syn2real[:, 0].float()
             real_input_depth = self._real_input_depth(batch, real_depth, real_image, train)
             if batched:
                 both_images = torch.cat([syn_image, real_image], 0)
@@ -317,10 +328,11 @@ class MainModel(BaseModel):
             holes = dict(n_max=n, max_frac=self._hole_max_frac, generator=self.hole_generator,
                          rows=getattr(batch, "rows", None),
                          h_rows=batch.h_rows if sp is not None else None)
-            gt_mask_real = DPT.random_rect_holes(real_mask, p=p_real, **holes)
-            depth_masked = DPT.punch_holes(real_input_depth, gt_mask_real)
-            gt_mask_syn = DPT.random_rect_holes(syn_mask, p=p_syn, **holes)
-            syn2real_masked = DPT.punch_holes(syn2real, gt_mask_syn)
+            with tracing.span("step.holes"):
+                gt_mask_real = DPT.random_rect_holes(real_mask, p=p_real, **holes)
+                depth_masked = DPT.punch_holes(real_input_depth, gt_mask_real)
+                gt_mask_syn = DPT.random_rect_holes(syn_mask, p=p_syn, **holes)
+                syn2real_masked = DPT.punch_holes(syn2real, gt_mask_syn)
         else:
             gt_mask_real, gt_mask_syn = torch.ones_like(real_mask), torch.ones_like(syn_mask)
             depth_masked, syn2real_masked = real_input_depth, syn2real
@@ -445,15 +457,22 @@ class MainModel(BaseModel):
         batch = self._batch if batch is None else batch
         self.optimizer.zero_grad(set_to_none=True)
         with self.step_layout(batch):
-            loss_g, m = self.losses(self.forward_all(batch, train=True), batch)
-            loss_g.backward()
+            with tracing.span("step.forward"):
+                f = self.forward_all(batch, train=True)
+            with tracing.span("step.losses"):
+                loss_g, m = self.losses(f, batch)
+            del f  # what the backward does not hold is freed before it runs
+            with tracing.span("step.backward"):
+                loss_g.backward()
         self.reduce_grads(self.trainable_nets)
         return {k: v.detach() for k, v in m.items()}
 
     def optimize_parameters(self, iters=None, fr=1):
         """One train step: forward, loss_G backward, Adam on Depth_f and Task."""
-        self.metrics = self.global_metrics(self.compute_grads())
-        self.optimizer.step()
+        with tracing.span("step"):
+            self.metrics = self.global_metrics(self.compute_grads())
+            with tracing.span("step.optimizer"):
+                self.optimizer.step()
 
     @torch.no_grad()
     def calculate(self, stage="test"):

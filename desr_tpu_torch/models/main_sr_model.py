@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from desr_tpu_torch import tracing
 from desr_tpu_torch.models import networks
 from desr_tpu_torch.models.main_model import BORDER, MainModel, ServingForward
 from desr_tpu_torch.ops import losses as L
@@ -101,7 +102,9 @@ class MainSRModel(MainModel):
         dt = self.compute_dtype
         r2s = self.run_net("G_B_d", torch.cat([batch["B_d"].to(dt).permute(0, 3, 1, 2),
                                                real_image], 1), train=train)
-        return self.nets["G_A_d"](r2s.to(dt), real_image)[:, 0].float()
+        with tracing.span("net.G_A_d"):
+            rec = self.nets["G_A_d"](r2s.to(dt), real_image)
+        return rec[:, 0].float()
 
     def _forward_all(self, batch, train):
         """MainModel's forward on the SR grids (main_sr_model.py:125-235); the

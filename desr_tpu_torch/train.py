@@ -56,7 +56,8 @@ three-shear map, not cv2's warp. ``--profile_dir <dir>`` records the
 epoch loop with ``torch.profiler`` and writes ``<dir>/trace.json`` (Chrome
 trace format), with a ``train_step`` span around each step and a
 ``device_finish`` span around each batch's upload and warp (main.py:43-47,
-180-184). Still refused: the XLA-only switches.
+180-184), and the model's spans inside them (``desr_tpu_torch/tracing.py``,
+on for the profiled window). Still refused: the XLA-only switches.
 
 ``--num_devices N`` (N > 1; 0: every visible card) trains data-parallel
 (``desr_tpu_torch/parallel``): N spawned ranks, NCCL on the cards (rank r on
@@ -177,6 +178,7 @@ def train(opt, device, mesh=None):
     process when None); returns ``main``'s losses."""
     import torch
 
+    from desr_tpu_torch import tracing
     from desr_tpu_torch.data import native_io
     from desr_tpu_torch.data.loader import create_dataset, dataset_for_model
 
@@ -205,6 +207,7 @@ def train(opt, device, mesh=None):
         profiler = profile(activities=[ProfilerActivity.CPU]
                            + ([ProfilerActivity.CUDA] if device.type == "cuda" else []))
         profiler.start()
+        tracing.enable()
     total_iters = opt.start_iter
     losses = {}
     plateau_metric = None
@@ -223,7 +226,7 @@ def train(opt, device, mesh=None):
                         iter_data_time = time.time()
                         continue
                 total_iters += opt.batch_size * max(len(group), 1)
-                with torch.profiler.record_function("train_step"):
+                with tracing.span("train_step"):
                     if spc > 1:
                         model.optimize_parameters_multi(group, total_iters)
                         group = []
@@ -252,7 +255,7 @@ def train(opt, device, mesh=None):
                 iter_data_time = time.time()
             if group:  # the epoch's tail, shorter than --steps_per_call
                 total_iters += opt.batch_size * len(group)
-                with torch.profiler.record_function("train_step"):
+                with tracing.span("train_step"):
                     model.optimize_parameters_multi(group, total_iters)
             if epoch % opt.save_epoch_freq == 0:
                 print("saving the model at the end of epoch %d, iters %d" % (epoch, total_iters))
@@ -285,6 +288,8 @@ def train(opt, device, mesh=None):
         if not opt.do_train:
             break
     if profiler is not None:
+        tracing.disable()
+        tracing.drain()
         profiler.stop()
         os.makedirs(opt.profile_dir, exist_ok=True)
         trace = os.path.join(opt.profile_dir, "trace.json")
