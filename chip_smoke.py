@@ -6,7 +6,7 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 (a) card and build: prints the card's name and power limit as nvidia-smi gives
-    them, builds the CUDA kernels from desr_tpu_torch/csrc with nvcc (sm_90a),
+    them, builds the CUDA kernels (K1/K2, K3, K4) from desr_tpu_torch/csrc with nvcc (sm_90a),
     one nvcc per source, and the image decoders (csrc/dataio.cpp) with g++,
     all started together.
 (b) kernels: the conv3x3 kernel in each variant of the serving path (K1 =
@@ -341,7 +341,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
     wrapper's host time per call (host_ms) and the kernels a call launches;
     the sums rows also time the earlier two-launch design
     (desr_tpu_torch/tools/masked_loss_two_launch.cu, built in phase (a)) on
-    the same inputs (two_launch_ms). Device times flush L2 before each call;
+    the same inputs (two_launch_ms); K4's moments and apply at the serving
+    nets' norms (B=8 at 512x640: each resnet_6blocks' 32, 64 and 128
+    channels, the U-Nets' levels down to 512 channels at 8x10, in the
+    layout each arrives in), the apply with the ResnetBlock tail's skip,
+    each against its bytes (moments 2 B a value, apply 4, with the skip 6),
+    the plain version's time, and its largest error against float64 beside
+    the plain version's. Device times flush L2 before each call;
     a profiler round that traced no kernel is run again (the profiler can
     miss a whole round).
 
@@ -368,6 +374,19 @@ PEAK_BF16 = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 PEAK_HBM = 3.35e12   # bytes/s, H100 SXM data sheet
 SERVE_SHAPE = (8, 128, 160, 128)  # the ResnetBlocks' NHWC input at 480x640 (padded 512x640), batch 8
 LAUNCHES_PER_BATCH = 24           # 12 ResnetBlocks x 2 convs (I2D_features + Depth_f)
+# K4's launches (moments, applies) where no gradient flows: a resnet_6blocks
+# net's 5 norms and its 6 ResnetBlock tails, a unet_128's 11 norms, a
+# PatchGAN's 3 norms, a ResnetBlockT translator's 9 tails (its norms are
+# GroupNorms, which K4 leaves alone); nets that train take none
+K4_PER_BATCH = (32, 44)           # main and SR serving: 5 + 5 + 11 + 11 norms, + 12 chain tails
+K4_PALLAS_PER_BATCH = (56, 56)    # the --pallas_conv route: the blocks' 24 norms as layers, no tails
+K4_PER_STEP = (16, 31)            # main and SR steps: the frozen guidance's 2B call and G_A_d
+K4_NORM_BATCH_PER_STEP = (0, 9)   # the main step under --norm batch: G_A_d's tails alone
+K4_EVAL = (32, 53)                # an eval forward: the four nets and G_A_d
+I2D_K4_PER_STEP = (11, 17)        # I2D --use_D: the frozen Image_f, D_depth's two no_grad logits
+I2D_K4_PER_STEP_NO_D = (5, 11)    # I2D without --use_D: Image_f alone
+I2D_K4_PER_BATCH = (16, 22)       # --I2D serving: Image_f and Task
+TRANSLATE_K4_PER_BATCH = (0, 9)   # --translate serving: the G's tails
 LOSS_SHAPE = (6, 512, 640)        # K3's input at the train step: batch 6, 480x640 padded
 TRANS_SHAPE = (6, 128, 160, 256)  # G_A_d's ResnetBlockT input at the train step (NHWC)
 K1_PER_STEP = 42                  # I2D_features 12 + Depth_f 12 (batch 2B) + G_A_d 18 (9 blocks)
@@ -473,19 +492,39 @@ def host_ms(fn, calls=200):
 
 def _reset_counts():
     from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import instance_norm as K4
     from desr_tpu_torch.ops import masked_loss as K3
 
     K.conv3x3_fused.launches = K.conv3x3.launches = 0
     K3.masked_loss_sums.launches = K3.masked_loss_grads.launches = 0
+    K4.instance_norm_moments.launches = K4.norm_apply.launches = 0
 
 
 def _counts():
-    """Each kernel's launches since ``_reset_counts``."""
+    """Each kernel's launches since ``_reset_counts`` ("K4": the moments,
+    "K4 apply": the normalisations)."""
     from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import instance_norm as K4
     from desr_tpu_torch.ops import masked_loss as K3
 
     return {"K1": K.conv3x3_fused.launches, "K2": K.conv3x3.launches,
-            "K3": K3.masked_loss_sums.launches, "K3 backward": K3.masked_loss_grads.launches}
+            "K3": K3.masked_loss_sums.launches, "K3 backward": K3.masked_loss_grads.launches,
+            "K4": K4.instance_norm_moments.launches, "K4 apply": K4.norm_apply.launches}
+
+
+def _holds(launches, want):
+    """Whether ``launches`` (``_counts()``) has ``want``'s count of each
+    kernel ``want`` names."""
+    return all(launches[k] == v for k, v in want.items())
+
+
+def _k4(per, times=1, device="cuda"):
+    """``want`` entries for K4's launches, ``per`` (moments, applies) times
+    ``times``; none off the card (a CPU rehearsal), where the counters
+    count no launch."""
+    if device != "cuda":
+        return {}
+    return {"K4": per[0] * times, "K4 apply": per[1] * times}
 
 
 def device_ms(fn, key, iters=20, warmup=3, flush_l2=True):
@@ -540,7 +579,7 @@ def phase_card_and_build():
 
     t0 = time.perf_counter()
     # one compiler process per source: nvcc for the kernels, g++ for the image decoders
-    names = ("conv3x3", "masked_loss", "dataio")
+    names = ("conv3x3", "masked_loss", "instance_norm", "dataio")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         two_launch = pool.submit(build_two_launch)
         paths = list(pool.map(lambda n: _build.build(n, verbose=True), names))
@@ -1078,7 +1117,6 @@ def phase_serving(tmp):
     from desr_tpu_torch import checkpoints as ckpt
     from desr_tpu_torch import predict
     from desr_tpu_torch.models.main_model import NET_NAMES, MainModel, NetOptions
-    from desr_tpu_torch.ops import conv3x3 as K
 
     # two requests of 8 frames; seeded random weights at the default widths
     for r in range(2):
@@ -1094,27 +1132,33 @@ def phase_serving(tmp):
                 "--input_depth", os.path.join(tmp, req, "depth"),
                 "--input_img", os.path.join(tmp, req, "img"), "--output", out,
                 "--batch_size", "8", "--compute_dtype", "bfloat16", *extra]
-        K.conv3x3_fused.launches = K.conv3x3.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         predict.main(argv)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, K.conv3x3_fused.launches, K.conv3x3.launches
+        return time.perf_counter() - t0, _counts()
 
-    launches = {"K1": 0, "K2": 0}
+    launches = dict.fromkeys(_counts(), 0)
     outs = []
     for r in range(2):
         out = os.path.join(tmp, f"out{r}")
-        wall, k1, k2 = serve(f"req{r}", out)
-        check(k1 == LAUNCHES_PER_BATCH and k2 == 0,
-              f"request {r}: K1 launched {k1} times, K2 {k2}; want {LAUNCHES_PER_BATCH} and 0")
-        launches["K1"] += k1
+        wall, c = serve(f"req{r}", out)
+        k4 = c["K4"], c["K4 apply"]
+        check(c["K1"] == LAUNCHES_PER_BATCH and c["K2"] == 0 and k4 == K4_PER_BATCH,
+              f"request {r}: K1 launched {c['K1']} times, K2 {c['K2']}, K4 {k4}; want "
+              f"{LAUNCHES_PER_BATCH}, 0 and {K4_PER_BATCH}")
+        for k, v in c.items():
+            launches[k] += v
         outs.append(_read_outputs(out, 8))
         print(f"[c] request {r}: 8 frames through predict.main in {wall:.2f} s host wall "
-              f"(model build + .pth load + PNG I/O included), K1 launches {k1}")
-    wall, k1, k2 = serve("req0", os.path.join(tmp, "out0_k2"), ["--net_args", "--pallas_conv"])
-    check(k2 == LAUNCHES_PER_BATCH and k1 == 0,
-          f"--pallas_conv request: K2 launched {k2} times, K1 {k1}; want {LAUNCHES_PER_BATCH} and 0")
-    launches["K2"] += k2
+              f"(model build + .pth load + PNG I/O included), K1 launches {c['K1']}, K4 {k4}")
+    wall, c = serve("req0", os.path.join(tmp, "out0_k2"), ["--net_args", "--pallas_conv"])
+    k1, k2, k4 = c["K1"], c["K2"], (c["K4"], c["K4 apply"])
+    check(k2 == LAUNCHES_PER_BATCH and k1 == 0 and k4 == K4_PALLAS_PER_BATCH,
+          f"--pallas_conv request: K2 launched {k2} times, K1 {k1}, K4 {k4}; want "
+          f"{LAUNCHES_PER_BATCH}, 0 and {K4_PALLAS_PER_BATCH}")
+    for k, v in c.items():
+        launches[k] += v
     d_mm = np.abs(_read_outputs(os.path.join(tmp, "out0_k2"), 8) - outs[0])
     # the two routes round to bf16 at different points; they are held to
     # each other in float32 below
@@ -1128,10 +1172,11 @@ def phase_serving(tmp):
               for i in range(8)]
     batch = {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    K.conv3x3_fused.launches = 0
+    _reset_counts()
     pred = model.serve_forward(batch)
-    check(K.conv3x3_fused.launches == LAUNCHES_PER_BATCH,
-          f"serve_forward: {K.conv3x3_fused.launches} K1 launches")
+    c = _counts()
+    check(c["K1"] == LAUNCHES_PER_BATCH and (c["K4"], c["K4 apply"]) == K4_PER_BATCH,
+          f"serve_forward: launches {c}")
     check(tuple(pred.shape) == (8, 512, 640) and bool(torch.isfinite(pred).all()),
           f"serve_forward: shape {tuple(pred.shape)} or non-finite values")
     report = _serve_checks(model, batch, "c", k2_route=True)
@@ -1164,17 +1209,20 @@ def phase_serving(tmp):
 
 def _serve_checks(model, batch, tag, k2_route):
     """serve_forward through the kernels against the same model with them
-    swapped for their plain versions (and, with ``k2_route``, the K2 route).
+    swapped for their plain versions (and, with ``k2_route``, the K2 route):
+    K1 and K2 for the plain convs, K4's moments and apply for the plain
+    norms and chain tails.
 
-    float32: the kernels differ from the plain convs by summation order only,
-    and the K2 route from the fused one by where the bias and the norm are
-    applied: max |d| <= 1e-3 on the tanh output in [-1, 1]. bf16: the kernel
-    must sit as close to the float32 result as the plain bf16 convs do (bf16
-    error itself sets the scale): mean |d| within 1.5x.
+    float32: the kernels differ from the plain versions by summation order
+    only, and the K2 route from the fused one by where the bias and the norm
+    are applied: max |d| <= 1e-3 on the tanh output in [-1, 1]. bf16: the
+    kernels must sit as close to the float32 result as the plain bf16
+    versions do (bf16 error itself sets the scale): mean |d| within 1.5x.
     """
     import torch
 
     from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import instance_norm as IN
 
     report = {}
 
@@ -1186,7 +1234,10 @@ def _serve_checks(model, batch, tag, k2_route):
         try:
             if plain:
                 with mock.patch.object(K, "conv3x3_fused", K.conv3x3_fused_plain), \
-                        mock.patch.object(K, "conv3x3", K.conv3x3_fused_plain):
+                        mock.patch.object(K, "conv3x3", K.conv3x3_fused_plain), \
+                        mock.patch.object(IN, "instance_norm_moments",
+                                          IN.instance_norm_moments_plain), \
+                        mock.patch.object(IN, "norm_apply", IN.norm_apply_plain):
                     return model.serve_forward(batch)
             return model.serve_forward(batch)
         finally:
@@ -1202,7 +1253,7 @@ def _serve_checks(model, batch, tag, k2_route):
     ref32 = forward(torch.float32, plain=True)
     for label, fused in routes:
         mean, mx = mean_max(forward(torch.float32, fused=fused), ref32)
-        print(f"[{tag}] serve_forward float32 {label} vs plain convs: mean |d| {mean:.3g}, "
+        print(f"[{tag}] serve_forward float32 {label} vs plain versions: mean |d| {mean:.3g}, "
               f"max |d| {mx:.3g} (bound 1e-3)")
         check(mx <= 1e-3, f"[{tag}] serve_forward float32 {label}: max |d| {mx:.3g} > 1e-3")
         report[f"f32_{label.split()[0]}_max_abs_diff"] = mx
@@ -1210,7 +1261,7 @@ def _serve_checks(model, batch, tag, k2_route):
     for label, fused in routes:
         mean, mx = mean_max(forward(torch.bfloat16, fused=fused), ref32)
         print(f"[{tag}] serve_forward bfloat16 {label} vs float32 plain: mean |d| {mean:.3g}, "
-              f"max |d| {mx:.3g}; plain bf16 convs: mean |d| {noise:.3g} (bound 1.5x)")
+              f"max |d| {mx:.3g}; plain bf16 versions: mean |d| {noise:.3g} (bound 1.5x)")
         check(mean <= 1.5 * noise,
               f"[{tag}] serve_forward bf16 {label}: mean |d| {mean:.3g} > 1.5 x {noise:.3g}")
         report[f"bf16_{label.split()[0]}_mean_abs_diff"] = mean
@@ -1250,6 +1301,7 @@ def _profile(fn, iters, tag="c", unit="batch"):
     out = {f"profile_device_ms_per_{unit}": device_ms / iters,
            "profile_busy_share": device_ms / wall_ms}
     for short, key in (("conv3x3", "conv3x3"), ("masked_loss", "masked_loss"),
+                       ("k4_moments", "moments_p"), ("k4_apply", "apply_p"),
                        ("replication_pad", "replication_pad"), ("memcpy", "Memcpy")):
         out[f"profile_{short}_ms_per_{unit}"] = sum(
             t for n, t in by_kernel.items() if key in n) / iters
@@ -1336,8 +1388,8 @@ def phase_training(tmp):
     wall = time.perf_counter() - t0
     launches = _counts()
     want = {"K1": 2 * K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP,
-            "K3 backward": 2 * K3_BWD_PER_STEP}
-    check(launches == want, f"train.main: launches {launches}; want {want} over 2 steps")
+            "K3 backward": 2 * K3_BWD_PER_STEP, **_k4(K4_PER_STEP, 2)}
+    check(_holds(launches, want), f"train.main: launches {launches}; want {want} over 2 steps")
     check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
           f"train.main losses: {losses}")
     print(f"[e] train.main: 2 steps of batch 6 in {wall:.1f} s host wall (model build, .pth "
@@ -1371,7 +1423,8 @@ def phase_training(tmp):
         g.append(float(model.metrics["G"]))
         c = _counts()
         check((c["K1"], c["K3"], c["K3 backward"], in_gad["n"])
-              == (K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP, K1_TRANS_PER_STEP),
+              == (K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP, K1_TRANS_PER_STEP)
+              and _holds(c, _k4(K4_PER_STEP)),
               f"step: launches {c} ({in_gad['n']} K1 in G_A_d)")
     for h in hooks:
         h.remove()
@@ -1413,7 +1466,7 @@ def phase_training(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     aug_launches = _counts()
-    check(aug_launches == want, f"train.main (aug): launches {aug_launches}; want {want}")
+    check(_holds(aug_launches, want), f"train.main (aug): launches {aug_launches}; want {want}")
     check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
           f"train.main (aug) losses: {losses}")
     print(f"[e] train.main without --no_aug: 2 steps of batch 6 on rotated 384x512 crops in "
@@ -1428,8 +1481,8 @@ def phase_training(tmp):
     _reset_counts()
     model.optimize_parameters()
     c = _counts()
-    check((c["K1"], c["K3"], c["K3 backward"]) == (K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP),
-          f"augmented step: launches {c}")
+    check((c["K1"], c["K3"], c["K3 backward"]) == (K1_PER_STEP, K3_PER_STEP, K3_BWD_PER_STEP)
+          and _holds(c, _k4(K4_PER_STEP)), f"augmented step: launches {c}")
     check(bool(np.isfinite(float(model.metrics["G"]))), "augmented step: G not finite")
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(model.optimize_parameters, iters=STEP_TIMED, warmup=2)
@@ -1572,7 +1625,6 @@ def phase_sr_serving(tmp):
     from desr_tpu_torch import predict
     from desr_tpu_torch.models.main_model import NET_NAMES, NetOptions
     from desr_tpu_torch.models.main_sr_model import MainSRModel
-    from desr_tpu_torch.ops import conv3x3 as K
     from desr_tpu_torch.ops.resize import resize_bicubic_planar
 
     for r in range(2):
@@ -1581,36 +1633,40 @@ def phase_sr_serving(tmp):
                         generator=torch.Generator().manual_seed(2))
     for name in NET_NAMES:
         ckpt.save_net(model.nets[name], ckpt.net_ckpt_path(tmp, "sr", "latest", name))
-    launches = {"K1": 0}
+    launches = {"K1": 0, "K4": 0, "K4 apply": 0}
     for r in range(2):
         out = os.path.join(tmp, f"out{r}")
         argv = ["--name", "sr", "--checkpoints_dir", tmp, "--SR",
                 "--input_depth", os.path.join(tmp, f"req{r}", "depth"),
                 "--input_img", os.path.join(tmp, f"req{r}", "img"), "--output", out,
                 "--batch_size", "4", "--compute_dtype", "bfloat16"]
-        K.conv3x3_fused.launches = K.conv3x3.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         predict.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        k1, k2 = K.conv3x3_fused.launches, K.conv3x3.launches
-        check(k1 == LAUNCHES_PER_BATCH and k2 == 0,
-              f"SR request {r}: K1 launched {k1} times, K2 {k2}; want {LAUNCHES_PER_BATCH} and 0")
-        launches["K1"] += k1
+        c = _counts()
+        k1, k2, k4 = c["K1"], c["K2"], (c["K4"], c["K4 apply"])
+        check(k1 == LAUNCHES_PER_BATCH and k2 == 0 and k4 == K4_PER_BATCH,
+              f"SR request {r}: K1 launched {k1} times, K2 {k2}, K4 {k4}; want "
+              f"{LAUNCHES_PER_BATCH}, 0 and {K4_PER_BATCH}")
+        for k in launches:
+            launches[k] += c[k]
         outs = _read_outputs(out, 4, hw=(960, 1280))
         check(int(outs.max()) > 0, f"SR request {r}: an output is all zeros")
         print(f"[f] SR request {r}: 4 frames 960x1280 through predict.main --SR in {wall:.2f} s "
-              f"host wall (model build + .pth load + PNG I/O included), K1 launches {k1}")
+              f"host wall (model build + .pth load + PNG I/O included), K1 launches {k1}, K4 {k4}")
 
     frames = [predict.decode_frame(os.path.join(tmp, "req0", "depth", f"f{i:02d}.png"),
                                    os.path.join(tmp, "req0", "img", f"f{i:02d}.png"), 5100.0, 256)
               for i in range(4)]
     batch = {"B_d": np.stack([f[0] for f in frames]), "B_i": np.stack([f[1] for f in frames])}
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    K.conv3x3_fused.launches = 0
+    _reset_counts()
     pred = model.serve_forward(batch)
-    check(K.conv3x3_fused.launches == LAUNCHES_PER_BATCH,
-          f"SR serve_forward: {K.conv3x3_fused.launches} K1 launches")
+    c = _counts()
+    check(c["K1"] == LAUNCHES_PER_BATCH and (c["K4"], c["K4 apply"]) == K4_PER_BATCH,
+          f"SR serve_forward: launches {c}")
     check(tuple(pred.shape) == (4, 1024, 1280) and bool(torch.isfinite(pred).all()),
           f"SR serve_forward: shape {tuple(pred.shape)} or non-finite values")
     report = _serve_checks(model, batch, "f", k2_route=False)
@@ -1700,8 +1756,8 @@ def phase_sr_training(tmp):
     wall = time.perf_counter() - t0
     launches = _counts()
     want = {"K1": 2 * SR_K1_PER_STEP, "K2": 0, "K3": 2 * K3_PER_STEP,
-            "K3 backward": 2 * K3_BWD_PER_STEP}
-    check(launches == want, f"train.main --SR: launches {launches}; want {want} over 2 steps")
+            "K3 backward": 2 * K3_BWD_PER_STEP, **_k4(K4_PER_STEP, 2)}
+    check(_holds(launches, want), f"train.main --SR: launches {launches}; want {want} over 2 steps")
     check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
           f"train.main --SR losses: {losses}")
     print(f"[g] train.main --SR: 2 steps of batch 1 (HR 1024x1280) in {wall:.1f} s host wall "
@@ -1837,8 +1893,10 @@ def phase_i2d_serving(tmp):
         ckpt.save_net(model.nets[name], ckpt.net_ckpt_path(tmp, "i2d", "latest", name))
     out = os.path.join(tmp, "out")
     wall, launches = _serve_cli(tmp, "i2d", "req", out, ["--I2D"])
-    check(launches == {"K1": I2D_K1_PER_BATCH, "K2": 0, "K3": 0, "K3 backward": 0},
-          f"predict --I2D: launches {launches}; want K1 {I2D_K1_PER_BATCH} a batch")
+    check(_holds(launches, {"K1": I2D_K1_PER_BATCH, "K2": 0, "K3": 0,
+                           "K3 backward": 0, **_k4(I2D_K4_PER_BATCH)}),
+          f"predict --I2D: launches {launches}; want K1 {I2D_K1_PER_BATCH}, K4 "
+          f"{I2D_K4_PER_BATCH} a batch")
     outs = _read_outputs(out, 8)
     check(int(outs.max()) > 0, "predict --I2D: an output is all zeros")
     print(f"[h] predict --I2D: 8 frames 480x640 (RGB only) in {wall:.2f} s host wall (model "
@@ -1896,9 +1954,10 @@ def phase_translate_serving(tmp):
         wall, launches = _serve_cli(tmp, "tr", "req", out,
                                     ["--translate", direction, "--input_depth",
                                      os.path.join(tmp, "req", "depth")])
-        check(launches == {"K1": TRANSLATE_K1_PER_BATCH, "K2": 0, "K3": 0, "K3 backward": 0},
+        check(_holds(launches, {"K1": TRANSLATE_K1_PER_BATCH, "K2": 0, "K3": 0,
+                                "K3 backward": 0, **_k4(TRANSLATE_K4_PER_BATCH)}),
               f"predict --translate {direction}: launches {launches}; want K1 "
-              f"{TRANSLATE_K1_PER_BATCH} a batch")
+              f"{TRANSLATE_K1_PER_BATCH}, K4 {TRANSLATE_K4_PER_BATCH} a batch")
         outs[direction] = _read_outputs(out, 8)
         check(int(outs[direction].max()) > 0, f"--translate {direction}: all zeros")
         paths[f"serve_translate_{direction}"] = launches
@@ -1996,8 +2055,9 @@ def phase_i2d_training(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
-    want = {"K1": 2 * I2D_K1_PER_STEP, "K2": 0, "K3": 0, "K3 backward": 0}
-    check(launches == want, f"train.main I2D: launches {launches}; want {want} over 2 steps")
+    want = {"K1": 2 * I2D_K1_PER_STEP, "K2": 0, "K3": 0, "K3 backward": 0,
+            **_k4(I2D_K4_PER_STEP, 2)}
+    check(_holds(launches, want), f"train.main I2D: launches {launches}; want {want} over 2 steps")
     check(set(model.loss_names) <= set(losses) and all(np.isfinite(list(losses.values()))),
           f"train.main I2D losses: {losses}")
     print(f"[j] train.main --model_type I2D --use_D: 2 steps of batch 12 in {wall:.1f} s host "
@@ -2117,8 +2177,9 @@ def phase_translation_training(tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
-    want = {"K1": 2 * STAGE2_K1_PER_ITER, "K2": 0, "K3": 0, "K3 backward": 0}
-    check(launches == want, f"train.main translation: launches {launches}; want {want}")
+    want = {"K1": 2 * STAGE2_K1_PER_ITER, "K2": 0, "K3": 0, "K3 backward": 0,
+            **_k4((0, 0))}
+    check(_holds(launches, want), f"train.main translation: launches {launches}; want {want}")
     check(all(np.isfinite(list(losses.values()))), f"train.main translation losses: {losses}")
     names = ("G_A", "G_B", "D_A_depth", "D_B_depth", "D_A_normal", "D_B_normal")
     files = [os.path.join(tmp, "tr2", f"latest_net_{n}.pth") for n in names]
@@ -2134,7 +2195,8 @@ def phase_translation_training(tmp):
     swall, slaunch = _serve_cli(tmp, "tr2", "trainA", out,
                                 ["--translate", "AtoB", "--input_depth",
                                  os.path.join(tmp, "trainA", "depth")], batch_size=6)
-    check(slaunch == {"K1": 2 * TRANSLATE_K1_PER_BATCH, "K2": 0, "K3": 0, "K3 backward": 0},
+    check(_holds(slaunch, {"K1": 2 * TRANSLATE_K1_PER_BATCH, "K2": 0, "K3": 0,
+                           "K3 backward": 0, **_k4(TRANSLATE_K4_PER_BATCH, 2)}),
           f"predict --translate from the trained G_A: launches {slaunch}")
     check(int(_read_outputs(out, 12).max()) > 0, "predict from the trained G_A: all zeros")
     paths["serve_translate_trained"] = slaunch
@@ -2383,13 +2445,15 @@ def phase_device_aug(tmp):
     stages = {  # stage: (argv, model class, dataset class, batch, launches a step)
         "main": (_train_argv(tmp, "fed_main", aug=True) + fed
                  + ["--max_dataset_size", str(FED_STEPS * 6)], MainModel, MainDataset, 6,
-                 {"K1": K1_PER_STEP, "K2": 0, "K3": K3_PER_STEP, "K3 backward": K3_BWD_PER_STEP}),
+                 {"K1": K1_PER_STEP, "K2": 0, "K3": K3_PER_STEP, "K3 backward": K3_BWD_PER_STEP,
+                  **_k4(K4_PER_STEP)}),
         "I2D": (_i2d_train_argv(tmp, "fed_i2d") + fed, I2DModel, I2DDataset, 12,
-                {"K1": I2D_K1_PER_STEP, "K2": 0, "K3": 0, "K3 backward": 0}),
+                {"K1": I2D_K1_PER_STEP, "K2": 0, "K3": 0, "K3 backward": 0,
+                 **_k4(I2D_K4_PER_STEP)}),
         "SR": (_sr_train_argv(sr_root, "fed_sr") + fed
                + ["--max_dataset_size", str(FED_STEPS)], MainSRModel, NaiveSRDataset, 1,
                {"K1": SR_K1_PER_STEP, "K2": 0, "K3": K3_PER_STEP,
-                "K3 backward": K3_BWD_PER_STEP}),
+                "K3 backward": K3_BWD_PER_STEP, **_k4(K4_PER_STEP)}),
     }
     paths = {}
     for stage, (argv, model_cls, ds_cls, bs, per_step) in stages.items():
@@ -2444,7 +2508,7 @@ def phase_device_aug(tmp):
                         else ["--max_dataset_size", str(FED_HOST_STEPS * bs)]),
                 model_cls, profiled=aug)
             want = {k: v * r["steps"] for k, v in per_step.items()}
-            check(launches == want and r["losses_finite"],
+            check(_holds(launches, want) and r["losses_finite"],
                   f"[l] {stage} fed loop ({mode}): launches {launches}, want {want}; {r}")
             paths[f"train_fed_{stage}_{mode}"] = launches
             rep[f"fed_{mode}_step_ms"] = r["step_ms"]
@@ -2534,8 +2598,9 @@ def _export_cli(argv):
 def _check_graph(tag, art, kernel):
     """The saved program holds one ``kernel`` node per ResnetBlock conv and,
     beside them, exactly as many library conv nodes as the nets have other
-    convs: no plain version stands in for a kernel. Returns the seconds of
-    torch.export.load."""
+    convs: no plain version stands in for a kernel; and K4's nodes, a
+    moments and an apply per norm, an apply per fused ResnetBlock's tail.
+    Returns the seconds of torch.export.load."""
     import collections
 
     import torch
@@ -2555,9 +2620,12 @@ def _check_graph(tag, art, kernel):
     check(library == len(convs) - in_blocks,
           f"[m] {tag}: {library} library conv nodes for the nets' {len(convs) - in_blocks} "
           "other convs")
+    k4 = ops["desr.instance_norm_moments.default"], ops["desr.norm_apply.default"]
+    want_k4 = K4_PER_BATCH if kernel == "desr.conv3x3_fused.default" else K4_PALLAS_PER_BATCH
+    check(k4 == want_k4, f"[m] {tag}: K4 nodes (moments, apply) {k4}; want {want_k4}")
     print(f"[m] {tag}: {ops[kernel]} {kernel} nodes (one a ResnetBlock conv), {library} "
-          f"library conv nodes for the nets' {library} other convs, {len(program.graph.nodes)} "
-          f"nodes in all; torch.export.load {secs:.2f} s")
+          f"library conv nodes for the nets' {library} other convs, K4 nodes {k4}, "
+          f"{len(program.graph.nodes)} nodes in all; torch.export.load {secs:.2f} s")
     return secs
 
 
@@ -2566,7 +2634,7 @@ def _compare_pngs(tag, got_dir, want_dir, n, hw, noise):
     library convs on the same inputs, but cuDNN's default forward algorithms
     need not repeat bit for bit (``_artifact_vs_live`` shows the live route
     against itself), so the bound is ``_serve_checks``'s: mean |d| within
-    1.5x the plain bf16 convs' mean |d| from float32 (``noise`` on [-1, 1];
+    1.5x the plain bf16 versions' mean |d| from float32 (``noise`` on [-1, 1];
     2550 mm a unit)."""
     import numpy as np
 
@@ -2659,7 +2727,7 @@ def phase_deployment(tmp, serve_dir, sr_dir):
     for tag, d in (("c", serve_dir), ("f", sr_dir)):
         with open(os.path.join(d, "report.json")) as f:
             noise[tag] = json.load(f)["bf16_plain_mean_abs_diff"]
-    paths = {"serve_artifact": {"K1": 0, "K2": 0}, "serve_artifact_k2": {"K1": 0, "K2": 0}}
+    paths = {p: dict.fromkeys(_counts(), 0) for p in ("serve_artifact", "serve_artifact_k2")}
     routes = (  # tag, checkpoints, flags, frames a request, output grid, (c)/(f) live PNGs
         ("main", serve_dir, "smoke", [], 8, (480, 640), "out{r}"),
         ("SR", sr_dir, "sr", ["--SR"], 4, (960, 1280), "out{r}"),
@@ -2693,11 +2761,16 @@ def phase_deployment(tmp, serve_dir, sr_dir):
                                    "--input_img", os.path.join(root, f"req{r}", "img"),
                                    "--output", out, "--from_export", art])
             k = "K2" if "--pallas_conv" in flags else "K1"
-            check(c[k] == LAUNCHES_PER_BATCH and sum(c.values()) == LAUNCHES_PER_BATCH,
-                  f"[m] {tag} --from_export request {r}: launches {c}; want {k} "
-                  f"{LAUNCHES_PER_BATCH}")
+            want_k4 = K4_PALLAS_PER_BATCH if k == "K2" else K4_PER_BATCH
+            k4 = c.pop("K4"), c.pop("K4 apply")
+            check(c[k] == LAUNCHES_PER_BATCH and sum(c.values()) == LAUNCHES_PER_BATCH
+                  and k4 == want_k4,
+                  f"[m] {tag} --from_export request {r}: launches {c}, K4 {k4}; want {k} "
+                  f"{LAUNCHES_PER_BATCH}, K4 {want_k4}")
             path = "serve_artifact_k2" if k == "K2" else "serve_artifact"
             paths[path][k] += c[k]
+            paths[path]["K4"] += k4[0]
+            paths[path]["K4 apply"] += k4[1]
             cmp = _compare_pngs(f"{tag} --from_export request {r} ({wall:.2f} s host wall, "
                                 f"{k} {c[k]})", out, os.path.join(root, live_out.format(r=r)),
                                 bsz, hw, noise["f" if tag == "SR" else "c"])
@@ -2963,8 +3036,10 @@ def phase_train_surface(tmp):
     launches = _counts()
     # 4 steps; 2 gallery forwards (one a group) and 1 test forward
     want = {"K1": 4 * K1_PER_STEP + 3 * K1_EVAL, "K2": 0, "K3": 4 * K3_PER_STEP + 3 * K3_EVAL,
-            "K3 backward": 4 * K3_BWD_PER_STEP}
-    check(launches == want, f"[n] train.main: launches {launches}; want {want}")
+            "K3 backward": 4 * K3_BWD_PER_STEP,
+            **_k4((4 * K4_PER_STEP[0] + 3 * K4_EVAL[0], 4 * K4_PER_STEP[1] + 3 * K4_EVAL[1]),
+                  device=dev)}
+    check(_holds(launches, want), f"[n] train.main: launches {launches}; want {want}")
     check(losses and all(np.isfinite(list(losses.values()))), f"[n] train.main losses: {losses}")
     web = os.path.join(tmp, "surface", "web")
     names = sorted(os.listdir(os.path.join(web, "images")))
@@ -3074,7 +3149,8 @@ def phase_train_surface(tmp):
         _sync()
         c = _counts()
         paths[f"train_sr_{variant}"] = c
-        check(c["K1"] == SR_K1_REMAT[variant] and np.isfinite(float(sr.metrics["G"])),
+        check(c["K1"] == SR_K1_REMAT[variant] and _holds(c, _k4(K4_PER_STEP, device=dev))
+              and np.isfinite(float(sr.metrics["G"])),
               f"[n] SR step {variant}: launches {c}, G {float(sr.metrics['G'])}")
         if dev == "cuda":
             report[f"sr_step_{variant}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3145,8 +3221,8 @@ def phase_train_surface(tmp):
 
     # 4. a main step under --norm batch, and one under --init_type orthogonal
     batch = _synthetic_batch(*SURFACE_BATCH, seed=6)
-    for flags, k1 in ((("--norm", "batch"), K1_TRANS_PER_STEP),
-                      (("--init_type", "orthogonal"), K1_PER_STEP)):
+    for flags, k1, k4 in ((("--norm", "batch"), K1_TRANS_PER_STEP, K4_NORM_BATCH_PER_STEP),
+                          (("--init_type", "orthogonal"), K1_PER_STEP, K4_PER_STEP)):
         fopt = train_options.parse(argv + list(flags), print_options=False)
         m = MainModel(fopt, device=dev, compute_dtype=torch.bfloat16, is_train=True,
                       generator=torch.Generator().manual_seed(14))
@@ -3162,7 +3238,7 @@ def phase_train_surface(tmp):
         trained = {k for k in before if k.split(".")[0] in m.trainable_nets}
         finite = all(np.isfinite(float(v)) for v in m.metrics.values())
         paths["train_" + "_".join(f.strip("-") for f in flags)] = c
-        check(finite and not moved and c["K1"] == k1
+        check(finite and not moved and c["K1"] == k1 and _holds(c, _k4(k4, device=dev))
               and all(not torch.equal(after[k], before[k]) for k in trained
                       if k.endswith("weight") and "running" not in k)
               and (bool(stats) == (flags[0] == "--norm")),
@@ -3232,8 +3308,8 @@ def phase_bench_io(tmp):
     res = bench.run("cuda")
     launches = _counts()
     want = {"K1": steps * SR_K1_PER_STEP, "K2": 0, "K3": steps * K3_PER_STEP,
-            "K3 backward": steps * K3_BWD_PER_STEP}
-    check(launches == want, f"bench.run: launches {launches}; want {want} over {steps} steps")
+            "K3 backward": steps * K3_BWD_PER_STEP, **_k4(K4_PER_STEP, steps)}
+    check(_holds(launches, want), f"bench.run: launches {launches}; want {want} over {steps} steps")
     check(all(math.isfinite(v) for v in res["losses"].values()), f"bench losses {res['losses']}")
     report.update({f"bench_{k}": v for k, v in res.items() if k != "losses"})
     print(f"[o] bench.run in-process: {steps} SR steps (batch 1, LR 512x640 -> HR 1024x1280, "
@@ -3332,6 +3408,11 @@ QUALITY_LAUNCHES = {"main": (K1_PER_STEP, LAUNCHES_PER_BATCH, K3_PER_STEP, K1_PE
                     "sr": (SR_K1_PER_STEP, LAUNCHES_PER_BATCH, K3_PER_STEP, None),
                     "i2d": (I2D_K1_PER_STEP, I2D_K1_PER_BATCH, 0, None),
                     "translation": (STAGE2_K1_PER_ITER, TRANSLATE_K1_PER_BATCH, 0, None)}
+# K4's (moments, applies) by stage: a train step, a serving batch, a gallery forward
+QUALITY_K4 = {"main": (K4_PER_STEP, K4_PER_BATCH, K4_EVAL),
+              "sr": (K4_PER_STEP, K4_PER_BATCH, None),
+              "i2d": (I2D_K4_PER_STEP_NO_D, I2D_K4_PER_BATCH, None),
+              "translation": ((0, 0), TRANSLATE_K4_PER_BATCH, None)}
 DISPLAY_FREQ = 400  # the train CLI's --display_freq, which the tool leaves at its default
 QUALITY_METRICS = ("rmse", "mae", "rmse_h", "rmse_d", "psnr", "ssim", "mae_h", "mae_d", "mse_v")
 
@@ -3367,7 +3448,7 @@ def phase_quality(tmp):
 
     from desr_tpu_torch.tools import quality_eval as qe
 
-    total = {"K1": 0, "K2": 0, "K3": 0, "K3 backward": 0}
+    total = dict.fromkeys(_counts(), 0)
     for tag, argv, width, must_learn in QUALITY_CHAINS:
         args = qe.parse_args(["--root", os.path.join(tmp, tag.replace(" ", "_"))] + argv)
         args.width = width
@@ -3414,10 +3495,13 @@ def phase_quality(tmp):
         # images) and one serving batch's (n_test frames)
         k1_step, k1_batch, k3_step, k1_eval = QUALITY_LAUNCHES[args.stage]
         shows = steps * args.batch_size // DISPLAY_FREQ
+        k4_step, k4_batch, k4_eval = QUALITY_K4[args.stage]
         want = {"K1": steps * k1_step + shows * (k1_eval or 0) + k1_batch, "K2": 0,
-                "K3": (steps + shows) * k3_step, "K3 backward": steps * k3_step}
+                "K3": (steps + shows) * k3_step, "K3 backward": steps * k3_step,
+                **_k4([steps * a + shows * (e or 0) + b
+                       for a, b, e in zip(k4_step, k4_batch, k4_eval or (0, 0))])}
         check(k1_eval is not None or not shows, f"[p] {tag}: {shows} gallery forwards")
-        check(launches == want, f"[p] {tag}: launches {launches}; want {want} for {steps} "
+        check(_holds(launches, want), f"[p] {tag}: launches {launches}; want {want} for {steps} "
               f"steps and {shows} gallery forwards")
         for k, v in launches.items():
             total[k] += v
@@ -3441,6 +3525,9 @@ DP_LAUNCHES = {            # a rank's launches: phase (e)'s, (j)'s, (k)'s with o
     "translation": {"K1": 4 * TRANSLATE_K1_PER_BATCH, "K3": 0, "K3 backward": 0},
     "sr": {"K1": SR_K1_PER_STEP, "K3": K3_PER_STEP, "K3 backward": K3_PER_STEP},
 }
+# K4's (moments, applies) a rank: the same steps' (I2D under --use_D); phase (s)'s too
+STEP_K4 = {"main": K4_PER_STEP, "i2d": I2D_K4_PER_STEP, "translation": (0, 0),
+           "sr": K4_PER_STEP}
 
 
 def _dp_host(t):
@@ -3607,9 +3694,11 @@ def _dp_check(kind, ranks, one, yards, term_rtol, stats_tol=None, weights_tol=No
         for k in r0[key]:
             check(np.array_equal(r0[key][k], r1[key][k]), f"[q] {kind}: the ranks differ on {k}")
     for r, res in enumerate(ranks):
-        check(res["counts"] == one["counts"] == {**DP_LAUNCHES[kind], "K2": 0},
+        check(res["counts"] == one["counts"]
+              and _holds(res["counts"], {**DP_LAUNCHES[kind], "K2": 0,
+                                         **_k4(STEP_K4[kind], device=DP_DEVICE)}),
               f"[q] {kind}: rank {r} launches {res['counts']}, one process {one['counts']}, "
-              f"want {DP_LAUNCHES[kind]}")
+              f"want {DP_LAUNCHES[kind]}, K4 {STEP_K4[kind]}")
     terms = {k: abs(r0["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in one["metrics"].items()}
     bad = [k for k, v in one["metrics"].items()
            if abs(r0["metrics"][k] - v) > term_bound(k) * abs(v) + 1e-7]
@@ -3796,6 +3885,8 @@ SP_MODES = {
     "i2d": (("--I2D",), "frames", (480, 640), 8, I2D_K1_PER_BATCH),
     "translate": (("--translate", "AtoB"), "frames", (480, 640), 8, TRANSLATE_K1_PER_BATCH),
 }
+SP_K4 = {"main": K4_PER_BATCH, "sr": K4_PER_BATCH, "i2d": I2D_K4_PER_BATCH,  # a rank's
+         "translate": TRANSLATE_K4_PER_BATCH}
 SP_CKPT = {"main": "sp_main", "sr": "sp_main", "i2d": "sp_i2d", "translate": "sp_tr"}
 SP_F32_BATCH = 2            # the float32 check's batch (the bf16 one serves the CLI's)
 SP_TIMED = 1                # forwards timed a mode, after one
@@ -3854,8 +3945,12 @@ def _sp_counts():
     from desr_tpu_torch.ops import conv3x3 as K
     from desr_tpu_torch.parallel import spatial as S
 
+    from desr_tpu_torch.ops import instance_norm as K4
+
     return {"K1": K.conv3x3_fused.launches, "K1 halo": K.conv3x3_fused.launches_halo,
-            "K2": K.conv3x3.launches, "K2 halo": K.conv3x3.launches_halo, **S.COUNTS}
+            "K2": K.conv3x3.launches, "K2 halo": K.conv3x3.launches_halo,
+            "K4": K4.instance_norm_moments.launches, "K4 apply": K4.norm_apply.launches,
+            **S.COUNTS}
 
 
 def _sp_reset():
@@ -3987,15 +4082,19 @@ def phase_spatial(tmp):
         predict.main(_sp_argv(tmp, mode, out1, ["--num_devices", "1"]))
         torch.cuda.synchronize()
         wall1 = time.perf_counter() - t1
-        want = {"K1": k1, "K1 halo": 0, "K2": 0, "K2 halo": 0}
+        want = {"K1": k1, "K1 halo": 0, "K2": 0, "K2 halo": 0,
+                **_k4(SP_K4[mode], device=SP_DEVICE)}
         got1 = {k: v for k, v in _sp_counts().items() if k in want}
         check(got1 == want, f"[r] {mode} --num_devices 1: launches {got1}; want {want}")
         for r, rank in enumerate(ranks):
             c = rank["cli"][mode]
             # every ResnetBlock is split at these frames: each launch has a halo row
-            check(c["K1"] == k1 and c["K1 halo"] == k1 and c["K2"] == 0,
-                  f"[r] {mode} rank {r}: launches {c}; want K1 {k1}, all with a halo row")
-            paths[f"serve_spatial_{mode}_rank{r}"] = {k: c[k] for k in ("K1", "K1 halo")}
+            check(c["K1"] == k1 and c["K1 halo"] == k1 and c["K2"] == 0
+                  and _holds(c, _k4(SP_K4[mode], device=SP_DEVICE)),
+                  f"[r] {mode} rank {r}: launches {c}; want K1 {k1}, all with a halo row, "
+                  f"K4 {SP_K4[mode]}")
+            paths[f"serve_spatial_{mode}_rank{r}"] = {
+                k: c[k] for k in ("K1", "K1 halo", "K4", "K4 apply")}
         check(ranks[0]["cli"][mode] == {**ranks[1]["cli"][mode],
                                         "wall_s": ranks[0]["cli"][mode]["wall_s"]},
               f"[r] {mode}: the ranks issued other launches or collectives: "
@@ -4040,10 +4139,11 @@ def phase_spatial(tmp):
               f"mean {float(d_png.mean()):.3f} mm")
     k2 = ranks[0]["cli"]["main_pallas_conv"]
     check(k2["K2"] == LAUNCHES_PER_BATCH and k2["K2 halo"] == LAUNCHES_PER_BATCH
-          and k2["K1"] == 0, f"[r] --pallas_conv over 2 ranks: launches {k2}")
+          and k2["K1"] == 0 and _holds(k2, _k4(K4_PALLAS_PER_BATCH, device=SP_DEVICE)),
+          f"[r] --pallas_conv over 2 ranks: launches {k2}; want K4 {K4_PALLAS_PER_BATCH}")
     for r, rank in enumerate(ranks):
         paths[f"serve_spatial_pallas_conv_rank{r}"] = {
-            k: rank["cli"]["main_pallas_conv"][k] for k in ("K2", "K2 halo")}
+            k: rank["cli"]["main_pallas_conv"][k] for k in ("K2", "K2 halo", "K4", "K4 apply")}
     print(f"[r] main --pallas_conv over 2 ranks: per rank K2 {k2['K2']}, {k2['K2 halo']} with "
           "halo rows")
     print("[r] " + json.dumps(report))
@@ -4071,6 +4171,9 @@ ST_WIDTH = ("--ImageDepthf_outf", "8", "--ImageDepthf_basef", "8", "--Depthf_out
 ST_CHECKS = {"main": (2, 384, 512), "norm_batch": (2, 384, 512), "sr": (1, 512, 512),
              "i2d": (2, 384, 512), "translation": (2, 128, 128),
              "main_group": (2, 384, 512), "main_device_aug": (2, 384, 512)}
+# K4's (moments, applies) a rank in each: phase (q)'s steps; main_group two of them
+ST_K4 = {**STEP_K4, "norm_batch": K4_NORM_BATCH_PER_STEP,
+         "main_group": tuple(2 * v for v in K4_PER_STEP), "main_device_aug": K4_PER_STEP}
 ST_FULL_ARGV = ()           # flags appended to the bf16 full-width runs (a rehearsal's widths)
 ST_SR_HR = (1024, 1280)     # the bf16 SR step's HR frame: bench.py's geometry
 ST_TIMED = 1                # bf16 SR steps timed, after one
@@ -4182,13 +4285,14 @@ class _StJitter:
 
         from desr_tpu_torch.models import layers as TL
         from desr_tpu_torch.ops import conv3x3 as K
+        from desr_tpu_torch.ops import instance_norm as IN
 
         gen = torch.Generator(device=ST_DEVICE).manual_seed(self.seed)
 
         def noise(t):
             return t * (1 + 1e-6 * torch.randn(t.shape, generator=gen, device=t.device))
 
-        run, moments, bn = K._fused_forward, TL.moments_hw, TL.BatchNorm2d.forward
+        run, moments, bn = K._fused_forward, IN.instance_norm_moments, TL.BatchNorm2d.forward
         gn = TL.GroupNorm.forward
 
         def conv(*args):
@@ -4197,7 +4301,7 @@ class _StJitter:
 
         self.stack = contextlib.ExitStack()
         for patch in (mock.patch.object(K, "_fused_forward", conv),
-                      mock.patch.object(TL, "moments_hw",
+                      mock.patch.object(IN, "instance_norm_moments",
                                         lambda x: tuple(noise(t) for t in moments(x))),
                       mock.patch.object(TL.BatchNorm2d, "forward",
                                         lambda m, x: noise(bn(m, x))),
@@ -4544,11 +4648,13 @@ def _st_check(kind, ranks, one, floors):
     for key in ("metrics", "grads", "weights", "stats"):
         for k in r0[key]:
             check(np.array_equal(r0[key][k], r1[key][k]), f"[s] {kind}: the ranks differ on {k}")
+    k4 = _k4(ST_K4[kind], device=ST_DEVICE)
     for r, res in enumerate(ranks):
         c, o = res["counts"], one["counts"]
         check(c["K1"] == o["K1"] == c["K1 halo"] and c["K3"] == o["K3"]
-              and c["K3 backward"] == o["K3 backward"] and c["K2"] == 0,
-              f"[s] {kind}: rank {r} launches {c}, one process {o}")
+              and c["K3 backward"] == o["K3 backward"] and c["K2"] == 0
+              and _holds(c, k4) and _holds(o, k4),
+              f"[s] {kind}: rank {r} launches {c}, one process {o}; want K4 {ST_K4[kind]}")
     check(r0["counts"] == r1["counts"], f"[s] {kind}: the ranks issued other launches or "
           f"collectives: {r0['counts']} / {r1['counts']}")
     terms, term_floors, bad = {}, {}, []
@@ -4684,7 +4790,7 @@ def phase_spatial_training(tmp):
     # the CLI's 2 bf16 SR steps: launches, losses, the nets it saved
     want = {"K1": 2 * SR_K1_PER_STEP, "K1 halo": 2 * SR_K1_PER_STEP, "K2": 0,
             "K3": 2 * K3_PER_STEP, "K3 backward": 2 * K3_BWD_PER_STEP,
-            "K1 backward halo": 2 * SR_K1_BWD_PER_STEP}
+            "K1 backward halo": 2 * SR_K1_BWD_PER_STEP, **_k4(K4_PER_STEP, 2, ST_DEVICE)}
     for r, rank in enumerate(ranks):
         c = rank["cli_counts"]
         got = {k: c[k] for k in want}
@@ -4700,7 +4806,7 @@ def phase_spatial_training(tmp):
     # each with a backward (the G steps'), finite losses
     per_iter = STAGE2_K1_PER_ITER
     want = {"K1": 2 * per_iter, "K1 halo": 2 * per_iter, "K1 backward halo": 2 * per_iter,
-            "K2": 0, "K3": 0, "K3 backward": 0}
+            "K2": 0, "K3": 0, "K3 backward": 0, **_k4((0, 0), device=ST_DEVICE)}
     for r, rank in enumerate(ranks):
         c = rank["cli_stage2_counts"]
         got = {k: c[k] for k in want}
@@ -4733,7 +4839,9 @@ def phase_spatial_training(tmp):
                          "counts_one_process": one["counts"],
                          "cli_s_ranks": [rank["cli_s"] for rank in ranks]}
     check(c["K1"] == c["K1 halo"] == one["counts"]["K1"] == SR_K1_PER_STEP
-          and c["K1 backward halo"] == SR_K1_BWD_PER_STEP,
+          and c["K1 backward halo"] == SR_K1_BWD_PER_STEP
+          and _holds(c, _k4(K4_PER_STEP, device=ST_DEVICE))
+          and _holds(one["counts"], _k4(K4_PER_STEP, device=ST_DEVICE)),
           f"[s] bf16 SR step: a rank's launches {c}, one process {one['counts']}")
     print(f"[s] bf16 SR step, batch 1, HR {ST_SR_HR[0]}x{ST_SR_HR[1]}, default widths: per "
           f"rank K1 {c['K1']} ({c['K1 halo']} with halo rows, {c['K1 backward halo']} "
@@ -4813,7 +4921,8 @@ def _st_remat_report(ranks):
     bad = [k for k, v in r["terms_rel"].items() if v > max(1e-5, 3 * r["terms_floor_rel"][k])]
     bad += [k for k, v in r["grads_rel"].items() if v > max(1e-3, 3 * r["grads_floor_rel"][k])]
     check(not bad, f"[s] --remat_blocks SR step vs no remat, off in {bad[:5]}")
-    check(c["K1"] == c["K1 halo"] > SR_K1_PER_STEP and c["exchange_remat"] > 0,
+    check(c["K1"] == c["K1 halo"] > SR_K1_PER_STEP and c["exchange_remat"] > 0
+          and _holds(c, _k4(K4_PER_STEP, device=ST_DEVICE)),
           f"[s] --remat_blocks SR step: a rank's launches and collectives {c}")
     for i, rank in enumerate(rm):
         check(all(np.isfinite(list(rank["losses"].values()))),
@@ -4847,7 +4956,8 @@ def _st_stage2_report(ranks, one):
     peak memory a rank. Returns the report's entries."""
     c = {k: v // 2 for k, v in ranks[0]["cli_stage2_counts"].items()}
     o = one["counts"]
-    check(c["K1"] == o["K1"] == STAGE2_K1_PER_ITER and len(ranks[0]["cli_stage2_iter_ms"]) == 2,
+    check(c["K1"] == o["K1"] == STAGE2_K1_PER_ITER and len(ranks[0]["cli_stage2_iter_ms"]) == 2
+          and _holds(c, _k4((0, 0), device=ST_DEVICE)) and _holds(o, _k4((0, 0), device=ST_DEVICE)),
           f"[s] bf16 stage-2 iteration: a rank's launches {c}, one process {o}, iterations "
           f"timed {ranks[0]['cli_stage2_iter_ms']}")
     ms = [rank["cli_stage2_iter_ms"][-1] for rank in ranks]
@@ -5059,6 +5169,7 @@ def phase_last_capabilities(tmp):
     from desr_tpu_torch.models import networks as TN
     from desr_tpu_torch.models import translation_networks as TT
     from desr_tpu_torch.ops import conv3x3 as K
+    from desr_tpu_torch.ops import instance_norm as IN
 
     paths, report = {}, {}
     gen = torch.Generator().manual_seed(21)
@@ -5155,15 +5266,18 @@ def phase_last_capabilities(tmp):
             _reset_counts()
             out = net(x)
             _last_sync()
-            k1 = _counts()["K1"]
-            with mock.patch.object(K, "_fused_forward", K.conv3x3_fused_plain):
+            c = _counts()
+            k1 = c["K1"]
+            with mock.patch.object(K, "_fused_forward", K.conv3x3_fused_plain), \
+                    mock.patch.object(IN, "norm_apply", IN.norm_apply_plain):
                 plain = net(x)
         err = (out - plain).abs()
-        want_k1 = 12 if netG == "resnet_6blocks" else 0
-        check(bool(torch.isfinite(out).all()) and k1 == want_k1
+        # the ResnetBlocks' GroupNorm(1) folds into the chain: K4 applies their tails alone
+        want_k1, want_k4 = (12, (0, 6)) if netG == "resnet_6blocks" else (0, (0, 0))
+        check(bool(torch.isfinite(out).all()) and k1 == want_k1 and _holds(c, _k4(want_k4))
               and bool((err <= 1e-3 + 1e-4 * plain.abs()).all()),
-              f"[t] use_old {netG}: K1 {k1} (want {want_k1}), max |d| vs plain "
-              f"{float(err.max()):.3g}")
+              f"[t] use_old {netG}: launches {c} (want K1 {want_k1}, K4 {want_k4}), max |d| vs "
+              f"plain {float(err.max()):.3g}")
         report[f"use_old_{netG}"] = {"out": float(err.max()), "K1": k1}
         if k1:
             paths[f"serve_last_use_old_{netG}"] = {"K1": k1}
@@ -5410,9 +5524,8 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
         del x, wt, scale, shift, xp, wb
     # K3 at the main train step's shape and at the SR step's HR one, f32
     # pred/target (the model's tail is f32): the sums, then the backward as
-    # the step runs it (target is data: no dt). Device time in three rounds,
-    # to show that the reading repeats; the two-launch design on the same
-    # inputs, which must give the plain sums too
+    # the step runs it (target is data: no dt); the two-launch design on the
+    # same inputs, which must give the plain sums too
     g = torch.tensor([0.7, -1.3, 0.4], device="cuda")
     for shape, at_shape in ((LOSS_SHAPE, f"main step {K3_PER_STEP} (--no_aug)"),
                             (AUG_LOSS_SHAPE, f"augmented main step {K3_PER_STEP}"),
@@ -5428,7 +5541,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
         want = K3.masked_loss_sums_plain(*ins)
         check(bool(((out - want).abs() <= 1e-5 * want.abs()).all()),
               f"the two-launch sums at {shape}: {out.tolist()} against {want.tolist()}")
-        old_stats = _device_stats(old, "masked_loss", repeats=3)
+        old_stats = _device_stats(old, "masked_loss")
         t_bytes = 4 * 4 * n / PEAK_HBM * 1e3  # four f32 inputs read once; 12 B written
         t_ops = 9 * n / PEAK_F32 * 1e3       # 3 mul + 1 sub + 1 mul, 2 abs, 1 square, 3 adds
         rows.append({
@@ -5436,7 +5549,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "source": "desr_tpu_torch/csrc/masked_loss.cu",
             "replaces": "desr_tpu/ops/pallas_kernels.py:97", **counts("K3"),
             "launches_at_shape": at_shape, "max_abs_err": k3_err[shape],
-            **_device_stats(sums, "masked_loss_sums", repeats=3),
+            **_device_stats(sums, "masked_loss_sums"),
             "event_ms": cuda_ms(sums, iters=50, warmup=5),
             # back to back, inputs under the 50 MB L2 stay there
             "device_ms_l2_warm": _device_stats(sums, "masked_loss_sums",
@@ -5459,7 +5572,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "replaces": "desr_tpu/ops/pallas_kernels.py:129 (_mls_bwd, the VJP of :120)",
             **counts("K3 backward"), "launches_at_shape": at_shape,
             "max_abs_err": k3_bwd_err[shape],
-            **_device_stats(bwd, "masked_loss_grads", repeats=3),
+            **_device_stats(bwd, "masked_loss_grads"),
             "event_ms": cuda_ms(bwd, iters=50, warmup=5),
             "host_ms": host_ms(bwd),
             "plain_ms": cuda_ms(plain, iters=20),
@@ -5472,6 +5585,7 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             "library_ms": None, "shape": label + ", no dt",
         })
         del ins
+    rows += _k4_rows(counts)
     for r in rows:
         # "ms" is the kernels' device time per call where the profiler traced
         # it; CUDA events over back-to-back calls ("event_ms") also count the
@@ -5486,6 +5600,143 @@ def phase_report(paths, worst, k3_err, k3_bwd_err, two_launch_so):
             print(f"[d] {r['name']} ({r['shape']}): a call took {r['device_ms_min']:.4g} ms, "
                   f"under its {r['bound_ms']:.4g} ms bound")
     return rows
+
+
+# K4's rows: (B, C, H, W), layout, which norms of a main serving batch of 8
+# (512x640) run at that shape; every shape and layout phase (c)'s serving
+# forward gives K4, and the tail's
+K4_SHAPES = (
+    ((8, 32, 512, 640), "nchw", "the resnet_6blocks stems (I2D_features, Depth_f) 2"),
+    ((8, 32, 512, 640), "channels_last", "the resnet_6blocks' last up 2"),
+    ((8, 64, 256, 320), "nchw", "the resnet_6blocks' first down 2, the U-Nets' 256x320 up 2"),
+    ((8, 64, 256, 320), "channels_last", "the resnet_6blocks' first up 2"),
+    ((8, 128, 128, 160), "nchw", "the resnet_6blocks' second down 2, the U-Nets' 128x160 "
+                                 "levels 4"),
+    ((8, 256, 64, 80), "nchw", "the U-Nets' 64x80 levels 4"),
+    ((8, 512, 32, 40), "nchw", "the U-Nets' 32x40 levels 4"),
+    ((8, 512, 8, 10), "nchw", "the U-Nets' 8x10 levels 4 (16x20: 4 more)"),
+)
+K4_TAIL_SHAPE = (8, 128, 128, 160)  # the ResnetBlocks' output, channels_last: 12 tails
+
+
+def _k4_rows(counts):
+    """Phase (d)'s K4 rows (see ``K4_SHAPES``): the moments, the apply
+    (normalise+ReLU from the moments) and the tail's apply (scale, shift and
+    the skip), bf16, each with its device time (L2 flushed), its bound (HBM
+    bytes: 2 B a value read for the moments; 2 read and 2 written for the
+    apply, 2 more read for the skip; the f32 vectors are 8 B a (b, c)), the
+    plain version's time, and both versions' largest error against the
+    float64 norm. Each row is checked as the card test checks it: the
+    moments within 1e-5 of the float64 sum |x| and sum x^2, the apply's
+    error no larger than the plain version's plus half a bf16 step. The
+    apply rows from the moments also time the library's whole norm,
+    ``F.instance_norm`` then ``relu_`` (a channels_last x copied to NCHW by
+    it and back, to the layout K4 keeps), against K4's two launches, both
+    by CUDA events (``library_ms``, ``norm_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from desr_tpu_torch.ops import instance_norm as K4
+
+    src, replaces = "desr_tpu_torch/csrc/instance_norm.cu", "none (XLA fused the JAX InstanceNorm)"
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    kernel_key = {"instance_norm_moments": "moments_", "norm_apply": "apply_"}
+
+    def row(name, entry, shape, layout, fn, plain, nbytes, err, at_shape):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                **counts(entry), "max_abs_err": err,
+                # the kernels: moments_{planes,pixels}_kernel, apply_{planes,pixels}_kernel
+                "event_ms": cuda_ms(fn), **_device_stats(fn, kernel_key[name]),
+                "host_ms": issue_ms(fn), "plain_ms": cuda_ms(plain, iters=5),
+                "bound_ms": nbytes / PEAK_HBM * 1e3, "bound_by": "bytes", "library_ms": None,
+                "shape": f"B={shape[0]} {shape[1]}x{shape[2]}x{shape[3]} bfloat16 {layout}",
+                "launches_at_shape": at_shape}
+
+    def apply_errs(tag, got, plain, ref):
+        e = {"k4": float((got.double() - ref).abs().max()),
+             "plain": float((plain.double() - ref).abs().max()),
+             "half_step": _half_step(ref)}
+        check(e["k4"] <= e["plain"] + e["half_step"],
+              f"[d] K4 apply {tag}: largest error against float64 {e['k4']:.4g} > the plain "
+              f"version's {e['plain']:.4g} + half a bf16 step {e['half_step']:.4g}")
+        return e
+
+    with torch.no_grad():
+        for shape, layout, at_shape in K4_SHAPES + ((K4_TAIL_SHAPE, "channels_last", None),):
+            b, c, h, w = shape
+            n = b * c * h * w
+            tag = f"{shape} {layout}"
+            x = (1.7 * torch.randn(shape, generator=gen, device="cuda") + 0.4).to(torch.bfloat16)
+            if layout == "channels_last":
+                x = x.contiguous(memory_format=torch.channels_last)
+            x64 = x.double()
+            mean = x64.mean(dim=(2, 3), keepdim=True)
+            std = (x64.var(dim=(2, 3), unbiased=False, keepdim=True) + 1e-5).sqrt()
+            if at_shape is None:  # the tail: x * scale + shift + skip
+                sc = torch.rand(shape[:2], generator=gen, device="cuda") + 0.5
+                sh = torch.randn(shape[:2], generator=gen, device="cuda")
+                skip = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                skip = skip.contiguous(memory_format=torch.channels_last)
+                fn = lambda: K4.norm_apply(x, sc, sh, skip=skip)  # noqa: E731
+                plain = lambda: K4.norm_apply_plain(x, sc, sh, skip=skip)  # noqa: E731
+                ref = (x64 * sc.double()[:, :, None, None] + sh.double()[:, :, None, None]
+                       + skip.double())
+                rows.append(row("norm_apply", "K4 apply", shape, layout + ", scale/shift + skip",
+                                fn, plain, 6 * n + 8 * b * c,
+                                apply_errs(tag + " + skip", fn(), plain(), ref),
+                                "main serving 12 a batch (the ResnetBlocks' tails)"))
+                del skip
+                continue
+            s, s2 = K4.instance_norm_moments(x)
+            mom = lambda: K4.instance_norm_moments(x)  # noqa: E731
+            mom_plain = lambda: K4.instance_norm_moments_plain(x)  # noqa: E731
+            ps, ps2 = mom_plain()
+            err = {}
+            for key, got, pl, ref, mag in (
+                    ("s", s, ps, x64.sum(dim=(2, 3)), x64.abs().sum(dim=(2, 3))),
+                    ("s2", s2, ps2, x64.square().sum(dim=(2, 3)), None)):
+                mag = ref if mag is None else mag
+                err[key] = {"k4": float((got.double() - ref).abs().max()),
+                            "plain": float((pl.double() - ref).abs().max()),
+                            "k4_rel": float(((got.double() - ref).abs() / mag).max())}
+                check(err[key]["k4_rel"] < 1e-5, f"[d] K4 moments {tag}: {key} off the float64 "
+                      f"sums by {err[key]['k4_rel']:.3g} of their magnitude (bound 1e-5)")
+            rows.append(row("instance_norm_moments", "K4", shape, layout, mom, mom_plain, 2 * n,
+                            err, at_shape))
+            app = lambda: K4.norm_apply(x, s, s2, h * w, 1e-5, True)  # noqa: E731
+            app_plain = lambda: K4.norm_apply_plain(x, s, s2, h * w, 1e-5, True)  # noqa: E731
+            fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+            lib = lambda: F.instance_norm(x, eps=1e-5).relu_().contiguous(  # noqa: E731
+                memory_format=fmt)
+            pair = lambda: K4.norm_apply(x, *K4.instance_norm_moments(x), h * w,  # noqa: E731
+                                         1e-5, True)
+            ref = ((x64 - mean) / std).clamp(min=0)
+            r = row("norm_apply", "K4 apply", shape, layout + ", from moments, relu", app,
+                    app_plain, 4 * n + 8 * b * c, apply_errs(tag, app(), app_plain(), ref),
+                    at_shape)
+            r["max_abs_err"]["library"] = float((lib().double() - ref).abs().max())
+            r.update(library_ms=cuda_ms(lib), norm_ms=cuda_ms(pair))
+            rows.append(r)
+            del x, x64, mean, std, ref
+    for r in rows:
+        e = r["max_abs_err"]
+        if r["name"] == "instance_norm_moments":
+            print(f"[d] K4 {r['name']} {r['shape']}: largest error against float64, s "
+                  f"{e['s']['k4']:.3g} (plain {e['s']['plain']:.3g}), s2 {e['s2']['k4']:.3g} "
+                  f"(plain {e['s2']['plain']:.3g})")
+            continue
+        print(f"[d] K4 {r['name']} {r['shape']}: largest error against float64 {e['k4']:.3g} "
+              f"(plain {e['plain']:.3g}, half a step {e['half_step']:.3g}"
+              + (f", library {e['library']:.3g}); the whole norm {r['norm_ms']:.4g} ms, "
+                 f"F.instance_norm + relu_ {r['library_ms']:.4g} ms (CUDA events)"
+                 if "library" in e else ")"))
+    return rows
+
+
+def _half_step(v):
+    """Half a bf16 step at |v|'s largest value."""
+    return 0.5 * 2.0 ** (math.floor(math.log2(max(float(v.abs().max()), 1e-30))) - 7)
 
 
 def _k1_backward_ms(x, wt, scale, shift, xp, wb, mode, halo=()):

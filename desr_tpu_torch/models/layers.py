@@ -64,6 +64,7 @@ from torch.nn import (  # noqa: F401  (re-exported for networks.py)
     Tanh,
 )
 
+from desr_tpu_torch.ops import instance_norm as IN
 from desr_tpu_torch.parallel import spatial as S
 from desr_tpu_torch.parallel.mesh import all_reduce_sum
 from desr_tpu_torch.parallel.spatial import set_spatial_group  # noqa: F401
@@ -333,12 +334,6 @@ def set_dropout_key(module, seed, step, rows=None):
             m.seed, m.step, m.rows = seed, step, None if rows is None else tuple(rows)
 
 
-def moments_hw(x):
-    """(sum, sum of squares) over H and W of an NCHW tensor, in f32: (B, C) each."""
-    x32 = x.float()
-    return x32.sum(dim=(2, 3)), x32.square().sum(dim=(2, 3))
-
-
 def frame_moments(s, s2, n, spatial):
     """(s, s2, n) of a rank's band as the whole frame's: the stacked sums in
     one all_reduce over the spatial group and n x S, where ``spatial`` is
@@ -354,10 +349,16 @@ class InstanceNorm2d(nn.Module):
     """affine=False, no running stats, eps 1e-5 (layers.py:1129-1161).
 
     One-pass moments as in the JAX layer: var = max(E[x^2] - E[x]^2, 0) from
-    f32 sums, and the normalisation itself in the input's dtype. Against a
-    two-pass variance this loses digits only where |mean| >> std; the port's
-    tests hold it to the JAX layer at 1e-5 abs in float32. Under a
-    ``spatial`` tag the sums are the frame's (``frame_moments``).
+    f32 sums. Against a two-pass variance this loses digits only where
+    |mean| >> std; the port's tests hold it to the JAX layer at 1e-5 abs in
+    float32. Under a ``spatial`` tag the sums are the frame's
+    (``frame_moments``), all-reduced between the moments and the apply.
+
+    Where no gradient flows the moments and the normalisation are K4's two
+    operators (``ops/instance_norm.py``; on the card the kernels, which
+    normalise in f32 and round once); else the plain versions, which
+    normalise in the input's dtype. ``relu=True`` applies the ReLU that
+    follows the norm in the same pass (``run_layers`` passes it).
     """
 
     spatial = None
@@ -367,13 +368,12 @@ class InstanceNorm2d(nn.Module):
         self.num_features = num_features
         self.eps = eps
 
-    def forward(self, x):
-        s, s2 = moments_hw(x)
+    def forward(self, x, relu=False):
+        if IN.kernel_route(x):
+            x = IN.dense(x)
+        s, s2 = IN.instance_norm_moments(x)
         s, s2, n = frame_moments(s, s2, x.shape[2] * x.shape[3], self.spatial)
-        mean = s / n
-        var = torch.clamp(s2 / n - mean.square(), min=0.0)
-        scale = torch.rsqrt(var + self.eps).to(x.dtype)[:, :, None, None]
-        return (x - mean.to(x.dtype)[:, :, None, None]) * scale
+        return IN.norm_apply(x, s, s2, n, self.eps, relu)
 
 
 class GroupNorm(nn.Module):
@@ -681,8 +681,18 @@ def _is_primitive(layer):
 
 
 def _run_span(layers, x):
-    for layer in layers:
-        x = layer(x)
+    """Apply ``layers`` in order; an ``InstanceNorm2d`` followed by a ``ReLU``
+    takes the ReLU into its own pass."""
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        if isinstance(layer, InstanceNorm2d) and i + 1 < len(layers) \
+                and isinstance(layers[i + 1], ReLU):
+            x = layer(x, relu=True)
+            i += 2
+        else:
+            x = layer(x)
+            i += 1
     return x
 
 

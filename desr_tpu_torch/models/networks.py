@@ -56,6 +56,7 @@ from desr_tpu_torch.models.layers import (
     run_layers,
 )
 from desr_tpu_torch.ops import conv3x3 as K
+from desr_tpu_torch.ops import instance_norm as IN
 from desr_tpu_torch.parallel import spatial as S
 
 _PAD_MODE = {"reflect": "reflect", "replicate": "replicate", "zero": "zeros"}
@@ -68,9 +69,10 @@ def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None, dropout=None):
     conv1 emits its output's moments, ``norm_vectors`` folds conv1's bias and
     the norm (InstanceNorm, or GroupNorm with its affine) into per-(b, c)
     scale/shift, conv2 applies them (+ReLU) as it loads its input and emits
-    its own moments, and the last norm is one multiply-add before the skip.
-    Both convs are ``conv3x3_fused``: the kernel on the card, its plain
-    version on the CPU; differentiable either way.
+    its own moments, and the last norm is one multiply-add before the skip:
+    K4's ``norm_apply`` with the skip where no gradient flows. Both convs are
+    ``conv3x3_fused``: the kernel on the card, its plain version on the CPU;
+    differentiable either way.
 
     With a ``dropout`` layer that is in training, the chain stops at it, as
     the JAX chain does (``_fused_link`` returns None at a Dropout): the
@@ -106,8 +108,9 @@ def fused_resnet_chain(x, convs, norms, pad_mode, spatial=None, dropout=None):
     else:
         z, s, s2, n_all = conv(y, c2.weight, sc, sh, pad_mode, True)
     sc, sh = norm_vectors(n2, s, s2, n_all, c2.bias)
-    out = xh + (z.float() * sc[:, None, None, :] + sh[:, None, None, :]).to(x.dtype)
-    return out.permute(0, 3, 1, 2)
+    # NCHW views of NHWC tensors: channels_last, as the output (K1's plain
+    # version returns a permuted view, which K4 does not read)
+    return IN.norm_apply(z.contiguous().permute(0, 3, 1, 2), sc, sh, skip=x)
 
 
 class ResnetBlock(nn.Module):

@@ -8,8 +8,11 @@
     serving.pt2    ``torch.export.save`` of that program, in the model's
                    compute dtype. Each ResnetBlock conv is one
                    ``desr::conv3x3_fused`` node (K1; ``desr::conv3x3``, K2,
-                   under ``--pallas_conv``), so the saved program launches the
-                   kernels, as live serving does.
+                   under ``--pallas_conv``), each InstanceNorm a
+                   ``desr::instance_norm_moments`` and a ``desr::norm_apply``
+                   node and each ResnetBlock's tail a ``desr::norm_apply``
+                   node (K4), so the saved program launches the kernels, as
+                   live serving does.
     params.npz     flat weights keyed ``<net>/<torch state_dict key>``, as the
                    JAX package writes them: its file for the same nets loads
                    here unchanged.
@@ -19,8 +22,9 @@
                    version and the provenance.
 
 ``load_serving`` reads it back without the model classes or the options
-system: it imports the operators (``desr_tpu_torch.ops.conv3x3``), which
-must be registered before the program is loaded, and the weights bridge.
+system: it imports the operators (``desr_tpu_torch.ops.conv3x3`` and
+``.instance_norm``), which must be registered before the program is
+loaded, and the weights bridge.
 The program holds tensors and device arguments of the device it was traced
 on, so an artifact serves only on that device type; loading it for another
 raises. Shapes are static, as in the JAX artifact: serving pads every batch
@@ -110,6 +114,7 @@ def load_serving(artifact_dir, device=None):
 
     from desr_tpu_torch import resolve_device
     from desr_tpu_torch.ops import conv3x3  # noqa: F401  (registers desr::conv3x3*)
+    from desr_tpu_torch.ops import instance_norm  # noqa: F401  (registers desr::*norm*)
     from desr_tpu_torch.weights import from_jax_params
 
     with open(os.path.join(artifact_dir, MANIFEST)) as f:

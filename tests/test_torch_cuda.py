@@ -480,3 +480,176 @@ def test_cuda_fused_chain_under_checkpoint_matches_plain(mode, dtype):
         for n, a, b in zip(names, g_k, g_p):
             scale = w_max if n.endswith("bias") else float(b.abs().max())
             torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * scale, msg=n)
+
+
+# ------------------------------------------------------------------ K4
+
+# (B, C, H, W): the serving nets' norms at batch 8 and 512x640 (resnet_6blocks
+# stem and ups, downs; the U-Nets' levels down to 8x10), and ragged shapes
+# that take the value-by-value paths
+K4_SHAPES = [(8, 32, 512, 640), (8, 64, 256, 320), (8, 128, 128, 160), (8, 256, 64, 80),
+             (8, 512, 8, 10), (2, 200, 9, 11), (3, 5, 7, 13)]
+
+
+def _k4_input(shape, dtype, layout, seed, dev, offset=0.4):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((1.7 * rng.standard_normal(shape) + offset).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    return x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x
+
+
+def _k4_ref64(x, relu, skip, scale_shift=None, eps=1e-5):
+    """The normalisation in float64 from float64 moments (or the (scale,
+    shift) given), [ReLU], [+ skip]."""
+    x64 = x.double()
+    if scale_shift is None:
+        mean = x64.mean(dim=(2, 3), keepdim=True)
+        var = (x64.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp(min=0)
+        y = (x64 - mean) / torch.sqrt(var + eps)
+    else:
+        sc, sh = scale_shift
+        y = x64 * sc.double()[:, :, None, None] + sh.double()[:, :, None, None]
+    if relu:
+        y = y.clamp(min=0)
+    return y if skip is None else y + skip.double()
+
+
+def _half_ulp(v, dtype):
+    """Half a step of ``dtype`` at |v|'s largest value."""
+    m = float(v.abs().max())
+    mant = 7 if dtype == torch.bfloat16 else 23
+    return 0.5 * 2.0 ** (np.floor(np.log2(max(m, 1e-30))) - mant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["norm", "norm_relu", "tail_skip"])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_k4_matches_plain_and_float64(shape, layout, variant):
+    """K4's moments against float64 (within 1e-5 of sum |x| and of sum x^2)
+    and the plain version's; its apply's largest error against float64 no
+    larger than the plain version's plus half a bf16 step (bf16; f32 for
+    the f32 rows), in x's memory format; the norm from moments, with ReLU,
+    and the chain's tail from (scale, shift) with a skip."""
+    from desr_tpu_torch.ops import instance_norm as IN
+
+    dev = _cuda()
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = _k4_input(shape, dtype, layout, 71, dev)
+        before = IN.instance_norm_moments.launches, IN.norm_apply.launches
+        with torch.no_grad():
+            s, s2 = IN.instance_norm_moments(x)
+            ps, ps2 = IN.instance_norm_moments_plain(x)
+            x64 = x.double()
+            for got, plain, ref, mag in ((s, ps, x64.sum(dim=(2, 3)), x64.abs().sum(dim=(2, 3))),
+                                         (s2, ps2, x64.square().sum(dim=(2, 3)), None)):
+                mag = ref if mag is None else mag
+                assert float(((got.double() - ref).abs() / mag).max()) < 1e-5
+                assert float(((plain.double() - ref).abs() / mag).max()) < 1e-5
+            n = shape[2] * shape[3]
+            skip = sc_sh = None
+            if variant == "tail_skip":
+                rng = np.random.default_rng(72)
+                sc_sh = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                    rng.uniform(0.5, 2.0, shape[:2]), rng.standard_normal(shape[:2])))
+                skip = _k4_input(shape, dtype, layout, 73, dev)
+                a, b, nn_ = sc_sh[0], sc_sh[1], None
+            else:
+                a, b, nn_ = s, s2, n
+            relu = variant == "norm_relu"
+            got = IN.norm_apply(x, a, b, nn_, 1e-5, relu, skip)
+            plain = IN.norm_apply_plain(x, a, b, nn_, 1e-5, relu, skip)
+            torch.cuda.synchronize()
+        assert (IN.instance_norm_moments.launches - before[0],
+                IN.norm_apply.launches - before[1]) == (1, 1)
+        assert got.dtype == dt and got.stride() == x.stride()
+        ref = _k4_ref64(x, relu, skip, sc_sh)
+        err_k4 = float((got.double() - ref).abs().max())
+        err_plain = float((plain.double() - ref).abs().max())
+        assert err_k4 <= err_plain + _half_ulp(ref, dt), (dtype, err_k4, err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_cuda_k4_repeats_bit_for_bit(layout):
+    """Two launches of each operator give the same bits (the moments'
+    partials summed in a fixed order, the tickets reset between launches),
+    at a shape split over many blocks and at one that is not."""
+    from desr_tpu_torch.ops import instance_norm as IN
+
+    dev = _cuda()
+    for shape in ((8, 32, 512, 640), (8, 512, 8, 10)):
+        x = _k4_input(shape, "bfloat16", layout, 74, dev)
+        with torch.no_grad():
+            runs = []
+            for _ in range(2):
+                s, s2 = IN.instance_norm_moments(x)
+                runs.append((s, s2, IN.norm_apply(x, s, s2, shape[2] * shape[3], 1e-5, True)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["strided", "nhwc_permuted", "float16", "skip_layout"])
+def test_cuda_k4_raises_instead_of_falling_back(case):
+    """A strided x, an NHWC tensor permuted to a layout that is not
+    channels_last, a dtype the kernels do not take, or a skip in another
+    layout than x's raise before any launch."""
+    from desr_tpu_torch.ops import instance_norm as IN
+
+    dev = _cuda()
+    x = _k4_input((2, 16, 8, 12), "bfloat16", "nchw", 75, dev)
+    skip = None
+    if case == "strided":
+        x = x[:, :, :, ::2]
+    elif case == "nhwc_permuted":
+        x = torch.zeros(2, 8, 12, 16, device=dev, dtype=torch.bfloat16).permute(0, 3, 2, 1)
+    elif case == "float16":
+        x = x.half()
+    else:
+        skip = x.contiguous(memory_format=torch.channels_last)
+    s = torch.ones(x.shape[:2], device=dev)
+    before = IN.instance_norm_moments.launches, IN.norm_apply.launches
+    with torch.no_grad():
+        if skip is None:
+            with pytest.raises((ValueError, TypeError)):
+                IN.instance_norm_moments(x)
+        with pytest.raises((ValueError, TypeError)):
+            IN.norm_apply(x, s, s, 96, 1e-5, False, skip)
+    assert (IN.instance_norm_moments.launches, IN.norm_apply.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_k4_launches_in_serving_and_not_under_a_gradient():
+    """One main serve_forward (small widths, bf16) launches K4 32 times for
+    the moments and 44 for the apply, and runs with K1's plain version
+    swapped in; ``Depth_f`` under a gradient launches it 0 times, and its
+    output then equals the plain route's bit for bit."""
+    from desr_tpu_torch.models.main_model import MainModel, NetOptions
+    from desr_tpu_torch.ops import instance_norm as IN
+
+    dev = _cuda()
+    model = MainModel(NetOptions(ImageDepthf_outf=8, ImageDepthf_basef=8, Depthf_outf=8,
+                                 Depthf_basef=8, I2D_base=8, Task_basef=8), device=dev)
+    rng = np.random.default_rng(76)
+    batch = {"B_d": rng.uniform(-1, 1, (2, 128, 256, 1)).astype(np.float32),
+             "B_i": rng.uniform(-1, 1, (2, 128, 256, 3)).astype(np.float32)}
+    before = IN.instance_norm_moments.launches, IN.norm_apply.launches
+    model.serve_forward(batch)
+    torch.cuda.synchronize()
+    assert (IN.instance_norm_moments.launches - before[0],
+            IN.norm_apply.launches - before[1]) == (32, 44)
+    # with K1's plain version in its place (a permuted view, not NHWC-contiguous)
+    with mock.patch.object(K, "conv3x3_fused", K.conv3x3_fused_plain):
+        assert bool(torch.isfinite(model.serve_forward(batch)).all())
+    net = model.nets["Depth_f"].requires_grad_(True)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 2, 128, 256)).astype(np.float32)).to(dev)
+    x = x.to(torch.bfloat16)
+    before = IN.instance_norm_moments.launches, IN.norm_apply.launches
+    out = net(x)
+    assert out.requires_grad
+    assert (IN.instance_norm_moments.launches, IN.norm_apply.launches) == before
+    with mock.patch.object(IN, "kernel_route", lambda *t: False), torch.no_grad():
+        plain = net(x)
+    assert torch.equal(out.detach(), plain)

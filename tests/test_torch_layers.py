@@ -10,6 +10,7 @@ from test_torch_common import nchw_to_nhwc, nhwc_to_nchw, randn
 
 from desr_tpu.models import layers as JL
 from desr_tpu_torch.models import layers as TL
+from desr_tpu_torch.ops import instance_norm as IN
 
 CFG = JL.InitCfg(init_gain=0.1)
 
@@ -63,7 +64,7 @@ def test_norm_vectors_match_jax(with_bias):
     x = randn((2, 7, 9, 5), 4, 3.0) + 1.0
     bias = randn((5,), 5) if with_bias else None
     xt = nhwc_to_nchw(x)
-    s, s2 = TL.moments_hw(xt)
+    s, s2 = IN.instance_norm_moments(xt)
     n = 7 * 9
     sc, sh = TL.norm_vectors(TL.InstanceNorm2d(5), s, s2, n,
                              None if bias is None else torch.from_numpy(bias))

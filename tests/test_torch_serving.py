@@ -233,3 +233,36 @@ def test_exported_graph_has_one_kernel_node_per_resnetblock_conv(route, tmp_path
     # on the CPU the operators run their plain versions and launch nothing
     assert (K.conv3x3_fused.launches, K.conv3x3.launches) == counts
     torch.testing.assert_close(got, model.serve_forward(batch), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("route", ["main", "pallas_conv", "SR"])
+def test_exported_graph_has_one_k4_node_per_norm_and_tail(route, tmp_path):
+    """One desr::instance_norm_moments node per InstanceNorm the serving
+    nets call as a layer (all but the fused ResnetBlocks' two each; under
+    --pallas_conv those too) and one desr::norm_apply node per such norm and
+    per fused ResnetBlock's tail; the artifact serves the live forward's
+    values, and on the CPU K4 launches nothing."""
+    from desr_tpu_torch.models.layers import InstanceNorm2d
+    from desr_tpu_torch.ops import instance_norm as IN
+
+    fused = route != "pallas_conv"
+    opt = NetOptions(**SMALL, pallas_conv=not fused, crop_size_h=128, crop_size_w=128)
+    model = (MainSRModel if route == "SR" else MainModel)(opt, device="cpu",
+                                                           compute_dtype=torch.float32)
+    hw = (256, 256) if route == "SR" else (128, 128)
+    batch = {"B_d": np.zeros((1, *hw, 1), np.float32), "B_i": np.zeros((1, *hw, 3), np.float32)}
+    export_serving(model, batch, str(tmp_path), model._dump_key)
+    program = torch.export.load(str(tmp_path / "serving.pt2"))
+    ops = collections.Counter(str(n.target) for n in program.graph.nodes
+                              if n.op == "call_function")
+    modules = list(model.serving_module().modules())
+    blocks = sum(hasattr(m, "_convs") for m in modules)
+    norms = sum(isinstance(m, InstanceNorm2d) for m in modules) - (2 * blocks if fused else 0)
+    assert blocks == 12 and norms == (32 if fused else 56)
+    assert ops["desr.instance_norm_moments.default"] == norms
+    assert ops["desr.norm_apply.default"] == norms + (blocks if fused else 0)
+    counts = IN.instance_norm_moments.launches, IN.norm_apply.launches
+    fn, params, _ = load_serving(str(tmp_path))
+    got = fn(params, batch)
+    assert (IN.instance_norm_moments.launches, IN.norm_apply.launches) == counts
+    torch.testing.assert_close(got, model.serve_forward(batch), rtol=0, atol=0)

@@ -19,6 +19,7 @@ from desr_tpu_torch.models import layers as TL
 from desr_tpu_torch.models import networks as TN
 from desr_tpu_torch.models import translation_networks as TT
 from desr_tpu_torch.ops import conv3x3 as K
+from desr_tpu_torch.ops import instance_norm as IN
 from desr_tpu_torch.ops import losses as L
 from desr_tpu_torch.ops import masked_loss as K3
 from desr_tpu_torch.ops import normals as NRM
@@ -219,7 +220,7 @@ class Jitter:
     (chip_smoke.py's phase (q) yardstick, which jitters K1 alone)."""
 
     def __init__(self, seed=12):
-        self.run, self.moments = K._fused_forward, TL.moments_hw
+        self.run, self.moments = K._fused_forward, IN.instance_norm_moments
         self.batch_norm = TL.BatchNorm2d.forward
         self.gen = torch.Generator().manual_seed(seed)
 
@@ -238,7 +239,7 @@ class Jitter:
     def patches(self):
         j = self
         return (mock.patch.object(K, "_fused_forward", self.conv),
-                mock.patch.object(TL, "moments_hw", self.norm_moments),
+                mock.patch.object(IN, "instance_norm_moments", self.norm_moments),
                 mock.patch.object(TL.BatchNorm2d, "forward",
                                   lambda bn, x: j._noise(j.batch_norm(bn, x))))
 

@@ -18,6 +18,7 @@ from desr_tpu.models import layers as JL
 from desr_tpu.models import translation_networks as JT
 from desr_tpu_torch.models import layers as TL
 from desr_tpu_torch.models import translation_networks as TT
+from desr_tpu_torch.ops import instance_norm as IN
 from desr_tpu_torch.weights import from_jax_params
 
 F32 = JL.Ctx(dtype=jnp.float32)
@@ -51,7 +52,7 @@ def test_group_norm_vectors_match_jax(with_bias):
     bias = randn((16,), 5) if with_bias else None
     params = _gn_params(16, 6)
     xt = nhwc_to_nchw(x)
-    s, s2 = TL.moments_hw(xt)
+    s, s2 = IN.instance_norm_moments(xt)
     norm = TL.GroupNorm(8, 16)
     norm.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
     sc, sh = TL.norm_vectors(norm, s, s2, 63, None if bias is None else torch.from_numpy(bias))
